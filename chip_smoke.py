@@ -8,16 +8,23 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
   build    compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
            (one ``nvcc`` per source, all started together);
   kernels  run each kernel at the main path's shapes and hold it against its
-           plain PyTorch version bit for bit (K2 at the lossless 24b ADC and
-           at the paper's 7b ADC, where failures and recovery must occur);
+           plain PyTorch version bit for bit: K3 and K2 (at the lossless 24b
+           ADC and at the paper's 7b ADC, where failures and recovery must
+           occur), K1 with 1b input slices at B = 1, 4, 16, 64 (7b runs must
+           saturate) and with (4,2,2), (8,) slicings and a ragged plane mask,
+           K4 with 8 one-bit input slices and 3 planes;
   serve    build qwen1.5-0.5b at its published size (random weights from a
            seed, bf16), compile its PIM plans and serve 4 requests through
            ``ContinuousServeEngine`` in ``exact``, ``int8`` and ``fast``
-           mode; launch counts are zeroed before and read after each mode;
-           exact tokens must equal int8 tokens at the 24b ADC;
+           mode, then ``exact`` with speculation off (the static-slicing
+           kernel K1 on the pinned plans) and ``exact`` with adaptive
+           slicing (Algorithm 1 per site through K1 at compile time);
+           launch counts are zeroed before and read after each run; every
+           exact run's tokens must equal the int8 tokens at the 24b ADC;
   timing   one decode step's worth of kernel calls on the compiled plans
            (distinct weights per layer, as the model has them) against the
-           plain versions and, for K3, ``torch._int_mm``.
+           plain versions and, for K3, ``torch._int_mm``; K4 at the four
+           projection shapes.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -43,7 +50,9 @@ INT8_OPS_PER_S = 1979e12
 SITE_SHAPES = {"qkvo": (1024, 1024), "up": (1024, 2816), "down": (2816, 1024),
                "head": (1024, 151936)}
 BATCHES = (1, 4, 64)
+K1_BATCHES = (1, 4, 16, 64)  # 16: Algorithm 1's search rows
 SPEC = (4, 2, 2)
+ONE_BIT = (1,) * 8           # Algorithm 1's input slicing
 
 
 def say(phase: str, **fields) -> None:
@@ -139,21 +148,14 @@ def phase_kernels(rows: list) -> None:
                               device="cuda", dtype=torch.int8)
             cen = torch.randint(-200, 200, (C,), generator=gen,
                                 device="cuda", dtype=torch.int32)
-            got = im.launch(x, w, cen)
-            want = im.plain(x, w, cen)
-            torch.cuda.synchronize()
-            match = bool(torch.equal(got, want))
-            row = dict(kernel="centered_int8_matmul", site=site, B=B, R=R,
-                       C=C, match=match, tolerance=0,
-                       max_abs_err=int((got.long() - want.long()).abs().max()))
+            row = compare("centered_int8_matmul", im.launch(x, w, cen),
+                          im.plain(x, w, cen), site=site, B=B, R=R, C=C)
             row["kernel_ms"] = cuda_ms(lambda: im.launch(x, w, cen), 5)
             row["plain_ms"] = cuda_ms(lambda: im.plain(x, w, cen), 2)
             row["library_ms"] = (cuda_ms(lambda: torch._int_mm(x, w), 5)
                                  if B > 16 else None)
             rows.append(row)
             say("kernels", **row)
-            if not match:
-                raise AssertionError(f"K3 mismatch at {site} B={B}")
             # K2 at the lossless and the paper's ADC
             xu, planes, shifts, centers = k2_inputs(B, R, C, gen)
             tables = ops.spec_tables(planes, shifts, SPEC)
@@ -161,29 +163,23 @@ def phase_kernels(rows: list) -> None:
                 adc = adc_lib.ADCConfig(bits=bits)
                 kw = dict(adc_lo=adc.lo, adc_hi=adc.hi)
                 got = fs.launch(xu, *tables, centers, **kw)
-                want = fs.plain(xu, *tables, centers, **kw)
-                torch.cuda.synchronize()
-                match = all(torch.equal(g, wv) for g, wv in zip(got, want))
-                row = dict(kernel="fused_spec_crossbar", site=site, B=B, R=R,
-                           C=C, adc_bits=bits, match=match, tolerance=0,
-                           max_abs_err=int((got[0].long()
-                                            - want[0].long()).abs().max()),
-                           fails=got[1].tolist(), rsats=int(got[2]))
+                row = compare("fused_spec_crossbar", got,
+                              fs.plain(xu, *tables, centers, **kw),
+                              site=site, B=B, R=R, C=C, adc_bits=bits,
+                              fails=got[1].tolist(), rsats=int(got[2]))
                 if bits == 24:
                     row["kernel_ms"] = cuda_ms(
                         lambda: fs.launch(xu, *tables, centers, **kw), 5)
                     row["plain_ms"] = cuda_ms(
                         lambda: fs.plain(xu, *tables, centers, **kw), 1)
-                rows.append(row)
-                say("kernels", **row)
-                if not match:
-                    raise AssertionError(f"K2 mismatch at {site} B={B} "
-                                         f"{bits}b: {got[1:]} vs {want[1:]}")
-                if bits == 7 and not (int(got[1].sum()) > 0
-                                      and int(got[2]) > 0):
+                elif not (int(got[1].sum()) > 0 and int(got[2]) > 0):
                     raise AssertionError("7b ADC run had no failures or no "
                                          "recovery saturations")
+                rows.append(row)
+                say("kernels", **row)
             del xu, planes, centers
+    check_k1(rows, gen)
+    check_k4(rows, gen)
     summary = []
     for name, count in ops.launch_counts().items():
         mine = [r for r in rows if r["kernel"] == name]
@@ -203,6 +199,112 @@ def phase_kernels(rows: list) -> None:
     say("kernels", ok=True, compared=len(rows), kernels=json.dumps(summary))
 
 
+def compare(kernel: str, got, want, **fields) -> dict:
+    """One bit-for-bit comparison row; raises on a mismatch."""
+    import torch
+    torch.cuda.synchronize()
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    match = all(torch.equal(g, w) for g, w in zip(got, want))
+    row = dict(kernel=kernel, **fields, match=match, tolerance=0,
+               max_abs_err=int((got[0].long() - want[0].long()).abs().max()))
+    if not match:
+        say("kernels", **row)
+        raise AssertionError(f"{kernel} mismatch: {fields}")
+    return row
+
+
+def check_k1(rows: list, gen) -> None:
+    """K1 at Algorithm 1's input slicing over the site shapes and batch
+    sizes (the search runs B = 16, nospec decode B = 4), then other input
+    slicings and a ragged plane mask at one shape."""
+    import torch
+    from repro_torch.core import adc as adc_lib
+    from repro_torch.kernels import fused_crossbar as fx
+    from repro_torch.kernels import ops
+    for site, (R, C) in SITE_SHAPES.items():
+        for B in K1_BATCHES:
+            xu, planes, shifts, centers = k2_inputs(B, R, C, gen)
+            tables = ops.crossbar_tables(planes, shifts, ONE_BIT)
+            for bits in (24, 7):
+                adc = adc_lib.ADCConfig(bits=bits)
+                kw = dict(adc_lo=adc.lo, adc_hi=adc.hi)
+                got = fx.launch(xu, *tables, centers, **kw)
+                row = compare("fused_crossbar", got,
+                              fx.plain(xu, *tables, centers, **kw),
+                              site=site, B=B, R=R, C=C, adc_bits=bits,
+                              input_slicing="1x8", sats=int(got[1]))
+                if bits == 24:
+                    row["kernel_ms"] = cuda_ms(
+                        lambda: fx.launch(xu, *tables, centers, **kw), 5)
+                    row["plain_ms"] = cuda_ms(
+                        lambda: fx.plain(xu, *tables, centers, **kw), 1)
+                elif int(got[1]) == 0:
+                    raise AssertionError("7b ADC run of K1 had no saturations")
+                rows.append(row)
+                say("kernels", **row)
+            del xu, planes, centers, tables
+    R, C = SITE_SHAPES["qkvo"]
+    xu, planes, shifts, centers = k2_inputs(4, R, C, gen)
+    xu = torch.randint(0, 256, xu.shape, generator=gen, device="cuda",
+                       dtype=torch.int32)  # full 8b codes
+    planes = torch.cat([planes, torch.full_like(planes[:1], 7)])
+    valid = torch.tensor([True, True, True, False], device="cuda")
+    shifts = torch.tensor([4, 2, 0, 6], dtype=torch.int32, device="cuda")
+    for slicing in (SPEC, (8,)):
+        tables = ops.crossbar_tables(planes, shifts, slicing, valid)
+        for bits in (24, 7):
+            adc = adc_lib.ADCConfig(bits=bits)
+            kw = dict(adc_lo=adc.lo, adc_hi=adc.hi)
+            got = fx.launch(xu, *tables, centers, **kw)
+            row = compare("fused_crossbar", got,
+                          fx.plain(xu, *tables, centers, **kw), site="qkvo",
+                          B=4, R=R, C=C, adc_bits=bits,
+                          input_slicing="-".join(map(str, slicing)),
+                          valid="1110", sats=int(got[1]))
+            rows.append(row)
+            say("kernels", **row)
+
+
+def k4_inputs(B: int, R: int, C: int, gen):
+    """8 one-bit slices of unsigned codes (0..127) and (4,2,2)-range
+    planes with their recombination multipliers 2**(l_i + l_j)."""
+    import torch
+    x = torch.randint(0, 128, (B, R), generator=gen, device="cuda")
+    xs = torch.stack([(x >> (7 - i)) & 1 for i in range(8)]).to(torch.int8)
+    planes = torch.stack([
+        torch.randint(-m, m + 1, (R, C), generator=gen, device="cuda",
+                      dtype=torch.int8) for m in (15, 3, 3)])
+    mults = torch.tensor([[1 << (7 - i + lj) for lj in (4, 2, 0)]
+                          for i in range(8)], dtype=torch.int32,
+                         device="cuda")
+    return xs.contiguous(), planes, mults
+
+
+def check_k4(rows: list, gen) -> None:
+    """K4 at the four site shapes, B = 4, at 24b and 7b."""
+    from repro_torch.core import adc as adc_lib
+    from repro_torch.kernels import sliced_crossbar as sx
+    for site, (R, C) in SITE_SHAPES.items():
+        xs, planes, mults = k4_inputs(4, R, C, gen)
+        for bits in (24, 7):
+            adc = adc_lib.ADCConfig(bits=bits)
+            kw = dict(adc_lo=adc.lo, adc_hi=adc.hi)
+            row = compare("sliced_crossbar", sx.launch(xs, planes, mults,
+                                                       **kw),
+                          sx.plain(xs, planes, mults, **kw), site=site, B=4,
+                          R=R, C=C, adc_bits=bits, n_i=8, n_j=3)
+            if bits == 24:
+                row["kernel_ms"] = cuda_ms(
+                    lambda: sx.launch(xs, planes, mults, **kw), 5)
+                row["plain_ms"] = cuda_ms(
+                    lambda: sx.plain(xs, planes, mults, **kw), 1)
+                row["bytes"] = 8 * 4 * R + 3 * R * C + 4 * 24 + 4 * 4 * C
+                row["ops"] = 2 * 8 * 3 * 4 * R * C
+            rows.append(row)
+            say("kernels", **row)
+        del xs, planes, mults
+
+
 def serve_requests(vocab: int):
     """4 requests, prompts of 8..16 tokens, 8 new tokens each (seeded)."""
     import numpy as np
@@ -214,7 +316,9 @@ def serve_requests(vocab: int):
 
 
 def phase_serve(ctx: dict) -> None:
-    """Serve qwen1.5-0.5b at full width in exact, int8 and fast mode."""
+    """Serve qwen1.5-0.5b at full width in exact, int8 and fast mode, then
+    exact with speculation off on the pinned exact plans, then exact with
+    Algorithm 1's adaptive per-site plans."""
     import dataclasses
     import torch
     from repro_torch import configs
@@ -234,23 +338,34 @@ def phase_serve(ctx: dict) -> None:
     reqs = serve_requests(cfg0.vocab_size)
     max_len = max(len(r.prompt) for r in reqs) + 8 + 1
     calib = calibration_tokens(cfg0, 16)
-    tokens = {}
-    for mode in ("exact", "int8", "fast"):
-        cfg = dataclasses.replace(cfg0, pim_mode=mode)
+    n_proj = 7 * cfg0.n_layers + 1  # weight-static projections per call
+    runs = (("exact", dict(pim_mode="exact")),
+            ("int8", dict(pim_mode="int8")),
+            ("fast", dict(pim_mode="fast")),
+            ("exact-nospec", dict(pim_mode="exact", pim_speculation=False)),
+            ("exact-adaptive", dict(pim_mode="exact",
+                                    pim_weight_slicing="adaptive")))
+    tokens, totals = {}, {}
+    for run, over in runs:
+        cfg = dataclasses.replace(cfg0, **over)
+        ops.reset_launch_counts()
         t0 = time.perf_counter()
-        compiled = pim.compile_pim_params(params, cfg, calib)
+        if run == "exact-nospec":  # the pinned exact plans, speculation off
+            compiled = ctx["exact_compiled"]
+        else:
+            compiled = pim.compile_pim_params(params, cfg, calib)
         torch.cuda.synchronize()
         compile_s = time.perf_counter() - t0
+        compile_launches = ops.launch_counts()
         eng = ContinuousServeEngine(cfg, params, n_slots=4, max_len=max_len,
                                     prefill_chunk=64, plans=compiled.plans)
-        ops.reset_launch_counts()
         t0 = time.perf_counter()
         with L.collect_pim_stats() as sink:
             outs = eng.run(reqs)
             torch.cuda.synchronize()
             serve_s = time.perf_counter() - t0
             launches = ops.launch_counts()
-            totals = L.pim_stats_totals(sink)
+            totals[run] = L.pim_stats_totals(sink)
         st = eng.stats
         n_tok = sum(len(o.tokens) for o in outs)
         assert len(outs) == len(reqs) and all(
@@ -258,21 +373,19 @@ def phase_serve(ctx: dict) -> None:
         assert all(0 <= int(t) < cfg0.vocab_size for o in outs
                    for t in o.tokens)
         calls = st.decode_steps + st.prefill_chunks
-        k2, k3 = launches["fused_spec_crossbar"], launches["centered_int8_matmul"]
-        if mode == "exact":
-            # every projection, both signed passes, went through K2
-            assert k2 == 2 * (7 * cfg0.n_layers + 1) * calls and k3 == 0, \
-                launches
-            ctx["k2_launches"] = k2
-            ctx["exact_plans"] = compiled.plans
-        elif mode == "fast":
-            assert k3 == (7 * cfg0.n_layers + 1) * calls and k2 == 0, launches
-            ctx["k3_launches"] = k3
-            ctx["fast_plans"] = compiled.plans
-        else:
-            assert k2 == k3 == 0, launches
-        tokens[mode] = [o.tokens.tolist() for o in outs]
-        row = dict(mode=mode, compile_s=round(compile_s, 3),
+        served = {k: launches[k] - compile_launches[k] for k in launches}
+        k1, k2, k3, k4 = (served[k] for k in (
+            "fused_crossbar", "fused_spec_crossbar", "centered_int8_matmul",
+            "sliced_crossbar"))
+        # every projection, both signed passes, through one kernel
+        want = {"exact": (0, 2 * n_proj * calls, 0),
+                "fast": (0, 0, n_proj * calls),
+                "int8": (0, 0, 0),
+                "exact-nospec": (2 * n_proj * calls, 0, 0),
+                "exact-adaptive": (0, 2 * n_proj * calls, 0)}[run]
+        assert (k1, k2, k3) == want and k4 == 0, (run, launches)
+        tokens[run] = [o.tokens.tolist() for o in outs]
+        row = dict(mode=run, compile_s=round(compile_s, 3),
                    serve_s=round(serve_s, 3),
                    prefill_s=round(st.prefill_seconds, 3),
                    decode_s=round(st.decode_seconds, 3),
@@ -283,18 +396,41 @@ def phase_serve(ctx: dict) -> None:
                        (n_tok - len(outs)) / st.decode_seconds, 2),
                    launches=json.dumps(launches),
                    launches_per_step=json.dumps(
-                       {k: v / calls for k, v in launches.items()}))
-        if mode == "exact":
-            row.update(adc_converts_per_token=round(
-                totals["adc_converts"] / n_tok, 1),
-                no_spec_converts_per_token=round(
-                    totals["no_spec_converts"] / n_tok, 1),
-                spec_failures=totals["spec_failures"])
+                       {k: v / calls for k, v in served.items()}))
+        if run.startswith("exact"):
+            tot = totals[run]
+            row.update(adc_converts_per_token=tot["adc_converts"] / n_tok,
+                       no_spec_converts_per_token=tot["no_spec_converts"]
+                       / n_tok, spec_failures=tot["spec_failures"])
+        if run == "exact":
+            ctx["k2_launches"] = k2
+            ctx["exact_compiled"] = compiled
+        elif run == "fast":
+            ctx["k3_launches"] = k3
+            ctx["fast_plans"] = compiled.plans
+        elif run == "exact-nospec":
+            # both count B * n_seg * C * 8 * n_j converts per pass
+            assert tot["adc_converts"] == totals["exact"]["no_spec_converts"]
+        elif run == "exact-adaptive":
+            errs = [sp.error for sp in compiled.sites]
+            ctx["k1_launches"] = launches["fused_crossbar"]
+            ctx["adaptive_compile_s"] = compile_s
+            row.update(
+                search_k1_launches=compile_launches["fused_crossbar"],
+                slice_histogram=json.dumps(compiled.slice_histogram()),
+                distinct_slicings=json.dumps(
+                    ["-".join(map(str, sl))
+                     for sl in compiled.distinct_slicings()]),
+                mean_site_error=sum(errs) / len(errs),
+                max_site_error=max(errs))
+            assert compile_launches["fused_crossbar"] > 0
         say("serve", **row)
         del compiled, eng
-    if tokens["exact"] != tokens["int8"]:
-        raise AssertionError("exact tokens differ from int8 tokens at the "
-                             f"24b ADC: {tokens['exact']} vs {tokens['int8']}")
+    for run in ("exact", "exact-nospec", "exact-adaptive"):
+        if tokens[run] != tokens["int8"]:
+            raise AssertionError(
+                f"{run} tokens differ from int8 tokens at the 24b ADC: "
+                f"{tokens[run]} vs {tokens['int8']}")
     say("serve", ok=True, exact_equals_int8=True,
         first_tokens=json.dumps(tokens["exact"][0]))
     del params
@@ -311,30 +447,53 @@ def step_calls(plans: dict) -> list:
     return out + [("head", plans["head"])]
 
 
-def phase_timing(ctx: dict, rows: list) -> list:
-    """Time one decode step's worth of each kernel's calls (B = 4 slots)
-    on the compiled plans: distinct weights per layer, as the model has
-    them, so the 50 MB L2 holds none of them between calls."""
+def bound(n_bytes: int, n_ops: int) -> dict:
+    """The least time the card could take: bytes over HBM bandwidth or
+    int8 operations over the tensor-core peak, whichever is larger."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT8_OPS_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=n_bytes, ops=n_ops)
+
+
+def crossbar_step(plans: dict, slicing: tuple, spec: bool, gen):
+    """One decode step's crossbar calls (B = 4 slots, two signed passes per
+    projection, codes 0..127) on compiled exact plans: K2's operands
+    (``spec``) or K1's, with the bytes and int8 operations they need."""
     import torch
-    from repro_torch.kernels import fused_spec_crossbar as fs
-    from repro_torch.kernels import int8_matmul as im
     from repro_torch.kernels import ops
-    B = 4
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    # K2: two signed passes per projection, codes 0..127 per pass
-    k2_calls, k2_bytes, k2_ops = [], 0, 0
-    for _, leaf in step_calls(ctx["exact_plans"]):
+    B, n_i = 4, len(slicing)
+    tables_fn = ops.spec_tables if spec else ops.crossbar_tables
+    n_counts = n_i + 1 if spec else 1  # int64 counters out
+    calls, n_bytes, n_ops = [], 0, 0
+    for _, leaf in step_calls(plans):
         n_j, n_seg, rx, C = leaf["planes"].shape
         R = leaf["w_q"].shape[0]
-        tables = ops.spec_tables(leaf["planes"], leaf["slice_shifts"], SPEC)
+        tables = tables_fn(leaf["planes"], leaf["slice_shifts"], slicing)
         for _ in range(2):
             x = torch.randint(0, 128, (B, R), generator=gen, device="cuda",
                               dtype=torch.int32)
-            k2_calls.append((x, tables, leaf["enc_centers"].contiguous()))
-            k2_bytes += (4 * B * R + n_j * n_seg * rx * C + 4 * len(SPEC) * n_j
-                         + 4 * n_seg * C + 4 * B * C + 8 * (len(SPEC) + 1))
-            k2_ops += 2 * B * n_seg * rx * C * n_j * len(SPEC)
+            calls.append((x, tables, leaf["enc_centers"].contiguous()))
+            n_bytes += (4 * B * R + n_j * n_seg * rx * C + 4 * n_i * n_j
+                        + 4 * n_seg * C + 4 * B * C + 8 * n_counts)
+            n_ops += 2 * B * n_seg * rx * C * n_j * n_i
+    return calls, n_bytes, n_ops
+
+
+def phase_timing(ctx: dict, rows: list) -> list:
+    """Time one decode step's worth of each kernel's calls (B = 4 slots)
+    on the compiled plans: distinct weights per layer, as the model has
+    them, so the 50 MB L2 holds none of them between calls. K4, which no
+    path calls, is timed at the four projection shapes."""
+    import torch
+    from repro_torch.kernels import fused_crossbar as fx
+    from repro_torch.kernels import fused_spec_crossbar as fs
+    from repro_torch.kernels import int8_matmul as im
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    exact_plans = ctx["exact_compiled"].plans
     kw = dict(adc_lo=-(1 << 23), adc_hi=(1 << 23) - 1)  # the 24b ADC
+    # K2: the spec-on exact plans
+    k2_calls, k2_bytes, k2_ops = crossbar_step(exact_plans, SPEC, True, gen)
 
     def k2_step(fn):
         return [fn(x, *t, c, **kw) for x, t, c in k2_calls]
@@ -342,49 +501,72 @@ def phase_timing(ctx: dict, rows: list) -> list:
     assert fails == 0  # no recovery work at 24b: the bound is the spec dots
     k2 = dict(ms=cuda_ms(lambda: k2_step(fs.launch), 5),
               plain_ms=cuda_ms(lambda: k2_step(fs.plain), 1, warmup=0),
-              bound_ms=1e3 * max(k2_bytes / HBM_BYTES_PER_S,
-                                 k2_ops / INT8_OPS_PER_S),
-              bound_by="bytes" if k2_bytes / HBM_BYTES_PER_S
-              >= k2_ops / INT8_OPS_PER_S else "operations",
-              library_ms=None, calls=len(k2_calls), bytes=k2_bytes)
+              library_ms=None, calls=len(k2_calls),
+              **bound(k2_bytes, k2_ops))
+    # K1: the same plans, speculation off (1b input slices)
+    k1_calls, k1_bytes, k1_ops = crossbar_step(exact_plans, ONE_BIT, False,
+                                               gen)
+
+    def k1_step(fn):
+        return [fn(x, *t, c, **kw) for x, t, c in k1_calls]
+    k1 = dict(ms=cuda_ms(lambda: k1_step(fx.launch), 5),
+              plain_ms=cuda_ms(lambda: k1_step(fx.plain), 1, warmup=0),
+              library_ms=None, calls=len(k1_calls),
+              **bound(k1_bytes, k1_ops))
     # K3: one call per projection, int8 codes
     k3_calls, k3_bytes, k3_ops = [], 0, 0
     for _, leaf in step_calls(ctx["fast_plans"]):
         R, C = leaf["w_off"].shape
-        x = torch.randint(-127, 128, (B, R), generator=gen, device="cuda",
+        x = torch.randint(-127, 128, (4, R), generator=gen, device="cuda",
                           dtype=torch.int8)
         k3_calls.append((x, leaf["w_off"], leaf["centers"]))
-        k3_bytes += B * R + R * C + 4 * C + 4 * B * C
-        k3_ops += 2 * B * R * C
+        k3_bytes += 4 * R + R * C + 4 * C + 4 * 4 * C
+        k3_ops += 2 * 4 * R * C
     k3 = dict(ms=cuda_ms(lambda: [im.launch(*a) for a in k3_calls], 5),
               plain_ms=cuda_ms(lambda: [im.plain(*a) for a in k3_calls], 2),
-              bound_ms=1e3 * max(k3_bytes / HBM_BYTES_PER_S,
-                                 k3_ops / INT8_OPS_PER_S),
-              bound_by="bytes" if k3_bytes / HBM_BYTES_PER_S
-              >= k3_ops / INT8_OPS_PER_S else "operations",
-              library_ms=None, calls=len(k3_calls), bytes=k3_bytes)
-    for name, d in (("fused_spec_crossbar", k2), ("centered_int8_matmul", k3)):
-        say("timing", kernel=name, scope="one decode step, B=4",
-            **{k: (round(v, 4) if isinstance(v, float) else v)
-               for k, v in d.items()})
+              library_ms=None, calls=len(k3_calls),
+              **bound(k3_bytes, k3_ops))
+    # K4: the kernels phase's four 24b site rows
+    k4_rows = [r for r in rows if r["kernel"] == "sliced_crossbar"
+               and "kernel_ms" in r]
+    k4 = dict(ms=sum(r["kernel_ms"] for r in k4_rows),
+              plain_ms=sum(r["plain_ms"] for r in k4_rows),
+              library_ms=None, calls=len(k4_rows),
+              **bound(sum(r["bytes"] for r in k4_rows),
+                      sum(r["ops"] for r in k4_rows)))
+    table = (("fused_crossbar", k1, "one decode step, B=4, speculation off"),
+             ("fused_spec_crossbar", k2, "one decode step, B=4"),
+             ("centered_int8_matmul", k3, "one decode step, B=4"),
+             ("sliced_crossbar", k4, "the four projection shapes, B=4"))
+    for name, d, scope in table:
+        say("timing", kernel=name, scope=scope, **d)
+    say("timing", scope="Algorithm 1 compile, full width",
+        adaptive_compile_s=ctx["adaptive_compile_s"],
+        search_k1_launches=ctx["k1_launches"])
 
     def err(kernel):
         return max(r["max_abs_err"] for r in rows if r["kernel"] == kernel)
-    return [
-        dict(name="fused_spec_crossbar", route="cuda",
-             source="src/repro_torch/kernels/csrc/fused_spec_crossbar.cu",
-             replaces="src/repro/kernels/fused_spec_crossbar.py:139",
-             launches=ctx["k2_launches"],
-             max_abs_err=err("fused_spec_crossbar"), ms=k2["ms"],
-             plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by=k2["bound_by"], library_ms=None),
-        dict(name="centered_int8_matmul", route="cuda",
-             source="src/repro_torch/kernels/csrc/centered_int8_matmul.cu",
-             replaces="src/repro/kernels/int8_matmul.py:51",
-             launches=ctx["k3_launches"],
-             max_abs_err=err("centered_int8_matmul"), ms=k3["ms"],
-             plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
-             bound_by=k3["bound_by"], library_ms=None)]
+    meta = {
+        "fused_crossbar": ("fused_crossbar.cu", "fused_crossbar.py:104",
+                           ctx["k1_launches"]),
+        "fused_spec_crossbar": ("fused_spec_crossbar.cu",
+                                "fused_spec_crossbar.py:139",
+                                ctx["k2_launches"]),
+        "centered_int8_matmul": ("centered_int8_matmul.cu",
+                                 "int8_matmul.py:51", ctx["k3_launches"]),
+        # no caller under src/: never launched on a served path
+        "sliced_crossbar": ("sliced_crossbar.cu", "sliced_crossbar.py:65",
+                            0)}
+    out = []
+    for name, d, _ in table:
+        src, rep, launches = meta[name]
+        out.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src}",
+            replaces=f"src/repro/kernels/{rep}", launches=launches,
+            max_abs_err=err(name), ms=d["ms"], plain_ms=d["plain_ms"],
+            bound_ms=d["bound_ms"], bound_by=d["bound_by"], library_ms=None))
+    return out
 
 
 # ---------------------------------------------------------------- main
@@ -394,6 +576,9 @@ def main() -> int:
                     help="comma list of phases to run (default: all)")
     args = ap.parse_args()
     phases = args.phases.split(",")
+    if "timing" in phases and "serve" not in phases:
+        ap.error("--phases timing needs serve: it times the plans that the "
+                 "serve phase compiles")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "

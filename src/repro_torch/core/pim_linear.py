@@ -3,16 +3,17 @@
 Port of ``repro.core.pim_linear``. Modes:
 
   exact — bit-exact simulation of the accelerator datapath (Center+Offset,
-          sliced 512-row crossbars, the ADC, speculation and recovery —
-          kernel K2). Signed inputs run as two unsigned passes (paper §5.1).
+          sliced 512-row crossbars, the ADC): with speculation and
+          recovery (kernel K2), or with static input slicing when the plan
+          has speculation off (kernel K1). Signed inputs run as two
+          unsigned passes (paper §5.1).
   int8  — ``forward_int_reference``: the ideal 8b-quantized layer that
           ``exact`` equals bit for bit at a non-saturating ADC.
   fast  — the centered int8 matmul plus the rank-1 center term (Eq. 1 —
           kernel K3).
 
-This slice ports the speculation path only: a plan with speculation off
-(the static-slicing datapath, kernel K1) or with a nonideal device raises
-``NotImplementedError``.
+A plan with a nonideal device, or a nonzero ADC noise level, raises
+``NotImplementedError``: neither is ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +24,10 @@ from typing import Sequence
 import torch
 
 from repro_torch.core import adc as adc_lib
+from repro_torch.core import backends as bk
 from repro_torch.core import center_offset as co
+from repro_torch.core import crossbar as xbar
+from repro_torch.core import slicing as sl
 from repro_torch.core import speculation as spec
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import _int_matmul
@@ -39,8 +43,11 @@ class PimPlan:
     adc: adc_lib.ADCConfig
     speculation: bool
     spec_slicing: tuple[int, ...] = spec.SPEC_SLICING
-    # analog array model: only the ideal integer read (None) is ported
-    device: object | None = None
+    # None: per-site compiled plans (enc carries the shifts)
+    weight_slicing: tuple[int, ...] | None = None
+    encode_mode: str = "center"     # "center" | "zero" (differential baseline)
+    # analog array model: only the ideal integer read (None / IdealSim)
+    device: bk.CrossbarBackend | None = None
     fast_w_off: torch.Tensor | None = None    # int8 offsets (rows, cols)
     fast_centers: torch.Tensor | None = None  # int32 per-column centers
     fast_scale: torch.Tensor | None = None    # fp32 per-column scale
@@ -61,7 +68,9 @@ def prepare(w: torch.Tensor, x_cal: torch.Tensor, *,
                     mode=encode_mode)
     w_off, centers, fscale = q.quantize_weights_centered(w)
     return PimPlan(enc=enc, lq=lq, w_q=w_q, adc=adc, speculation=speculation,
-                   fast_w_off=w_off, fast_centers=centers, fast_scale=fscale)
+                   weight_slicing=tuple(weight_slicing),
+                   encode_mode=encode_mode, fast_w_off=w_off,
+                   fast_centers=centers, fast_scale=fscale)
 
 
 def _unsigned_passes(x_q: torch.Tensor,
@@ -72,23 +81,27 @@ def _unsigned_passes(x_q: torch.Tensor,
     return [(1, x_q.clamp_min(0)), (-1, (-x_q).clamp_min(0))]
 
 
-def _accumulate_int(x_q: torch.Tensor, plan: PimPlan,
+def _accumulate_int(x_q: torch.Tensor, plan: PimPlan, *,
+                    input_slicing: Sequence[int] | None = None,
                     backend: str | None = None
                     ) -> tuple[torch.Tensor, list]:
-    """x_q (B, rows) int codes -> x_q @ w_q int32 via the crossbar."""
-    if plan.device is not None:
+    """x_q (B, rows) int codes -> x_q @ w_q int32 via the crossbar: the
+    speculation pass (K2) or, with speculation off, the static-slicing
+    pass (K1) at ``input_slicing`` (default 1b slices)."""
+    if plan.device is not None and not isinstance(plan.device, bk.IdealSim):
         raise NotImplementedError(
             "nonideal crossbar devices are not ported yet (ROADMAP)")
-    if not plan.speculation:
-        raise NotImplementedError(
-            "the static-slicing exact datapath (kernel K1) is not ported "
-            "yet (ROADMAP); plans must run with speculation")
     stats = []
     acc = torch.zeros((x_q.shape[0], plan.enc.cols), dtype=torch.int32,
                       device=x_q.device)
+    in_sl = (1,) * sl.INPUT_BITS if input_slicing is None else input_slicing
     for sign, xp in _unsigned_passes(x_q, plan.lq.x_signed):
-        psum, st = spec.forward(xp, plan.enc, plan.spec_slicing, plan.adc,
-                                backend=backend)
+        if plan.speculation:
+            psum, st = spec.forward(xp, plan.enc, plan.spec_slicing,
+                                    plan.adc, backend=backend)
+        else:
+            psum, st = xbar.forward(xp, plan.enc, in_sl, plan.adc,
+                                    backend=backend, device=plan.device)
         acc = acc + sign * psum
         stats.append(st)
     # unsigned-weight-domain -> signed int8 weight domain: w_q = w_u - 128
@@ -103,10 +116,18 @@ def quantize_inputs(x: torch.Tensor, plan: PimPlan) -> torch.Tensor:
 
 
 def forward_exact(x: torch.Tensor, plan: PimPlan, *,
+                  input_slicing: Sequence[int] | None = None,
+                  noise_level: float = 0.0,
                   backend: str | None = None,
                   return_stats: bool = False):
-    """Float-in / float-out exact accelerator simulation."""
-    y_int, stats = _accumulate_int(quantize_inputs(x, plan), plan, backend)
+    """Float-in / float-out exact accelerator simulation. ``input_slicing``
+    applies with speculation off (default 1b slices)."""
+    if noise_level:
+        raise NotImplementedError(
+            "ADC noise is not ported yet (ROADMAP); noise_level must be 0")
+    y_int, stats = _accumulate_int(quantize_inputs(x, plan), plan,
+                                   input_slicing=input_slicing,
+                                   backend=backend)
     y = q.dequantize(y_int, plan.lq)
     if return_stats:
         return y, stats
@@ -144,3 +165,9 @@ def forward_fast(x: torch.Tensor, plan: PimPlan) -> torch.Tensor:
     if plan.lq.bias is not None:
         y = y + plan.lq.bias[None, :]
     return y
+
+
+def output_codes(y: torch.Tensor, plan: PimPlan,
+                 relu: bool = False) -> torch.Tensor:
+    """8b requantized output codes (what flows between PIM tiles)."""
+    return q.requantize_outputs(y, plan.lq, relu=relu)

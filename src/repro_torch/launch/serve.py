@@ -6,11 +6,14 @@ Runs on the CUDA card unless ``--device cpu`` is given (without a card the
 default device raises). ``--engine continuous`` (default) drives the
 slot-based scheduler on a mixed-length trace and reports decode-step
 utilization next to throughput; ``--engine lockstep`` runs the fixed-batch
-reference engine. ``--pim fast|exact|int8`` compiles PIM plans (pinned
-``--pim-slicing``, calibrated on ``np.random.default_rng(7)`` tokens) and
-routes every weight-static projection through the centered int8 kernel
-(fast), the speculation/recovery crossbar kernel (exact) or the ideal
-8b-quantized reference (int8). Weights are random, from seed 0.
+reference engine. ``--pim fast|exact|int8`` compiles PIM plans
+(calibrated on ``np.random.default_rng(7)`` tokens; ``--pim-slicing`` pins
+a slicing like ``4,2,2`` or, with ``adaptive``, runs Algorithm 1 per
+projection site through the static-slicing crossbar kernel and prints the
+per-site table) and routes every weight-static projection through the
+centered int8 kernel (fast), the speculation/recovery crossbar kernel
+(exact) or the ideal 8b-quantized reference (int8). Weights are random,
+from seed 0.
 """
 
 from __future__ import annotations
@@ -69,7 +72,8 @@ def main(argv=None) -> None:
     ap.add_argument("--pim", choices=("off", "fast", "exact", "int8"),
                     default="off")
     ap.add_argument("--pim-slicing", default=None,
-                    help="comma tuple like '4,2,2' pinning every site")
+                    help="'adaptive' (Algorithm 1 per site) or a comma "
+                         "tuple like '4,2,2' pinning every site")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -81,8 +85,9 @@ def main(argv=None) -> None:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, pim_mode=args.pim)
     if args.pim_slicing is not None:
-        cfg = dataclasses.replace(cfg, pim_weight_slicing=tuple(
-            int(b) for b in args.pim_slicing.split(",")))
+        slicing = args.pim_slicing if args.pim_slicing == "adaptive" \
+            else tuple(int(b) for b in args.pim_slicing.split(","))
+        cfg = dataclasses.replace(cfg, pim_weight_slicing=slicing)
     params = T.init_params(cfg, seed=0, device=dev)
     max_len = args.prompt_len + args.steps + 1
 
@@ -98,6 +103,11 @@ def main(argv=None) -> None:
               f"slicing={cfg.pim_weight_slicing}) in "
               f"{time.monotonic() - t0:.2f}s: {len(compiled.sites)} sites, "
               f"slice histogram {compiled.slice_histogram()}")
+        if cfg.pim_weight_slicing == "adaptive":
+            for sp in compiled.sites:
+                err = "-" if sp.error is None else f"{sp.error:.4f}"
+                print(f"  {sp.site:36s} {'-'.join(map(str, sp.slicing)):16s}"
+                      f" err={err}")
 
     ops.reset_launch_counts()
     if args.engine == "lockstep":

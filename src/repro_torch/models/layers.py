@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import adc as adc_lib
+from repro_torch.core import backends as device_backends
 from repro_torch.core import center_offset as co
 from repro_torch.core import pim_linear
 from repro_torch.quant import quantize as quantlib
@@ -26,14 +27,18 @@ ATTN_CHUNK = 512
 # ------------------------------------------------------------------ pim
 # Work-stats collector. ``collect_pim_stats()`` pushes a sink; while one is
 # active, every exact-mode ``pim_matmul`` records its per-pass
-# SpeculationStats into the innermost sink. Prefill and full-sequence
-# forwards suspend collection around their layer stacks, as the reference
-# does, so the collector reports decode-step work plus the prefill LM head
-# (the serve-time converts/token metric).
+# SpeculationStats (speculation on) or CrossbarStats (speculation off)
+# into the innermost sink. Prefill and full-sequence forwards suspend
+# collection around their layer stacks, as the reference does, so the
+# collector reports decode-step work plus the prefill LM head (the
+# serve-time converts/token metric).
 _PIM_STATS_SINKS: list[list] = []
 
+# total-able work-stat fields; ``conversions_possible`` is the static
+# path's name for the no-speculation baseline
 PIM_STAT_KEYS = ("adc_converts", "no_spec_converts", "spec_failures",
                  "spec_attempts", "recovery_saturations", "cycles", "macs")
+_STAT_ALIASES = {"no_spec_converts": "conversions_possible"}
 
 
 @contextlib.contextmanager
@@ -60,12 +65,17 @@ def suspend_pim_stats():
 
 
 def pim_stats_totals(stats) -> dict:
-    """Sum a sink's SpeculationStats into one ``{field: int}`` dict (one
-    host sync for the data-dependent fields)."""
+    """Sum a sink's SpeculationStats / CrossbarStats into one
+    ``{field: int}`` dict (one host sync for the data-dependent fields).
+    A field a stats type lacks counts 0, after its alias
+    (``_STAT_ALIASES``)."""
     tot = dict.fromkeys(PIM_STAT_KEYS, 0)
     for st in stats:
         for k in PIM_STAT_KEYS:
-            tot[k] = tot[k] + getattr(st, k)
+            v = getattr(st, k, None)
+            if v is None:
+                v = getattr(st, _STAT_ALIASES.get(k, k), 0)
+            tot[k] = tot[k] + v
     return {k: int(v) for k, v in tot.items()}
 
 
@@ -90,9 +100,6 @@ def _plan_to_pim_plan(plan: dict, cfg: ArchConfig,
     slice count, so the planes are used as stored (the reference zeroes
     them again on every call, a full copy of the planes per projection).
     """
-    if cfg.pim_crossbar_backend != "ideal":
-        raise NotImplementedError(
-            "nonideal crossbar devices are not ported yet (ROADMAP)")
     lq = quantlib.LayerQuant(
         w_scale=plan["w_scale"], x_scale=plan["x_scale"], x_zero_point=0,
         x_signed=True, out_scale=torch.ones((), dtype=torch.float32),
@@ -107,6 +114,9 @@ def _plan_to_pim_plan(plan: dict, cfg: ArchConfig,
         enc=enc, lq=lq, w_q=plan["w_q"],
         adc=adc_lib.ADCConfig(bits=cfg.pim_adc_bits, signed=True),
         speculation=cfg.pim_speculation,
+        device=device_backends.make(cfg.pim_crossbar_backend,
+                                    cfg.pim_device_corner,
+                                    seed=cfg.pim_device_seed),
         fast_w_off=plan.get("w_off"), fast_centers=plan.get("centers"),
         fast_scale=plan.get("scale"))
 
@@ -118,7 +128,8 @@ def pim_matmul(x: torch.Tensor, w: torch.Tensor, plan,
 
       off   — the float product (also when ``plan`` is None);
       fast  — centered int8 matmul + center term (kernel K3);
-      exact — the bit-exact accelerator datapath (kernel K2);
+      exact — the bit-exact accelerator datapath (kernel K2, or K1 with
+              ``cfg.pim_speculation`` off);
       int8  — the ideal 8b-quantized reference ``exact`` equals at a
               non-saturating ADC.
     """

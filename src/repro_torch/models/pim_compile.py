@@ -1,24 +1,30 @@
-"""Per-site PIM plan compiler for pinned weight slicings.
+"""Per-site PIM plan compiler (the paper's Algorithm 1, per site).
 
-Port of ``repro.models.pim_compile`` without Algorithm 1: one *projection
-site* per weight-static matmul (per layer, plus the LM head), compiled in
-three steps:
+Port of ``repro.models.pim_compile``: one *projection site* per
+weight-static matmul (per layer, plus the LM head), compiled in three
+steps:
 
 1. *capture* — an eager float forward over the calibration tokens with
    ``PimTap`` recorders standing in for plan leaves, so each site is
    calibrated on exactly the activations the real forward feeds it;
-2. *plan* — every site takes the pinned ``cfg.pim_weight_slicing``
-   (``"adaptive"`` — Algorithm 1 — raises ``NotImplementedError``);
+2. *plan* — with ``cfg.pim_weight_slicing == "adaptive"``,
+   ``core.adaptive.find_best_slicing`` runs per instance on
+   ``SEARCH_ROWS`` calibration rows under the search ADC
+   (``cfg.pim_search_adc_bits``), through the static-slicing crossbar
+   (kernel K1), with the conservative 1b-per-slice override for the LM
+   head; a tuple pins every site to that slicing;
 3. *prepare* — for ``fast``/``int8``, ``calibrate_layer`` +
-   ``quantize_weights_centered`` per instance; for ``exact``, the layers of
-   a site are folded into the column axis of ONE ``co.encode`` call (Eq. 2
-   centers are per column, so this is exact) and the planes are laid out
-   with ``slice_shifts`` / ``slice_valid`` tables like the reference's
-   ragged per-site plans — zero planes past each instance's slice count.
+   ``quantize_weights_centered`` per instance; for ``exact``, the
+   instances of a site are grouped by chosen slicing and each group is
+   folded into the column axis of ONE ``co.encode`` call (Eq. 2 centers
+   are per column, so this is exact); planes are padded to the site's max
+   slice count with ``slice_shifts`` / ``slice_valid`` tables — zero
+   planes past each instance's slice count.
 
-Everything runs on the params' device, so the full-width compile takes
-seconds on the card. Plans come out as ``{"layers": [{"core": {...},
-"ffn": {...}}, ...], "head": leaf}``; leaf keys match the reference's.
+Everything runs on the params' device. Plans come out as ``{"layers":
+[{"core": {...}, "ffn": {...}}, ...], "head": leaf}``; leaf keys match the
+reference's. The reference's energy report (``CompiledPim.report``) needs
+``core.energy`` and ``core.mapping``, which are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,12 +34,18 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import adaptive as ad
+from repro_torch.core import adc as adc_lib
 from repro_torch.core import center_offset as co
+from repro_torch.core import slicing as slc
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.quant import quantize as q
 
 _PROJ = {"core": ("wq", "wk", "wv", "wo"), "ffn": ("w1", "w3", "w2")}
+
+SEARCH_ROWS = 16  # calibration rows fed to Algorithm 1 (paper: ~10 inputs)
+CONSERVATIVE_SLICING = (1,) * slc.WEIGHT_BITS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +55,8 @@ class SitePlan:
     d_in: int
     d_out: int
     slicing: tuple[int, ...]
+    error: float | None        # measured §4.2.1 error (None: pinned slicing)
+    search_adc_bits: int
     last_layer: bool = False
 
     @property
@@ -55,6 +69,15 @@ class CompiledPim:
     """Plan tree + the per-site table."""
     plans: dict
     sites: tuple[SitePlan, ...]
+
+    def site(self, name: str) -> SitePlan:
+        for s in self.sites:
+            if s.site == name:
+                return s
+        raise KeyError(name)
+
+    def distinct_slicings(self) -> tuple[tuple[int, ...], ...]:
+        return tuple(sorted({s.slicing for s in self.sites}))
 
     def slice_histogram(self) -> dict[int, int]:
         hist: dict[int, int] = {}
@@ -74,6 +97,29 @@ def _capture(params: dict, cfg: ArchConfig, calib_tokens: torch.Tensor,
         x = T.apply_block(bp, cfg, x, positions, plan=tap)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     L.lm_head(params["embed"], cfg, x, plan=taps["head"])
+
+
+# ------------------------------------------------------------------ slicing
+def _site_slicings(wf: torch.Tensor, xf: torch.Tensor, cfg: ArchConfig,
+                   last_layer: bool) -> tuple[list, list]:
+    """Per-instance (slicing, error) for one site's stack.
+
+    wf: (K, d_in, d_out); xf: (K, N, d_in). Adaptive mode runs Algorithm 1
+    per instance on the first ``SEARCH_ROWS`` calibration rows under the
+    search ADC; tuple mode pins every instance (error None — nothing was
+    measured).
+    """
+    K = wf.shape[0]
+    if cfg.pim_weight_slicing != "adaptive":
+        return [tuple(cfg.pim_weight_slicing)] * K, [None] * K
+    adc = adc_lib.ADCConfig(bits=cfg.pim_search_adc_bits, signed=True)
+    slicings, errors = [], []
+    for k in range(K):
+        choice = ad.find_best_slicing(wf[k], xf[k][:SEARCH_ROWS], adc=adc,
+                                      last_layer=last_layer)
+        slicings.append(choice.slicing)
+        errors.append(choice.error)
+    return slicings, errors
 
 
 # ------------------------------------------------------------------ prepare
@@ -146,15 +192,17 @@ def _compile_site(name: str, ws: list[torch.Tensor], xs: list[torch.Tensor],
     wf = torch.stack([w.to(torch.float32) for w in ws])
     xf = torch.stack(xs)
     K, d_in, d_out = wf.shape
-    slicing = tuple(cfg.pim_weight_slicing)
+    slicings, errors = _site_slicings(wf, xf, cfg, last_layer)
     tags = [f"[r{k}]" for k in range(K)] if not last_layer else [""]
     sites = [SitePlan(site=name + tag, d_in=d_in, d_out=d_out,
-                      slicing=slicing, last_layer=last_layer)
-             for tag in tags]
+                      slicing=tuple(s), error=e,
+                      search_adc_bits=cfg.pim_search_adc_bits,
+                      last_layer=last_layer)
+             for tag, s, e in zip(tags, slicings, errors)]
     if cfg.pim_mode in ("fast", "int8"):
         leaf = _stack([_fast_prepare_2d(wf[k], xf[k]) for k in range(K)])
     else:
-        leaf = _exact_prepare_stacked(wf, xf, [slicing] * K)
+        leaf = _exact_prepare_stacked(wf, xf, slicings)
     return leaf, sites
 
 
@@ -170,10 +218,6 @@ def compile_pim_params(params: dict, cfg: ArchConfig,
         return None
     if cfg.pim_mode not in ("fast", "exact", "int8"):
         raise ValueError(f"unknown pim_mode {cfg.pim_mode!r}")
-    if cfg.pim_weight_slicing == "adaptive":
-        raise NotImplementedError(
-            "adaptive slicing (Algorithm 1, kernel K1) is not ported yet; "
-            "pin a slicing such as (4, 2, 2)")
     dev = params["embed"]["embed"].device
     tokens = torch.as_tensor(calib_tokens, dtype=torch.int64, device=dev)
     taps = {"head": L.PimTap(),

@@ -76,6 +76,16 @@ def dequantize(y_int: torch.Tensor, lq: LayerQuant,
     return y
 
 
+def requantize_outputs(y: torch.Tensor, lq: LayerQuant,
+                       relu: bool = False) -> torch.Tensor:
+    """float psum -> 8b output codes (activation folded in, paper [82])."""
+    if relu:
+        y = y.clamp_min(0.0)
+    q = torch.round(y / lq.out_scale) + lq.out_zero_point
+    lo, hi = (0, 255) if relu else (-128, 127)
+    return q.clamp(lo, hi).to(torch.int32)
+
+
 def calibrate_layer(w: torch.Tensor, x_cal: torch.Tensor, *,
                     signed_inputs: bool | None = None,
                     bias: torch.Tensor | None = None,

@@ -17,6 +17,7 @@ from repro.core import adc as ref_adc
 from repro.core import pim_linear as ref_pl
 from repro.quant import quantize as ref_q
 from repro_torch.core import adc as adc_lib
+from repro_torch.core import crossbar as xbar
 from repro_torch.core import pim_linear as pl
 from repro_torch.quant import quantize as q
 
@@ -120,9 +121,17 @@ def test_forward_fast_matches_reference(plans, weights, signed):
 
 
 def test_unported_datapaths_raise(plans, weights):
+    """Speculation off runs (kernel K1); a nonideal device and ADC noise
+    are not ported yet and raise, on both datapaths."""
     _, port = plans
     x = torch.from_numpy(weights[2])
+    for spec_on in (True, False):
+        plan = dataclasses.replace(port, speculation=spec_on)
+        assert pl.forward_exact(x, plan).shape == (7, 56)
+        with pytest.raises(NotImplementedError):
+            pl.forward_exact(x, dataclasses.replace(plan, device=object()))
+        with pytest.raises(NotImplementedError):
+            pl.forward_exact(x, plan, noise_level=0.05)
     with pytest.raises(NotImplementedError):
-        pl.forward_exact(x, dataclasses.replace(port, speculation=False))
-    with pytest.raises(NotImplementedError):
-        pl.forward_exact(x, dataclasses.replace(port, device=object()))
+        xbar.forward(torch.zeros((1, 1100), dtype=torch.int32), port.enc,
+                     noise_level=0.05)
