@@ -6,9 +6,12 @@
 Phases, one line each, every failure fatal (non-zero exit, no result line):
 
   build    compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
-           (one ``nvcc`` per source, all started together);
+           (one ``nvcc`` per source, all started together) and print K3's
+           ``ptxas -v`` lines (registers, shared memory, spills);
   kernels  run each kernel at the main path's shapes and hold it against its
-           plain PyTorch version bit for bit: K3 and K2 (at the lossless 24b
+           plain PyTorch version bit for bit: K3 (timed beside its yardstick
+           ``torch._int_mm`` on x padded to 17 rows; tail shapes, -128
+           inputs and wrapping centers besides), K2 (at the lossless 24b
            ADC and at the paper's 7b ADC, where failures and recovery must
            occur), K1 with 1b input slices at B = 1, 4, 16, 64 (7b runs must
            saturate) and with (4,2,2), (8,) slicings and a ragged plane mask,
@@ -23,8 +26,8 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            exact run's tokens must equal the int8 tokens at the 24b ADC;
   timing   one decode step's worth of kernel calls on the compiled plans
            (distinct weights per layer, as the model has them) against the
-           plain versions and, for K3, ``torch._int_mm``; K4 at the four
-           projection shapes.
+           plain versions and, for K3, ``torch._int_mm`` (x padded with zero
+           rows); K4 at the four projection shapes.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -113,6 +117,23 @@ def phase_build() -> None:
     secs = build.build(list(ops.KERNELS))
     say("build", ok=True, seconds=round(time.perf_counter() - t0, 3),
         per_kernel=json.dumps({k: round(v, 3) for k, v in secs.items()}))
+    # K3 per instantiation (batch tile, load path): ptxas -v registers and
+    # spills, and the dynamic shared memory its tile plan asks for
+    from repro_torch.kernels import int8_matmul as im
+    entry = None
+    for line in build.LOGS.get("centered_int8_matmul", "").splitlines():
+        m = re.search(r"Compiling entry.*int8_kernelILi(\d)ELb([01])E", line)
+        if m:
+            entry = dict(bt=8 * int(m[1]), cp_async=m[2] == "1")
+        elif entry is not None and "spill" in line:
+            entry["spill_bytes"] = sum(map(int, re.findall(
+                r"(\d+) bytes spill", line)))
+        elif entry is not None and "Used" in line:
+            entry["registers"] = int(re.search(r"Used (\d+) reg", line)[1])
+            entry["smem_bytes_max"] = im.smem_bytes(entry["bt"],
+                                                    im.MAX_CLUSTER)
+            say("build", kernel="centered_int8_matmul", **entry)
+            entry = None
 
 
 def k2_inputs(B: int, R: int, C: int, gen):
@@ -152,8 +173,9 @@ def phase_kernels(rows: list) -> None:
                           im.plain(x, w, cen), site=site, B=B, R=R, C=C)
             row["kernel_ms"] = cuda_ms(lambda: im.launch(x, w, cen), 5)
             row["plain_ms"] = cuda_ms(lambda: im.plain(x, w, cen), 2)
-            row["library_ms"] = (cuda_ms(lambda: torch._int_mm(x, w), 5)
-                                 if B > 16 else None)
+            xp = int_mm_operand(x)
+            row["library_rows"] = xp.shape[0]
+            row["library_ms"] = cuda_ms(lambda: torch._int_mm(xp, w), 5)
             rows.append(row)
             say("kernels", **row)
             # K2 at the lossless and the paper's ADC
@@ -178,24 +200,26 @@ def phase_kernels(rows: list) -> None:
                 rows.append(row)
                 say("kernels", **row)
             del xu, planes, centers
+    check_k3_tails(rows, gen)
     check_k1(rows, gen)
     check_k4(rows, gen)
     summary = []
     for name, count in ops.launch_counts().items():
         mine = [r for r in rows if r["kernel"] == name]
         timed = [r for r in mine if "kernel_ms" in r]
-        lib = [r for r in timed if r.get("library_ms") is not None]
-        summary.append(dict(
+        lib = {B: [r for r in timed if r.get("library_ms") is not None
+                   and r["B"] == B] for B in BATCHES}
+        row = dict(
             name=name, launches=count, match=all(r["match"] for r in mine),
-            max_abs_err=max(r["max_abs_err"] for r in mine),
+            checks=len(mine), max_abs_err=max(r["max_abs_err"] for r in mine),
             shapes=len(timed),
             kernel_ms=sum(r["kernel_ms"] for r in timed),
-            plain_ms=sum(r["plain_ms"] for r in timed),
-            # torch._int_mm takes only B > 16: compare on those shapes
-            library_shapes=len(lib),
-            library_ms=sum(r["library_ms"] for r in lib) if lib else None,
-            kernel_ms_library_shapes=sum(r["kernel_ms"] for r in lib)
-            if lib else None))
+            plain_ms=sum(r["plain_ms"] for r in timed))
+        for B, lrows in lib.items():  # K3 against torch._int_mm, per B
+            if lrows:
+                row[f"kernel_ms_B{B}"] = sum(r["kernel_ms"] for r in lrows)
+                row[f"library_ms_B{B}"] = sum(r["library_ms"] for r in lrows)
+        summary.append(row)
     say("kernels", ok=True, compared=len(rows), kernels=json.dumps(summary))
 
 
@@ -211,6 +235,50 @@ def compare(kernel: str, got, want, **fields) -> dict:
         say("kernels", **row)
         raise AssertionError(f"{kernel} mismatch: {fields}")
     return row
+
+
+INT_MM_MIN_ROWS = 17  # torch._int_mm on CUDA needs more than 16 rows
+
+
+def int_mm_operand(x):
+    """x padded with zero rows to the fewest rows ``torch._int_mm`` takes:
+    the library yardstick of K3. It computes x @ w without the center term,
+    a lower bound for the library; the port never calls it."""
+    import torch
+    B, K = x.shape
+    if B >= INT_MM_MIN_ROWS:
+        return x
+    xp = torch.zeros((INT_MM_MIN_ROWS, K), dtype=torch.int8, device=x.device)
+    xp[:B] = x
+    return xp
+
+
+def check_k3_tails(rows: list, gen) -> None:
+    """K3 past the site shapes: K and N off the tiles (1000 takes the
+    word-load path, 1040 x 1008 the cp.async path with ragged edges),
+    batches of 3, 9, 17 and 65 rows, and x full of -128 against centers
+    near the int32 limits, where y wraps modulo 2^32."""
+    import torch
+    from repro_torch.kernels import int8_matmul as im
+    for K, N, B, extreme in ((1000, 1000, 3, False), (1000, 1000, 17, False),
+                             (1040, 1008, 9, False), (1040, 1008, 17, False),
+                             (1024, 1024, 65, False), (1024, 1024, 4, True),
+                             (1000, 1000, 9, True), (1024, 2816, 64, True)):
+        x = torch.randint(-128, 128, (B, K), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-128, 128, (K, N), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        cen = torch.randint(-300, 300, (N,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        if extreme:
+            x[:, ::2] = -128
+            cen = torch.randint(-2**31, 2**31 - 1, (N,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+        row = compare("centered_int8_matmul", im.launch(x, w, cen),
+                      im.plain(x, w, cen), site="tail", B=B, R=K, C=N,
+                      extreme=extreme)
+        rows.append(row)
+        say("kernels", **row)
 
 
 def check_k1(rows: list, gen) -> None:
@@ -522,10 +590,18 @@ def phase_timing(ctx: dict, rows: list) -> list:
         k3_calls.append((x, leaf["w_off"], leaf["centers"]))
         k3_bytes += 4 * R + R * C + 4 * C + 4 * 4 * C
         k3_ops += 2 * 4 * R * C
+    lib_calls = [(int_mm_operand(x), w) for x, w, _ in k3_calls]
     k3 = dict(ms=cuda_ms(lambda: [im.launch(*a) for a in k3_calls], 5),
               plain_ms=cuda_ms(lambda: [im.plain(*a) for a in k3_calls], 2),
-              library_ms=None, calls=len(k3_calls),
+              # torch._int_mm on x padded with zero rows, no center term
+              library_ms=cuda_ms(
+                  lambda: [torch._int_mm(*a) for a in lib_calls], 5),
+              library_rows=lib_calls[0][0].shape[0], calls=len(k3_calls),
               **bound(k3_bytes, k3_ops))
+    # what as many back-to-back launches of an empty kernel take: the
+    # share of the step that no kernel design removes
+    z = torch.empty(1, device="cuda")
+    k3["launch_floor_ms"] = cuda_ms(lambda: [z.zero_() for _ in k3_calls], 5)
     # K4: the kernels phase's four 24b site rows
     k4_rows = [r for r in rows if r["kernel"] == "sliced_crossbar"
                and "kernel_ms" in r]
@@ -565,7 +641,8 @@ def phase_timing(ctx: dict, rows: list) -> list:
             source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=f"src/repro/kernels/{rep}", launches=launches,
             max_abs_err=err(name), ms=d["ms"], plain_ms=d["plain_ms"],
-            bound_ms=d["bound_ms"], bound_by=d["bound_by"], library_ms=None))
+            bound_ms=d["bound_ms"], bound_by=d["bound_by"],
+            library_ms=d["library_ms"]))
     return out
 
 
@@ -603,6 +680,7 @@ def main() -> int:
         phase_serve(ctx)
     if "timing" in phases:
         kernels = phase_timing(ctx, rows)
+    print(smi, flush=True)  # again, within the tail a log keeps
     if kernels is not None:
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

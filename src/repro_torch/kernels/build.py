@@ -24,7 +24,9 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
+LOGS: dict[str, str] = {}  # compiler output per kernel built by this process
 
 
 def nvcc() -> str:
@@ -65,8 +67,9 @@ def build(names) -> dict[str, float]:
     for name, (proc, tmp, lib) in procs.items():
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
+        LOGS[name] = log.decode()
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}:\n{log.decode()}")
+            errors.append(f"nvcc failed for {name}:\n{LOGS[name]}")
             continue
         os.replace(tmp, lib)  # atomic: a concurrent build sees all or none
     if errors:

@@ -6,12 +6,14 @@ Replaces the Pallas TPU kernel ``repro/kernels/int8_matmul.py``
 card and what its design does about it; ``plain``
 (``ref.centered_int8_matmul``) is its plain PyTorch version. ``forward``
 takes ``plain`` for CPU tensors only; on CUDA tensors it launches the
-kernel or raises.
+kernel or raises. ``tile_plan`` sizes the launch in plain Python, so the
+CPU tests reach it.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -22,17 +24,59 @@ plain = ref.centered_int8_matmul
 _c = ctypes.c_int
 _p = ctypes.c_void_p
 KERNEL = build.CudaKernel("centered_int8_matmul",
-                          [_p, _p, _p, _p, _c, _c, _c, _c, _c, _p])
+                          [_p, _p, _p, _p, *[_c] * 10, _p])
+
+# the CUDA source's constants; its launcher refuses a plan that differs
+BN, BK, STAGES, WARPS = 64, 128, 4, 4
+X_STRIDE = BK + 16          # staged x row stride in bytes
+MAX_CLUSTER = 8             # portable thread-block cluster size
+TARGET_BLOCKS = 2 * 132     # blocks per call to aim for: two per H100 SM
+MIN_RANK_K = 64             # fewest K rows worth a cluster rank
 
 
-TARGET_BLOCKS = 264  # two blocks per SM of an H100
+class TilePlan(NamedTuple):
+    bt: int           # batch rows per block: 8 per mma n8 tile
+    bn: int           # output columns per block (4 m16 tiles per warp)
+    bk: int           # K rows per shared-memory stage (32 per warp)
+    stages: int       # depth of the cp.async ring
+    cluster: int      # blocks of a cluster, splitting K (1, 2, 4, 8)
+    k_per_rank: int   # K rows per cluster rank, a multiple of 32
+    smem_bytes: int   # dynamic shared memory per block
+    grid: tuple[int, int]  # (column tiles * cluster, batch tiles)
 
 
-def k_split(B: int, K: int, N: int, bm: int) -> int:
-    """K ranges per column tile: enough blocks to fill the card at decode
-    shapes, with at least 64 rows of K per block."""
-    tiles = -(-N // 128) * -(-B // bm)
-    return max(1, min(-(-TARGET_BLOCKS // tiles), K // 64))
+def smem_bytes(bt: int, cluster: int) -> int:
+    """The ring of stages (w_off tile + padded x rows), reused after the K
+    loop for the warps' int32 partial tiles; in a cluster of 2 or more the
+    reduction's inbox (one int32 tile; a lone block reduces in place); the
+    pushed row sums (``MAX_CLUSTER`` x bt) and the warps' (``WARPS`` x bt)."""
+    ring = STAGES * (BK * BN + bt * X_STRIDE)
+    inbox = bt * BN * 4 if cluster > 1 else 0
+    return (max(ring, WARPS * bt * BN * 4) + inbox
+            + (MAX_CLUSTER + WARPS) * bt * 4)
+
+
+def tile_plan(B: int, K: int, N: int) -> TilePlan:
+    """Launch plan of K3 for x (B, K) and w_off (K, N).
+
+    The batch tile is the fewest n8 mma tiles (1, 2, 4 or 8) that hold B
+    rows, at most 64; K is split across a cluster of 1, 2, 4 or 8 blocks,
+    the most that keeps the call near ``TARGET_BLOCKS`` blocks and each
+    rank at ``MIN_RANK_K`` rows or more. Rank r covers K rows
+    [r * k_per_rank, (r + 1) * k_per_rank), a multiple of 32; a rank past K
+    adds zeros.
+    """
+    if min(B, K, N) < 1:
+        raise ValueError(f"empty operands: B={B}, K={K}, N={N}")
+    bt = 8 * next(n for n in (1, 2, 4, 8) if 8 * n >= min(B, 64))
+    tiles = -(-N // BN) * -(-B // bt)
+    want = max(1, min(MAX_CLUSTER, -(-TARGET_BLOCKS // tiles),
+                      K // MIN_RANK_K))
+    cluster = 1 << (want.bit_length() - 1)  # 1, 2, 4 or 8
+    k_per_rank = -(-K // (32 * cluster)) * 32
+    return TilePlan(bt, BN, BK, STAGES, cluster, k_per_rank,
+                    smem_bytes(bt, cluster),
+                    (-(-N // BN) * cluster, -(-B // bt)))
 
 
 def launch(x_q: torch.Tensor, w_off: torch.Tensor,
@@ -51,12 +95,11 @@ def launch(x_q: torch.Tensor, w_off: torch.Tensor,
         raise ValueError(f"shapes x {tuple(x_q.shape)}, w_off "
                          f"{tuple(w_off.shape)}, centers "
                          f"{tuple(centers.shape)} do not chain")
-    if B == 0 or N == 0 or K == 0:
-        raise ValueError(f"empty operands: B={B}, K={K}, N={N}")
-    out = torch.zeros((B, N), dtype=torch.int32, device=dev)
-    bm = min(8, 1 << (B - 1).bit_length())  # batch rows per block
+    plan = tile_plan(B, K, N)
+    out = torch.empty((B, N), dtype=torch.int32, device=dev)
     KERNEL.launch(build.ptr(x_q), build.ptr(w_off), build.ptr(centers),
-                  build.ptr(out), B, K, N, bm, k_split(B, K, N, bm))
+                  build.ptr(out), B, K, N, plan.bn, plan.bk, plan.stages,
+                  plan.bt, plan.cluster, plan.k_per_rank, plan.smem_bytes)
     return out
 
 
