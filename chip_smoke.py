@@ -7,15 +7,19 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
 
   build    compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
            (one ``nvcc`` per source, all started together) and print K3's
-           ``ptxas -v`` lines (registers, shared memory, spills);
+           and K2's ``ptxas -v`` lines per instantiation (registers,
+           spills, the shared memory their tile plans ask for);
   kernels  run each kernel at the main path's shapes and hold it against its
            plain PyTorch version bit for bit: K3 (timed beside its yardstick
            ``torch._int_mm`` on x padded to 17 rows; tail shapes, -128
            inputs and wrapping centers besides), K2 (at the lossless 24b
            ADC and at the paper's 7b ADC, where failures and recovery must
-           occur), K1 with 1b input slices at B = 1, 4, 16, 64 (7b runs must
-           saturate) and with (4,2,2), (8,) slicings and a ragged plane mask,
-           K4 with 8 one-bit input slices and 3 planes;
+           occur, both timed; tails: B = 2, 3, 9, 17, 65, R = 1000, 1001 and
+           2816, C = 1000 and 1008, 1 and 8 planes with a padded one, the
+           (8,) spec slicing and centers across the int32 range), K1 with
+           1b input slices at B = 1, 4, 16, 64 (7b runs must saturate) and
+           with (4,2,2), (8,) slicings and a ragged plane mask, K4 with 8
+           one-bit input slices and 3 planes;
   serve    build qwen1.5-0.5b at its published size (random weights from a
            seed, bf16), compile its PIM plans and serve 4 requests through
            ``ContinuousServeEngine`` in ``exact``, ``int8`` and ``fast``
@@ -27,7 +31,8 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
   timing   one decode step's worth of kernel calls on the compiled plans
            (distinct weights per layer, as the model has them) against the
            plain versions and, for K3, ``torch._int_mm`` (x padded with zero
-           rows); K4 at the four projection shapes.
+           rows); K2 also on Algorithm 1's adaptive plans; K4 at the four
+           projection shapes.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -117,23 +122,37 @@ def phase_build() -> None:
     secs = build.build(list(ops.KERNELS))
     say("build", ok=True, seconds=round(time.perf_counter() - t0, 3),
         per_kernel=json.dumps({k: round(v, 3) for k, v in secs.items()}))
-    # K3 per instantiation (batch tile, load path): ptxas -v registers and
-    # spills, and the dynamic shared memory its tile plan asks for
+    # K3 and K2 per instantiation (batch tile, load path): ptxas -v
+    # registers and spills, and the most dynamic shared memory their tile
+    # plans ask for
+    from repro_torch.kernels import fused_spec_crossbar as fs
     from repro_torch.kernels import int8_matmul as im
-    entry = None
-    for line in build.LOGS.get("centered_int8_matmul", "").splitlines():
-        m = re.search(r"Compiling entry.*int8_kernelILi(\d)ELb([01])E", line)
-        if m:
-            entry = dict(bt=8 * int(m[1]), cp_async=m[2] == "1")
-        elif entry is not None and "spill" in line:
-            entry["spill_bytes"] = sum(map(int, re.findall(
-                r"(\d+) bytes spill", line)))
-        elif entry is not None and "Used" in line:
-            entry["registers"] = int(re.search(r"Used (\d+) reg", line)[1])
-            entry["smem_bytes_max"] = im.smem_bytes(entry["bt"],
-                                                    im.MAX_CLUSTER)
-            say("build", kernel="centered_int8_matmul", **entry)
-            entry = None
+    entries = {
+        "centered_int8_matmul": (
+            r"int8_kernelILi(\d)ELb([01])E",
+            lambda m: dict(bt=8 * int(m[1]), cp_async=m[2] == "1",
+                           smem_bytes_max=im.smem_bytes(8 * int(m[1]),
+                                                        im.MAX_CLUSTER))),
+        "fused_spec_crossbar": (
+            r"spec_kernelILi(\d)ELb([01])E",
+            lambda m: dict(bt=int(m[1]), cp_async=m[2] == "1",
+                           smem_bytes_max=max(
+                               fs.smem_bytes(int(m[1]), c)
+                               for c in range(1, fs.MAX_CLUSTER + 1))))}
+    for name, (pattern, fields) in entries.items():
+        entry = None
+        for line in build.LOGS.get(name, "").splitlines():
+            m = re.search("Compiling entry.*" + pattern, line)
+            if m:
+                entry = fields(m)
+            elif entry is not None and "spill" in line:
+                entry["spill_bytes"] = sum(map(int, re.findall(
+                    r"(\d+) bytes spill", line)))
+            elif entry is not None and "Used" in line:
+                entry["registers"] = int(re.search(r"Used (\d+) reg",
+                                                   line)[1])
+                say("build", kernel=name, **entry)
+                entry = None
 
 
 def k2_inputs(B: int, R: int, C: int, gen):
@@ -189,9 +208,9 @@ def phase_kernels(rows: list) -> None:
                               fs.plain(xu, *tables, centers, **kw),
                               site=site, B=B, R=R, C=C, adc_bits=bits,
                               fails=got[1].tolist(), rsats=int(got[2]))
+                row["kernel_ms"] = cuda_ms(
+                    lambda: fs.launch(xu, *tables, centers, **kw), 5)
                 if bits == 24:
-                    row["kernel_ms"] = cuda_ms(
-                        lambda: fs.launch(xu, *tables, centers, **kw), 5)
                     row["plain_ms"] = cuda_ms(
                         lambda: fs.plain(xu, *tables, centers, **kw), 1)
                 elif not (int(got[1].sum()) > 0 and int(got[2]) > 0):
@@ -201,12 +220,13 @@ def phase_kernels(rows: list) -> None:
                 say("kernels", **row)
             del xu, planes, centers
     check_k3_tails(rows, gen)
+    check_k2_tails(rows, gen)
     check_k1(rows, gen)
     check_k4(rows, gen)
     summary = []
     for name, count in ops.launch_counts().items():
         mine = [r for r in rows if r["kernel"] == name]
-        timed = [r for r in mine if "kernel_ms" in r]
+        timed = [r for r in mine if "plain_ms" in r]
         lib = {B: [r for r in timed if r.get("library_ms") is not None
                    and r["B"] == B] for B in BATCHES}
         row = dict(
@@ -279,6 +299,65 @@ def check_k3_tails(rows: list, gen) -> None:
                       extreme=extreme)
         rows.append(row)
         say("kernels", **row)
+
+
+# K2 tails (B, R, C, n_j, spec slicing, padded last plane, wrapping
+# centers): C = 1000 and R = 1001 take the word-load path, C = 1008 the
+# cp.async path with a ragged column tile; 2816 and 1000 rows leave the
+# last segment ragged; 8 planes give clusters of 8 ranks; B = 1 (the site
+# rows), 2 and 3 take batch tiles of 1, 2 and 4 rows
+K2_TAILS = ((3, 1000, 1000, 3, SPEC, False, False),
+            (9, 2816, 1008, 3, SPEC, False, True),
+            (17, 1000, 1008, 8, SPEC, True, False),
+            (65, 2816, 1000, 1, (8,), False, True),
+            (4, 1024, 1024, 8, (8,), True, True),
+            (9, 1000, 1000, 1, SPEC, False, True),
+            (5, 1001, 1008, 3, SPEC, False, False),
+            (64, 1024, 2816, 3, (8,), False, True),
+            (2, 2816, 1024, 3, SPEC, False, True))
+
+
+def check_k2_tails(rows: list, gen) -> None:
+    """K2 past the site shapes (``K2_TAILS``), full 8b codes, at 24b and at
+    7b, where failures and recovery saturations must occur."""
+    import torch
+    from repro_torch.core import adc as adc_lib
+    from repro_torch.kernels import fused_spec_crossbar as fs
+    from repro_torch.kernels import ops
+    for B, R, C, n_j, slicing, padded, wrap in K2_TAILS:
+        n_seg = -(-R // 512)
+        planes = torch.cat([
+            torch.randint(-m, m + 1, (1, n_seg, 512, C), generator=gen,
+                          device="cuda", dtype=torch.int8)
+            for m in (15, 3, 3, 1, 7, 3, 1, 15)[:n_j]])
+        planes[:, -1, R - 512 * (n_seg - 1):] = 0  # zero padding rows
+        shifts = torch.tensor([4, 2, 0, 6, 1, 3, 5, 7][:n_j],
+                              dtype=torch.int32, device="cuda")
+        valid = None
+        if padded:  # the last plane pads a ragged plan: zeroed, mults 0
+            valid = torch.ones(n_j, dtype=torch.bool, device="cuda")
+            valid[-1] = False
+        xu = torch.randint(0, 256, (B, R), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        lo_hi = (-2**31, 2**31 - 1) if wrap else (1, 256)
+        centers = torch.randint(*lo_hi, (n_seg, C), generator=gen,
+                                device="cuda", dtype=torch.int32)
+        tables = ops.spec_tables(planes, shifts, slicing, valid)
+        for bits in (24, 7):
+            adc = adc_lib.ADCConfig(bits=bits)
+            kw = dict(adc_lo=adc.lo, adc_hi=adc.hi)
+            got = fs.launch(xu, *tables, centers, **kw)
+            row = compare("fused_spec_crossbar", got,
+                          fs.plain(xu, *tables, centers, **kw), site="tail",
+                          B=B, R=R, C=C, n_j=n_j, adc_bits=bits,
+                          spec="-".join(map(str, slicing)), padded=padded,
+                          wrap=wrap, fails=got[1].tolist(), rsats=int(got[2]))
+            if bits == 7 and not (int(got[1].sum()) > 0 and int(got[2]) > 0):
+                raise AssertionError(f"K2 tail {row} had no failures or no "
+                                     "recovery saturations")
+            rows.append(row)
+            say("kernels", **row)
+        del xu, planes, centers, tables
 
 
 def check_k1(rows: list, gen) -> None:
@@ -480,6 +559,7 @@ def phase_serve(ctx: dict) -> None:
             # both count B * n_seg * C * 8 * n_j converts per pass
             assert tot["adc_converts"] == totals["exact"]["no_spec_converts"]
         elif run == "exact-adaptive":
+            ctx["adaptive_plans"] = compiled.plans
             errs = [sp.error for sp in compiled.sites]
             ctx["k1_launches"] = launches["fused_crossbar"]
             ctx["adaptive_compile_s"] = compile_s
@@ -571,6 +651,18 @@ def phase_timing(ctx: dict, rows: list) -> list:
               plain_ms=cuda_ms(lambda: k2_step(fs.plain), 1, warmup=0),
               library_ms=None, calls=len(k2_calls),
               **bound(k2_bytes, k2_ops))
+    del k2_calls
+    # K2 on Algorithm 1's plans: 3 planes per layer site, 8 on the head
+    ka_calls, ka_bytes, ka_ops = crossbar_step(ctx["adaptive_plans"], SPEC,
+                                               True, gen)
+    k2a = dict(ms=cuda_ms(lambda: [fs.launch(x, *t, c, **kw)
+                                   for x, t, c in ka_calls], 5),
+               plain_ms=cuda_ms(lambda: [fs.plain(x, *t, c, **kw)
+                                         for x, t, c in ka_calls], 1,
+                                warmup=0),
+               library_ms=None, calls=len(ka_calls),
+               **bound(ka_bytes, ka_ops))
+    del ka_calls
     # K1: the same plans, speculation off (1b input slices)
     k1_calls, k1_bytes, k1_ops = crossbar_step(exact_plans, ONE_BIT, False,
                                                gen)
@@ -612,6 +704,8 @@ def phase_timing(ctx: dict, rows: list) -> list:
                       sum(r["ops"] for r in k4_rows)))
     table = (("fused_crossbar", k1, "one decode step, B=4, speculation off"),
              ("fused_spec_crossbar", k2, "one decode step, B=4"),
+             ("fused_spec_crossbar", k2a,
+              "one decode step, B=4, Algorithm 1's plans"),
              ("centered_int8_matmul", k3, "one decode step, B=4"),
              ("sliced_crossbar", k4, "the four projection shapes, B=4"))
     for name, d, scope in table:
@@ -635,6 +729,8 @@ def phase_timing(ctx: dict, rows: list) -> list:
                             0)}
     out = []
     for name, d, _ in table:
+        if d is k2a:  # the kernels line keeps the main path's K2 step
+            continue
         src, rep, launches = meta[name]
         out.append(dict(
             name=name, route="cuda",

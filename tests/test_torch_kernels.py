@@ -265,3 +265,291 @@ def test_plain_kernels_refuse_other_devices():
     with pytest.raises(ValueError):
         fs.launch(torch.zeros((2, 8), dtype=torch.int32), None, (0,), (255,),
                   None, ((1,),), None)
+
+
+# ---------------------------------------------------------------- K2 plan
+K2_SHAPES = SITE_SHAPES + [(1000, 1000), (1008, 1008), (2816, 1000)]
+
+
+@pytest.mark.parametrize("n_j", [1, 3, 8])
+@pytest.mark.parametrize("B", [1, 3, 4, 9, 16, 17, 64, 65])
+@pytest.mark.parametrize("RC", K2_SHAPES)
+def test_k2_tile_plan_within_limits(RC, B, n_j):
+    """K2's launch plan fits the card: shared memory, a portable cluster
+    that divides the grid, the grid limits; its batch tile holds B (or 4
+    rows); every (segment, plane) pair is owned by exactly one rank and no
+    rank is empty."""
+    R, C = RC
+    p = fs.tile_plan(B, R, C, n_j)
+    n_seg = -(-R // 512)
+    n_pairs = n_seg * n_j
+    assert p.smem_bytes <= SMEM_LIMIT
+    assert 1 <= p.cluster <= 8 and p.grid[0] % p.cluster == 0
+    assert p.grid[0] < 2**31 and p.grid[1] <= 65535
+    assert p.bt in (1, 2, 4) and p.bt >= min(B, 4)
+    assert p.bt < 2 * min(B, 4) or p.bt == 1
+    assert p.grid == (-(-B // p.bt) * p.cluster, -(-C // p.bn))
+    owners = [pr // p.pairs_per_rank for pr in range(n_pairs)]
+    assert sorted(set(owners)) == list(range(p.cluster))  # none empty
+    assert (p.bn, p.bk, p.stages) == (fs.BN, fs.BK, fs.STAGES)
+    assert p.smem_bytes == fs.smem_bytes(p.bt, p.cluster)
+
+
+# ---------------------------------------------------------------- K2 walk
+LANES = np.arange(32)
+G, T = LANES >> 2, LANES & 3
+
+
+def byte_perm(a, b, sel):
+    """__byte_perm on uint32 arrays (selectors 0..7 per result byte)."""
+    a, b = np.asarray(a, np.uint64), np.asarray(b, np.uint64)
+    src = [(a >> (8 * k)) & 255 for k in range(4)] + \
+          [(b >> (8 * k)) & 255 for k in range(4)]
+    out = np.zeros(np.broadcast(a, b).shape, np.uint64)
+    for k in range(4):
+        out |= src[(sel >> (4 * k)) & 7] << (8 * k)
+    return out
+
+
+def byte_of(word, k):
+    """Byte k of each uint32 word as a signed int8 value."""
+    v = ((np.asarray(word, np.int64) >> (8 * k)) & 255)
+    return np.where(v > 127, v - 256, v)
+
+
+def k2_stage_planes(wt):
+    """A (128 x 64) int8 plane tile as the kernel's swizzled stage bytes."""
+    st = np.zeros(128 * 64, np.uint8)
+    for r in range(128):
+        for c in range(4):
+            o = r * 64 + ((c ^ ((r >> 2) & 3)) << 4)
+            st[o:o + 16] = wt[r, 16 * c:16 * c + 16].astype(np.uint8)
+    return st
+
+
+def k2_a_fragments(st):
+    """Each lane's A registers, a[kk, i, reg, lane], built as the kernel
+    builds them: 4 word loads from the swizzled stage, then __byte_perm."""
+    words = st.view("<u4").astype(np.uint64)
+    kk = np.arange(4)[:, None, None]
+    reg = np.arange(4)[None, :, None]
+    h, kh = reg & 1, reg >> 1
+    r0 = kk * 32 + 16 * kh + 4 * T
+    off = (((2 * h + (G >> 2)) ^ T) << 4) + 4 * (G & 3)
+    r = [words[((r0 + q) * 64 + off) // 4] for q in range(4)]
+    t0, t1 = byte_perm(r[0], r[1], 0x5140), byte_perm(r[0], r[1], 0x7362)
+    t2, t3 = byte_perm(r[2], r[3], 0x5140), byte_perm(r[2], r[3], 0x7362)
+    return np.stack([byte_perm(t0, t2, 0x5410), byte_perm(t0, t2, 0x7632),
+                     byte_perm(t1, t3, 0x5410), byte_perm(t1, t3, 0x7632)],
+                    axis=1)  # (kk, i, reg, lane)
+
+
+def mma_a_matrix(a):
+    """PTX m16n8k32 .s8 A fragment layout: register reg of lane (g, t)
+    holds A[g + 8*(reg%2), 4t + 16*(reg//2) + byte]."""
+    A = np.zeros(a.shape[:-2] + (16, 32), np.int64)
+    for reg in range(4):
+        row = G + 8 * (reg & 1)
+        for k in range(4):
+            A[..., row, 4 * T + 16 * (reg >> 1) + k] = byte_of(
+                a[..., reg, :], k)
+    return A
+
+
+def mma_b_matrix(b0, b1):
+    """PTX m16n8k32 .s8 B fragment layout: register q of lane (g, t) holds
+    B[4t + 16q + byte, g]."""
+    Bm = np.zeros(b0.shape[:-1] + (32, 8), np.int64)
+    for q, reg in enumerate((b0, b1)):
+        for k in range(4):
+            Bm[..., 4 * T + 16 * q + k, G] = byte_of(reg, k)
+    return Bm
+
+
+def k2_tables(spec_li, spec_mask, rmults):
+    """The launcher's per-bit tables: speculative weight sw[i, p] and
+    recovery multiplier rmb[i, p] of input bit p."""
+    n_i, max_w = len(spec_li), len(rmults[0])
+    sw = np.zeros((n_i, 8), np.int64)
+    rmb = np.zeros((n_i, 8), np.int64)
+    for i, (li, mask) in enumerate(zip(spec_li, spec_mask)):
+        for p in range(8):
+            q = p - li
+            if q >= 0 and (mask >> q) & 1:
+                sw[i, p] = 1 << q
+            if 0 <= q < max_w:
+                rmb[i, p] = rmults[i][q]
+    return sw, rmb
+
+
+def k2_walk(x, planes, spec_li, spec_mask, mults, rmults, centers, lo, hi,
+            plan):
+    """numpy walk of the K2 kernel: per (column tile, batch tile) and
+    cluster rank, its (segment, plane) pairs in 128-row stages zero-filled
+    past the operands; warp w's k32 step of each stage with its A fragments
+    from the swizzled stage and its B fragments one bit plane per n8
+    column, as m16n8k32 products by the PTX fragment layouts; at a pair's
+    end every warp's C fragments added into the slab by the kernel's index
+    formula and read back per thread element; speculation, clamp,
+    recovery, select and center term in uint32; counters masked to
+    (B, C); contributions pushed to the owning rank's inbox and summed
+    there."""
+    B, R = x.shape
+    n_j, Rp, C = planes.shape
+    n_seg, n_i = Rp // 512, len(spec_li)
+    bt, cs, ppr = plan.bt, plan.cluster, plan.pairs_per_rank
+    tile, S = bt * 64, fs.SLAB_STRIDE
+    n_el = -(-tile // 128)
+    sw, rmb = k2_tables(spec_li, spec_mask, rmults)
+    M = 2**32
+    out = np.full((B, C), -1, np.int64)
+    fails = np.zeros(n_i, np.int64)
+    rsats = 0
+    xp = np.zeros((-(-B // bt) * bt, Rp), np.int64)
+    xp[:B, :R] = x
+    for ct in range(plan.grid[1]):
+        col0 = ct * 64
+        wcols = np.zeros((n_j, Rp, 64), np.int64)
+        wcols[:, :, :max(0, min(64, C - col0))] = planes[:, :, col0:col0 + 64]
+        for bti in range(plan.grid[0] // cs):
+            b0 = bti * bt
+            per = -(-tile // cs)
+            inbox = np.zeros((cs, cs * per), np.int64)
+            for rank in range(cs):
+                contrib = np.zeros((n_el, 128), np.int64)  # (k, thread)
+                for pr in range(rank * ppr, min(n_seg * n_j, rank * ppr + ppr)):
+                    s, j = divmod(pr, n_j)
+                    D = np.zeros((4, 4, bt, 16, 8), np.int64)  # (w, i, n, m, p)
+                    xs_acc = np.zeros((4, bt, 32), np.int64)   # (w, n, lane)
+                    for sub in range(4):
+                        k0 = s * 512 + sub * 128
+                        # warp w runs k32 step w of the stage
+                        A = mma_a_matrix(k2_a_fragments(k2_stage_planes(
+                            wcols[j, k0:k0 + 128])))       # (w, i, 16, 32)
+                        xt = xp[b0:b0 + bt, k0:k0 + 128]
+                        rows = np.arange(4)[:, None] * 32 + 4 * T  # (w, lane)
+                        v0 = np.stack([xt[:, rows + q] for q in range(4)])
+                        v1 = np.stack([xt[:, rows + 16 + q]
+                                       for q in range(4)])  # (q, n, w, lane)
+                        xs_acc += (v0.sum(0) + v1.sum(0)).transpose(1, 0, 2)
+
+                        def bits(v):
+                            packed = sum((v[q] & 255) << (8 * q)
+                                         for q in range(4))
+                            return (packed >> G) & 0x01010101
+                        Bm = mma_b_matrix(bits(v0), bits(v1))  # (n, w, 32, 8)
+                        D += np.einsum("wimc,nwcp->winmp", A, Bm)
+                    # C register r of lane (g, t): D[g + 8*(r//2), 2t + r%2]
+                    frag = np.stack([D[..., G + 8 * (r >> 1), 2 * T + (r & 1)]
+                                     for r in range(4)], axis=-2)
+                    slab = np.zeros(bt * 8 * S, np.int64)
+                    for w in range(4):
+                        for n in range(bt):
+                            for i in range(4):
+                                e0 = (n * 8 + 2 * T) * S + 4 * G + i
+                                np.add.at(slab, e0, frag[w, i, n, 0])
+                                np.add.at(slab, e0 + S, frag[w, i, n, 1])
+                                np.add.at(slab, e0 + 32, frag[w, i, n, 2])
+                                np.add.at(slab, e0 + S + 32, frag[w, i, n, 3])
+                    v = xs_acc
+                    v = v + v[..., LANES ^ 1]
+                    v = v + v[..., LANES ^ 2]
+                    xsum = v[..., 0].sum(0) % M  # lane 0 of each warp adds
+                    for k in range(n_el):
+                        e = np.arange(128) + 128 * k
+                        e = e[e < tile]
+                        b, c = e // 64, e % 64
+                        d = np.stack([slab[(b * 8 + p) * S + c]
+                                      for p in range(8)], -1)  # (thread, 8)
+                        col = col0 + c
+                        ok = (b0 + b < B) & (col < C)
+                        rcs = np.clip(d, lo, hi)
+                        rsat = (rcs == lo) | (rcs == hi)
+                        for i in range(n_i):
+                            cs_ = np.clip((d * sw[i]).sum(-1), lo, hi)
+                            sat = (cs_ == lo) | (cs_ == hi)
+                            fails[i] += (ok & sat).sum()
+                            rec = (rcs * rmb[i]).sum(-1)
+                            rsats += (ok[:, None] & sat[:, None] & rsat
+                                      & (rmb[i] > 0)).sum()
+                            val = np.where(sat, rec, cs_) % M
+                            contrib[k, :len(e)] += val * int(mults[i, j]) % M
+                        if j == 0:
+                            cen = np.where(col < C, centers[s, np.minimum(
+                                col, C - 1)], 0)
+                            contrib[k, :len(e)] += xsum[b] * cen % M
+                        contrib[k] %= M
+                e = np.arange(128)[None, :] + 128 * np.arange(n_el)[:, None]
+                keep = e < tile
+                if cs == 1:
+                    inbox[0, e[keep]] = contrib[keep]
+                else:
+                    inbox[e[keep] // per, rank * per + e[keep] % per] = \
+                        contrib[keep]
+            for owner in range(cs):
+                for jj in range(per):
+                    e = owner * per + jj
+                    if e >= tile:
+                        break
+                    row, col = b0 + e // 64, col0 + e % 64
+                    if row < B and col < C:
+                        out[row, col] = inbox[owner, jj::per].sum() % M
+    assert (out >= 0).all()  # every element written once
+    return ((out + 2**31) % M - 2**31).astype(np.int32), fails, rsats
+
+
+# (B, R, C, n_j, spec slicing, padded plane, wrapping centers): clusters of
+# 5, 6, 2, 8, 3, 7 and 4 ranks; ragged last segments (1100, 520, 300,
+# 1500, 700 rows), ragged column tiles, batch tiles of 1, 2 and 4 rows,
+# five batch tiles at B = 17
+K2_WALKS = [(3, 1100, 100, 3, (4, 2, 2), False, False),
+            (9, 1000, 72, 3, (4, 2, 2), True, True),
+            (17, 520, 64, 1, (8,), False, False),
+            (4, 1024, 128, 8, (4, 2, 2), True, True),
+            (6, 300, 40, 3, (2, 2, 2, 2), False, True),
+            (1, 1500, 70, 7, (4, 2, 2), True, False),
+            (2, 700, 90, 2, (4, 2, 2), False, True)]
+
+
+@pytest.mark.parametrize("bits", [7, 24])
+@pytest.mark.parametrize("case", K2_WALKS)
+def test_k2_tile_walk_matches_plain(case, bits):
+    """The K2 kernel's plan, fragments, epilogue and cluster reduction,
+    walked in numpy, equal ``ref.fused_spec_crossbar`` exactly: psum,
+    failures per spec slice and recovery saturations."""
+    from repro_torch.kernels import ref
+    B, R, C, n_j, slicing, padded, wrap = case
+    rng = np.random.default_rng(B * R + C + n_j)
+    n_seg = -(-R // 512)
+    planes = np.concatenate([rng.integers(-m, m + 1, (1, n_seg * 512, C))
+                             for m in (15, 3, 3, 1, 7, 3, 1, 15)[:n_j]])
+    planes[:, R:] = 0  # zero padding rows
+    planes = planes.astype(np.int8)
+    shifts = np.array([4, 2, 0, 6, 1, 3, 5, 7][:n_j], np.int32)
+    valid = None
+    if padded:  # the last plane pads a ragged plan: zeroed, mults 0
+        valid = torch.ones(n_j, dtype=torch.bool)
+        valid[-1] = False
+    x = rng.integers(0, 256, (B, R)).astype(np.int32)
+    centers = rng.integers(1, 256, (n_seg, C)).astype(np.int32)
+    if wrap:
+        centers = rng.integers(-2**31, 2**31, (n_seg, C)).astype(np.int32)
+    w_flat, li, mask, mults, rmults = ops.spec_tables(
+        torch.from_numpy(planes.reshape(n_j, n_seg, 512, C)),
+        torch.from_numpy(shifts), slicing, valid)
+    adc = adc_lib.ADCConfig(bits=bits)
+    want = ref.fused_spec_crossbar(
+        torch.from_numpy(x), w_flat, li, mask, mults, rmults,
+        torch.from_numpy(centers), adc_lo=adc.lo, adc_hi=adc.hi)
+    plan = fs.tile_plan(B, R, C, n_j)
+    got = k2_walk(x, w_flat.numpy(), li, mask, mults.numpy(), rmults,
+                  centers, adc.lo, adc.hi, plan)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+    assert got[2] == int(want[2])
+    if bits == 7:
+        assert got[1].sum() > 0 and got[2] > 0
+    if wrap:
+        full = (x.astype(np.int64).reshape(B, -1).sum(1).max()
+                * np.abs(centers.astype(np.int64)).max())
+        assert full > 2**31  # the center term wraps
