@@ -6,8 +6,8 @@
 Phases, one line each, every failure fatal (non-zero exit, no result line):
 
   build    compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
-           (one ``nvcc`` per source, all started together) and print K3's
-           and K2's ``ptxas -v`` lines per instantiation (registers,
+           (one ``nvcc`` per source, all started together) and print K3's,
+           K2's and K1's ``ptxas -v`` lines per instantiation (registers,
            spills, the shared memory their tile plans ask for);
   kernels  run each kernel at the main path's shapes and hold it against its
            plain PyTorch version bit for bit: K3 (timed beside its yardstick
@@ -17,8 +17,10 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            occur, both timed; tails: B = 2, 3, 9, 17, 65, R = 1000, 1001 and
            2816, C = 1000 and 1008, 1 and 8 planes with a padded one, the
            (8,) spec slicing and centers across the int32 range), K1 with
-           1b input slices at B = 1, 4, 16, 64 (7b runs must saturate) and
-           with (4,2,2), (8,) slicings and a ragged plane mask, K4 with 8
+           1b input slices at B = 1, 4, 16, 64 (7b runs must saturate),
+           with (4,2,2), (8,) slicings and a ragged plane mask, and at
+           K2's kind of tails (``K1_TAILS``); K1, K2, K1 launched back to
+           back on one stream, each with its own counters; K4 with 8
            one-bit input slices and 3 planes;
   serve    build qwen1.5-0.5b at its published size (random weights from a
            seed, bf16), compile its PIM plans and serve 4 requests through
@@ -28,11 +30,15 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            slicing (Algorithm 1 per site through K1 at compile time);
            launch counts are zeroed before and read after each run; every
            exact run's tokens must equal the int8 tokens at the 24b ADC;
+           then Algorithm 1's compile again under ``torch.profiler`` (K1's
+           device time in it), and a sampled request (temperature 1.0)
+           whose stream must be the same in both engines for one seed;
   timing   one decode step's worth of kernel calls on the compiled plans
            (distinct weights per layer, as the model has them) against the
            plain versions and, for K3, ``torch._int_mm`` (x padded with zero
            rows); K2 also on Algorithm 1's adaptive plans; K4 at the four
-           projection shapes.
+           projection shapes; K1 at B = 16 with batch tiles of 1, 2 and 4
+           rows.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -122,23 +128,27 @@ def phase_build() -> None:
     secs = build.build(list(ops.KERNELS))
     say("build", ok=True, seconds=round(time.perf_counter() - t0, 3),
         per_kernel=json.dumps({k: round(v, 3) for k, v in secs.items()}))
-    # K3 and K2 per instantiation (batch tile, load path): ptxas -v
+    # K3, K2 and K1 per instantiation (batch tile, load path): ptxas -v
     # registers and spills, and the most dynamic shared memory their tile
     # plans ask for
-    from repro_torch.kernels import fused_spec_crossbar as fs
+    from repro_torch.kernels import bitplane
     from repro_torch.kernels import int8_matmul as im
+
+    def bitplane_entry(m):
+        return dict(bt=int(m[1]), cp_async=m[2] == "1",
+                    smem_bytes_max=max(bitplane.smem_bytes(int(m[1]), c)
+                                       for c in range(
+                                           1, bitplane.MAX_CLUSTER + 1)))
     entries = {
         "centered_int8_matmul": (
             r"int8_kernelILi(\d)ELb([01])E",
             lambda m: dict(bt=8 * int(m[1]), cp_async=m[2] == "1",
                            smem_bytes_max=im.smem_bytes(8 * int(m[1]),
                                                         im.MAX_CLUSTER))),
-        "fused_spec_crossbar": (
-            r"spec_kernelILi(\d)ELb([01])E",
-            lambda m: dict(bt=int(m[1]), cp_async=m[2] == "1",
-                           smem_bytes_max=max(
-                               fs.smem_bytes(int(m[1]), c)
-                               for c in range(1, fs.MAX_CLUSTER + 1))))}
+        "fused_spec_crossbar": (r"spec_kernelILi(\d)ELb([01])E",
+                                bitplane_entry),
+        "fused_crossbar": (r"crossbar_kernelILi(\d)ELb([01])E",
+                           bitplane_entry)}
     for name, (pattern, fields) in entries.items():
         entry = None
         for line in build.LOGS.get(name, "").splitlines():
@@ -222,6 +232,8 @@ def phase_kernels(rows: list) -> None:
     check_k3_tails(rows, gen)
     check_k2_tails(rows, gen)
     check_k1(rows, gen)
+    check_k1_tails(rows, gen)
+    check_interleaved(rows, gen)
     check_k4(rows, gen)
     summary = []
     for name, count in ops.launch_counts().items():
@@ -320,28 +332,12 @@ K2_TAILS = ((3, 1000, 1000, 3, SPEC, False, False),
 def check_k2_tails(rows: list, gen) -> None:
     """K2 past the site shapes (``K2_TAILS``), full 8b codes, at 24b and at
     7b, where failures and recovery saturations must occur."""
-    import torch
     from repro_torch.core import adc as adc_lib
     from repro_torch.kernels import fused_spec_crossbar as fs
     from repro_torch.kernels import ops
     for B, R, C, n_j, slicing, padded, wrap in K2_TAILS:
-        n_seg = -(-R // 512)
-        planes = torch.cat([
-            torch.randint(-m, m + 1, (1, n_seg, 512, C), generator=gen,
-                          device="cuda", dtype=torch.int8)
-            for m in (15, 3, 3, 1, 7, 3, 1, 15)[:n_j]])
-        planes[:, -1, R - 512 * (n_seg - 1):] = 0  # zero padding rows
-        shifts = torch.tensor([4, 2, 0, 6, 1, 3, 5, 7][:n_j],
-                              dtype=torch.int32, device="cuda")
-        valid = None
-        if padded:  # the last plane pads a ragged plan: zeroed, mults 0
-            valid = torch.ones(n_j, dtype=torch.bool, device="cuda")
-            valid[-1] = False
-        xu = torch.randint(0, 256, (B, R), generator=gen, device="cuda",
-                           dtype=torch.int32)
-        lo_hi = (-2**31, 2**31 - 1) if wrap else (1, 256)
-        centers = torch.randint(*lo_hi, (n_seg, C), generator=gen,
-                                device="cuda", dtype=torch.int32)
+        xu, planes, shifts, valid, centers = tail_inputs(B, R, C, n_j, padded,
+                                                         wrap, gen)
         tables = ops.spec_tables(planes, shifts, slicing, valid)
         for bits in (24, 7):
             adc = adc_lib.ADCConfig(bits=bits)
@@ -410,6 +406,113 @@ def check_k1(rows: list, gen) -> None:
                           valid="1110", sats=int(got[1]))
             rows.append(row)
             say("kernels", **row)
+
+
+# K1 tails (B, R, C, n_j, input slicing, padded last plane, wrapping
+# centers), full 8b codes: C = 1000 and R = 1001 take the word-load path,
+# C = 1008 the cp.async path with a ragged column tile; 1000, 1001 and 2816
+# rows leave the last segment ragged; 8 planes give clusters of 8 ranks and
+# B = 16 with 8 planes is Algorithm 1's widest candidate at a layer site;
+# B = 1, 2 and 3 take batch tiles of 1, 2 and 4 rows
+K1_TAILS = ((3, 1000, 1000, 3, ONE_BIT, False, False),
+            (9, 2816, 1008, 3, SPEC, False, True),
+            (17, 1000, 1008, 8, ONE_BIT, True, False),
+            (65, 2816, 1000, 1, (8,), False, True),
+            (2, 1001, 1008, 3, (2, 2, 2, 2), False, True),
+            (5, 1024, 1024, 8, (8,), True, True),
+            (16, 1024, 2816, 8, ONE_BIT, True, False),
+            (1, 2816, 1024, 3, (2, 2, 2, 2), False, False))
+
+
+def tail_inputs(B: int, R: int, C: int, n_j: int, padded: bool, wrap: bool,
+                gen):
+    """Planes of up to 8 slices (zero padding rows; the last plane zeroed
+    with mults 0 when ``padded``), their shifts and valid mask, full 8b
+    codes and centers (across the int32 range when ``wrap``)."""
+    import torch
+    n_seg = -(-R // 512)
+    planes = torch.cat([
+        torch.randint(-m, m + 1, (1, n_seg, 512, C), generator=gen,
+                      device="cuda", dtype=torch.int8)
+        for m in (15, 3, 3, 1, 7, 3, 1, 15)[:n_j]])
+    planes[:, -1, R - 512 * (n_seg - 1):] = 0  # zero padding rows
+    shifts = torch.tensor([4, 2, 0, 6, 1, 3, 5, 7][:n_j],
+                          dtype=torch.int32, device="cuda")
+    valid = None
+    if padded:  # the last plane pads a ragged plan: zeroed, mults 0
+        valid = torch.ones(n_j, dtype=torch.bool, device="cuda")
+        valid[-1] = False
+    xu = torch.randint(0, 256, (B, R), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    lo_hi = (-2**31, 2**31 - 1) if wrap else (1, 256)
+    centers = torch.randint(*lo_hi, (n_seg, C), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    return xu, planes, shifts, valid, centers
+
+
+def check_k1_tails(rows: list, gen) -> None:
+    """K1 past the site shapes (``K1_TAILS``) at 24b, timed, and at 7b,
+    where it must saturate."""
+    from repro_torch.core import adc as adc_lib
+    from repro_torch.kernels import fused_crossbar as fx
+    from repro_torch.kernels import ops
+    for B, R, C, n_j, slicing, padded, wrap in K1_TAILS:
+        xu, planes, shifts, valid, centers = tail_inputs(B, R, C, n_j, padded,
+                                                         wrap, gen)
+        tables = ops.crossbar_tables(planes, shifts, slicing, valid)
+        for bits in (24, 7):
+            adc = adc_lib.ADCConfig(bits=bits)
+            kw = dict(adc_lo=adc.lo, adc_hi=adc.hi)
+            got = fx.launch(xu, *tables, centers, **kw)
+            row = compare("fused_crossbar", got,
+                          fx.plain(xu, *tables, centers, **kw), site="tail",
+                          B=B, R=R, C=C, n_j=n_j, adc_bits=bits,
+                          input_slicing="-".join(map(str, slicing)),
+                          padded=padded, wrap=wrap, sats=int(got[1]))
+            if bits == 24:
+                row["tail_ms"] = cuda_ms(
+                    lambda: fx.launch(xu, *tables, centers, **kw), 3)
+            elif int(got[1]) == 0:
+                raise AssertionError(f"K1 tail {row} had no saturations")
+            rows.append(row)
+            say("kernels", **row)
+        del xu, planes, centers, tables
+
+
+def check_interleaved(rows: list, gen) -> None:
+    """K1, K2, K1 launched back to back on one stream at the 7b ADC, read
+    only after all three: each kernel's counters equal its plain version's,
+    so neither adds into the other's counts buffer."""
+    import torch
+    from repro_torch.core import adc as adc_lib
+    from repro_torch.kernels import fused_crossbar as fx
+    from repro_torch.kernels import fused_spec_crossbar as fs
+    from repro_torch.kernels import ops
+    R, C = SITE_SHAPES["qkvo"]
+    adc = adc_lib.ADCConfig(bits=7)
+    kw = dict(adc_lo=adc.lo, adc_hi=adc.hi)
+    calls = []
+    for kernel in ("fused_crossbar", "fused_spec_crossbar", "fused_crossbar"):
+        xu, planes, shifts, valid, centers = tail_inputs(4, R, C, 3, False,
+                                                         False, gen)
+        if kernel == "fused_crossbar":
+            calls.append((kernel, fx, (xu, *ops.crossbar_tables(
+                planes, shifts, ONE_BIT), centers)))
+        else:
+            calls.append((kernel, fs, (xu, *ops.spec_tables(
+                planes, shifts, SPEC), centers)))
+    got = [mod.launch(*args, **kw) for _, mod, args in calls]
+    torch.cuda.synchronize()
+    for (kernel, mod, args), g in zip(calls, got):
+        row = compare(kernel, g, mod.plain(*args, **kw), site="interleaved",
+                      B=4, R=R, C=C, adc_bits=7,
+                      counts=json.dumps([int(t) for t in g[1:]]
+                                        if kernel == "fused_crossbar"
+                                        else g[1].tolist() + [int(g[2])]))
+        if not int(g[1].sum()) > 0:
+            raise AssertionError(f"interleaved {kernel} counted nothing")
+        rows.append(row)
+        say("kernels", **row)
 
 
 def k4_inputs(B: int, R: int, C: int, gen):
@@ -559,6 +662,7 @@ def phase_serve(ctx: dict) -> None:
             # both count B * n_seg * C * 8 * n_j converts per pass
             assert tot["adc_converts"] == totals["exact"]["no_spec_converts"]
         elif run == "exact-adaptive":
+            adaptive_cfg = cfg
             ctx["adaptive_plans"] = compiled.plans
             errs = [sp.error for sp in compiled.sites]
             ctx["k1_launches"] = launches["fused_crossbar"]
@@ -574,6 +678,13 @@ def phase_serve(ctx: dict) -> None:
             assert compile_launches["fused_crossbar"] > 0
         say("serve", **row)
         del compiled, eng
+    ctx["k1_compile"] = k1_compile_device_time(params, adaptive_cfg, calib)
+    say("serve", scope="Algorithm 1 compile again, under torch.profiler",
+        **ctx["k1_compile"])
+    sampled = check_sampling(dataclasses.replace(cfg0, pim_mode="exact"),
+                             params, ctx["exact_compiled"].plans,
+                             reqs[0].prompt)
+    say("serve", **sampled)
     for run in ("exact", "exact-nospec", "exact-adaptive"):
         if tokens[run] != tokens["int8"]:
             raise AssertionError(
@@ -582,6 +693,71 @@ def phase_serve(ctx: dict) -> None:
     say("serve", ok=True, exact_equals_int8=True,
         first_tokens=json.dumps(tokens["exact"][0]))
     del params
+
+
+def k1_compile_device_time(params, cfg, calib) -> dict:
+    """Algorithm 1's full-width compile run again under ``torch.profiler``:
+    K1's device time summed over its launches (CUPTI kernel records),
+    beside every kernel's and the profiled wall time. The serve phase's
+    ``compile_s`` is the unprofiled compile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import fused_crossbar as fx
+    from repro_torch.models import pim
+    n0 = fx.KERNEL.launches
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        compiled = pim.compile_pim_params(params, cfg, calib)
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = fx.KERNEL.launches - n0
+
+    def dev_us(e):
+        return getattr(e, "device_time_total", None) or getattr(
+            e, "cuda_time_total", 0.0)
+    events = prof.key_averages()
+    k1 = [e for e in events if "crossbar_kernel" in e.key
+          and "sliced" not in e.key]
+    kernels = [e for e in events if str(getattr(e, "device_type", "")).endswith(
+        "CUDA") and dev_us(e) > 0]
+    k1_ms = sum(dev_us(e) for e in k1) / 1e3
+    k1_calls = sum(e.count for e in k1)
+    if k1_calls != launches or k1_ms <= 0:
+        raise AssertionError(f"profiler saw {k1_calls} K1 kernels with "
+                             f"{k1_ms} ms; the compile launched {launches}")
+    return dict(profiled_compile_s=round(wall_s, 3), k1_launches=launches,
+                k1_device_ms=k1_ms,
+                all_kernels_device_ms=sum(dev_us(e) for e in kernels) / 1e3,
+                slice_histogram=json.dumps(compiled.slice_histogram()))
+
+
+def check_sampling(cfg, params, plans, prompt) -> dict:
+    """A sampled request (temperature 1.0, 8 new tokens) through the
+    continuous engine draws the lockstep engine's B = 1 stream for its
+    seed on the card; the same seed replays it, another seed does not."""
+    import numpy as np
+    from repro_torch.serve import ContinuousServeEngine, Request, ServeEngine
+    n_new, seed = 8, 5
+    max_len = len(prompt) + n_new + 1
+    lock = ServeEngine(cfg, params, max_len=max_len, temperature=1.0,
+                       plans=plans)
+    want = lock.generate(prompt[None], steps=n_new, seed=seed).tokens[0]
+    again = lock.generate(prompt[None], steps=n_new, seed=seed).tokens[0]
+    other = lock.generate(prompt[None], steps=n_new, seed=seed + 1).tokens[0]
+    eng = ContinuousServeEngine(cfg, params, n_slots=4, max_len=max_len,
+                                prefill_chunk=64, plans=plans)
+    [out] = eng.run([Request(uid=0, prompt=prompt, max_new_tokens=n_new,
+                             temperature=1.0, seed=seed)])
+    if not (np.array_equal(want, again) and np.array_equal(out.tokens, want)):
+        raise AssertionError(
+            f"sampled streams differ for seed {seed}: lockstep {want.tolist()}"
+            f", replay {again.tolist()}, continuous {out.tokens.tolist()}")
+    if np.array_equal(want, other):
+        raise AssertionError(f"seeds {seed} and {seed + 1} drew one stream")
+    return dict(sampled_mode=cfg.pim_mode, temperature=1.0, seed=seed,
+                sampled_continuous_equals_lockstep=True,
+                sampled_tokens=json.dumps(want.tolist()))
 
 
 def step_calls(plans: dict) -> list:
@@ -626,6 +802,35 @@ def crossbar_step(plans: dict, slicing: tuple, spec: bool, gen):
                         + 4 * n_seg * C + 4 * B * C + 8 * n_counts)
             n_ops += 2 * B * n_seg * rx * C * n_j * n_i
     return calls, n_bytes, n_ops
+
+
+def k1_batch_tiles(gen) -> dict:
+    """K1 at Algorithm 1's B = 16 (1b input slices, 3 planes, the four site
+    shapes, 24b ADC) with batch tiles of 1, 2 and 4 rows forced: device
+    time per call in µs, each plan held bit for bit against the plain
+    version first."""
+    import functools
+    from repro_torch.kernels import bitplane, ops
+    from repro_torch.kernels import fused_crossbar as fx
+    kw = dict(adc_lo=-(1 << 23), adc_hi=(1 << 23) - 1)
+    out = {}
+    default = fx.tile_plan
+    try:
+        for site, (R, C) in SITE_SHAPES.items():
+            xu, planes, shifts, centers = k2_inputs(16, R, C, gen)
+            args = (xu, *ops.crossbar_tables(planes, shifts, ONE_BIT),
+                    centers)
+            want = fx.plain(*args, **kw)
+            for bt in bitplane.BATCH_TILES:
+                fx.tile_plan = functools.partial(bitplane.tile_plan, bt=bt)
+                compare("fused_crossbar", fx.launch(*args, **kw), want,
+                        site=site, B=16, bt=bt)
+                out[f"{site}_bt{bt}_us"] = 1e3 * cuda_ms(
+                    lambda: fx.launch(*args, **kw), 3)
+            del xu, planes, centers, args, want
+    finally:
+        fx.tile_plan = default
+    return out
 
 
 def phase_timing(ctx: dict, rows: list) -> list:
@@ -710,9 +915,15 @@ def phase_timing(ctx: dict, rows: list) -> list:
              ("sliced_crossbar", k4, "the four projection shapes, B=4"))
     for name, d, scope in table:
         say("timing", kernel=name, scope=scope, **d)
+    say("timing", scope="K1 at B=16 by batch tile, per call",
+        **k1_batch_tiles(gen))
     say("timing", scope="Algorithm 1 compile, full width",
         adaptive_compile_s=ctx["adaptive_compile_s"],
-        search_k1_launches=ctx["k1_launches"])
+        search_k1_launches=ctx["k1_launches"],
+        k1_device_ms_in_compile=ctx["k1_compile"]["k1_device_ms"],
+        all_kernels_device_ms_in_compile=ctx["k1_compile"][
+            "all_kernels_device_ms"],
+        profiled_compile_s=ctx["k1_compile"]["profiled_compile_s"])
 
     def err(kernel):
         return max(r["max_abs_err"] for r in rows if r["kernel"] == kernel)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C launcher that takes device
 pointers and PyTorch's current stream as ``void*`` and returns the launch's
 ``cudaError_t``. It compiles into ``build/kernels/lib<name>-<hash>.so`` at
-the repository root — the hash covers the source and the flags, so an edited
-source rebuilds — at the kernel's first use, or ahead of time through
+the repository root — the hash covers the source, the local headers it
+includes (``csrc/bitplane_gemm.cuh``) and the flags, so an edited source or
+header rebuilds — at the kernel's first use, or ahead of time through
 :func:`build` (``chip_smoke.py`` starts one ``nvcc`` per source at once).
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -41,10 +43,35 @@ def nvcc() -> str:
                        "are built from source at first use")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every local header it includes (``#include
+    "..."`` found under ``csrc/``), recursively, each once, in the order
+    first reached."""
+    seen: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep.is_file():
+                todo.append(dep)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """``build/kernels/lib<name>-<hash>.so``: the hash covers the source,
+    the local headers it includes and the flags, so editing any of them
+    rebuilds."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict[str, float]:

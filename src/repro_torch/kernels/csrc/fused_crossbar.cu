@@ -3,7 +3,9 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/fused_crossbar.py
 // (fused_crossbar / _kernel). Plain version:
-// repro_torch/kernels/ref.py::fused_crossbar.
+// repro_torch/kernels/ref.py::fused_crossbar. Tile plan (batch tile,
+// cluster size, (segment, plane) pairs per rank, shared memory, grid):
+// bitplane.py::tile_plan, through fused_crossbar.py::tile_plan.
 //
 // What it computes, per output (b, c):
 //   psum = sum_s xsum(b, s) * centers(s, c)                   (center term)
@@ -11,226 +13,141 @@
 // over every segment s, input slice i and weight plane j; a clamp that sits
 // on either ADC bound is a saturation, counted over the true (B, C) extent.
 //
-// Design (K2's, csrc/fused_spec_crossbar.cu, without the recovery). The
-// grid runs one block per (32-column tile, batch-row tile, segment s,
-// plane j) and each block adds its (b, c) contribution into the zeroed
-// psum with an integer atomicAdd (exact and order-free). Inside a block, 4
-// warps split the segment's 512 rows and meet in shared memory before the
-// ADC clamp, which needs the whole column sum. Every input slice's column
-// sum is linear in the input bits, so a block computes only the 8 bit-plane
-// dots bd[p] = bit_p(x) . w_j per (b, c) and derives each slice's sum as
-// sum_q bd[li + q] << q: 8 dots for any input slicing, (1,)*8 (Algorithm
-// 1's search) and (8,) included. The x tile is staged in shared memory as
-// packed bit planes (4 rows per 32-bit word, one byte per row), so a dot is
-// a chain of __dp4a over 4 rows at a time; each thread streams its own
-// column of the plane from device memory. Batch tiles of up to 8 rows (the
-// search runs B = 16) reuse each loaded weight word for 8 x 8 dots; the
-// staged bits and the warps' partial dots share one shared-memory buffer.
+// Every input slice's column sum is linear in the input bits: with the 8
+// bit-plane dots d[p] = bit_p(x) . w_j it is sum_q d[li + q] << q over the
+// set bits q of mask_i -- d[li] itself for Algorithm 1's 1b slices, a
+// shifted sum for (4,2,2) or (8,). So the kernel is the bit-plane int8 GEMM
+// of bitplane_gemm.cuh (which says what bounds it on an H100 and what its
+// design does about it) with a short epilogue: per input slice the shifted
+// sum in int32 (at most 255 * 512 * 128 in magnitude, so exact), one clamp,
+// one saturation count and one multiply by mults in uint32. It has no
+// speculation, recovery or select, so its epilogue holds fewer registers
+// than K2's. A zero plane (the padding of a ragged plan, mults 0) clamps to
+// 0 and counts no saturation while the ADC window holds 0.
 //
-// What bounds it on an H100: at decode (B <= 64) the planes are read once
-// per batch-row tile and nothing else is large, so the floor is the plane
-// bytes over HBM bandwidth (3 int8 planes per weight at (4,2,2), ~1.41 GB
-// per signed pass for qwen1.5-0.5b). At the decode shapes one call moves a
-// few MB, so launch latency and the blocks in flight decide its time.
-// Byte-wide weight loads and the dp4a rate keep it above the floor;
-// tensor-core (mma.sync s8) bit-plane GEMMs are the later step.
-//
-// Integer arithmetic wraps modulo 2^32 like the reference's int32; the
-// saturation count is 64-bit, reduced per block and added with one
-// atomicAdd per block.
+// Algorithm 1 calls it at B = 16, where the 4-row batch tile has 4 blocks
+// read each plane tile (once from HBM, then from L2). Forced 2- and 1-row
+// tiles ran slower at all four qwen1.5-0.5b site shapes on an H100 (head:
+// 0.73 ms at 4 rows, 1.05 at 2, 1.78 at 1): the plane tile's transpose and
+// the per-pair barriers, paid once per block, weigh more than the L2
+// re-reads. 8-row tiles are out for K2's reason: 128 accumulators a thread.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "bitplane_gemm.cuh"
 
 namespace {
 
-constexpr int ROWS = 512;         // rows per crossbar segment (ADC span)
-constexpr int WORDS = ROWS / 4;   // packed 4-row words per segment
-constexpr int BITS = 8;           // input code bits
-constexpr int MAX_I = 8;          // input slices
-constexpr int MAX_J = 8;          // weight planes
-constexpr int BN = 32;            // columns per block, one per lane
-constexpr int WARPS = 4;          // warps per block, splitting the rows
-constexpr int WARP_WORDS = WORDS / WARPS;
+using namespace bitplane;
 
+// The input slices' weights per bit (bitplane::slice_weights). Indexed by
+// compile-time constants only, so they stay in the constant bank.
 struct Tables {
   int n_i;
-  int li[MAX_I];
-  int mask[MAX_I];
+  int sw[MAX_I][BITS];
 };
 
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
+// One (b, c)'s contribution for one (segment, plane): per input slice the
+// shifted sum, the clamp, the saturation count (only where ok, inside the
+// true (B, C) extent) and the multiply by mults(i, j). One counter.
+struct CrossbarEpilogue {
+  static constexpr int SLOTS = 1;
+  const Tables& tab;
+  int lo, hi;
+  unsigned sats;
 
-// grid (C/32, B/BM, n_seg * n_j), block 128 threads
-template <int BM>
-__global__ void __launch_bounds__(BN * WARPS) crossbar_kernel(
-    const int32_t* __restrict__ x, const int8_t* __restrict__ w,
-    const int32_t* __restrict__ mults, const int32_t* __restrict__ centers,
-    int32_t* __restrict__ out, unsigned long long* __restrict__ sats,
-    int B, int R, int C, int n_seg, int n_j, int lo, int hi, Tables tab) {
-  // First the bit planes of the staged x tile, xbits[b][k][p] = bit p of
-  // rows 4k..4k+3 of batch row b, one byte per row; then the per-warp
-  // partial dots part[warp][b][p][lane]. Both hold BM * 1024 words.
-  __shared__ __align__(16) uint32_t buf[BM * WORDS * BITS];
-  __shared__ uint32_t xsum[BM];
-  __shared__ unsigned long long red;
-  auto xbits = reinterpret_cast<uint32_t (*)[WORDS][BITS]>(buf);
-  auto part = reinterpret_cast<int (*)[BM][BITS][BN]>(buf);
+  __device__ __forceinline__ CrossbarEpilogue(const Tables& t, int lo_,
+                                              int hi_)
+      : tab(t), lo(lo_), hi(hi_), sats(0u) {}
 
-  const int tid = threadIdx.x;
-  const int lane = tid % BN, warp = tid / BN;
-  const int c = blockIdx.x * BN + lane;
-  const int b0 = blockIdx.y * BM;
-  const int s = blockIdx.z / n_j, j = blockIdx.z % n_j;
-  const bool col_ok = c < C;
-
-  if (tid == 0) red = 0ull;
-  if (tid < BM) xsum[tid] = 0u;
-  __syncthreads();
-  for (int e = tid; e < BM * WORDS; e += BN * WARPS) {
-    const int b = e / WORDS, k = e % WORDS;
-    const int bb = b0 + b;
-    const int r0 = s * ROWS + 4 * k;
-    int v[4];
-    uint32_t sum = 0u;
+  __device__ __forceinline__ uint32_t operator()(const int (&d)[BITS], bool ok,
+                                                 const int32_t* mj) {
+    uint32_t acc = 0u;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      v[q] = (bb < B && r0 + q < R) ? x[(size_t)bb * R + r0 + q] : 0;
-      sum += (uint32_t)v[q];
-    }
-#pragma unroll
-    for (int p = 0; p < BITS; ++p) {
-      uint32_t word = 0u;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) word |= (uint32_t)((v[q] >> p) & 1) << (8 * q);
-      xbits[b][k][p] = word;
-    }
-    atomicAdd(&xsum[b], sum);
-  }
-  __syncthreads();
-
-  // this warp's quarter of the segment's rows
-  int bd[BM][BITS];
-#pragma unroll
-  for (int b = 0; b < BM; ++b)
-#pragma unroll
-    for (int p = 0; p < BITS; ++p) bd[b][p] = 0;
-  if (col_ok) {
-    const size_t Rp = (size_t)n_seg * ROWS;
-    const int8_t* wp = w + ((size_t)j * Rp + (size_t)s * ROWS) * C + c;
-    for (int k = warp * WARP_WORDS; k < (warp + 1) * WARP_WORDS; ++k) {
-      const int8_t* wr = wp + (size_t)(4 * k) * C;
-      const uint32_t w4 = (uint32_t)(uint8_t)__ldg(wr) |
-                          ((uint32_t)(uint8_t)__ldg(wr + C) << 8) |
-                          ((uint32_t)(uint8_t)__ldg(wr + 2 * (size_t)C) << 16) |
-                          ((uint32_t)(uint8_t)__ldg(wr + 3 * (size_t)C) << 24);
-#pragma unroll
-      for (int b = 0; b < BM; ++b) {
-        const uint4 lo4 = *reinterpret_cast<const uint4*>(&xbits[b][k][0]);
-        const uint4 hi4 = *reinterpret_cast<const uint4*>(&xbits[b][k][4]);
-        bd[b][0] = __dp4a((int)lo4.x, (int)w4, bd[b][0]);
-        bd[b][1] = __dp4a((int)lo4.y, (int)w4, bd[b][1]);
-        bd[b][2] = __dp4a((int)lo4.z, (int)w4, bd[b][2]);
-        bd[b][3] = __dp4a((int)lo4.w, (int)w4, bd[b][3]);
-        bd[b][4] = __dp4a((int)hi4.x, (int)w4, bd[b][4]);
-        bd[b][5] = __dp4a((int)hi4.y, (int)w4, bd[b][5]);
-        bd[b][6] = __dp4a((int)hi4.z, (int)w4, bd[b][6]);
-        bd[b][7] = __dp4a((int)hi4.w, (int)w4, bd[b][7]);
-      }
-    }
-  }
-  __syncthreads();  // every warp is done with xbits: reuse it for part
-#pragma unroll
-  for (int b = 0; b < BM; ++b)
-#pragma unroll
-    for (int p = 0; p < BITS; ++p) part[warp][b][p][lane] = bd[b][p];
-  __syncthreads();
-
-  // warp w finishes batch rows w, w + 4, ...: input slices, ADC,
-  // saturation count, shift+add, and (plane 0 only) the center term
-  unsigned int sat_cnt = 0u;
-  for (int b = warp; b < BM; b += WARPS) {
-    if (b0 + b >= B || !col_ok) continue;
-    int d[BITS];
-#pragma unroll
-    for (int p = 0; p < BITS; ++p) {
-      int acc = 0;
-#pragma unroll
-      for (int q = 0; q < WARPS; ++q) acc += part[q][b][p][lane];
-      d[p] = acc;
-    }
-    uint32_t contrib = 0u;
-    if (j == 0) contrib = xsum[b] * (uint32_t)centers[(size_t)s * C + c];
-    for (int i = 0; i < tab.n_i; ++i) {
-      const int li = tab.li[i], mask = tab.mask[i];
+    for (int i = 0; i < MAX_I; ++i) {
+      if (i >= tab.n_i) break;
       int v = 0;
 #pragma unroll
-      for (int p = 0; p < BITS; ++p) {
-        const int q = p - li;
-        if (q >= 0 && ((mask >> q) & 1)) v += d[p] * (1 << q);
-      }
+      for (int p = 0; p < BITS; ++p) v += d[p] * tab.sw[i][p];
       const int cs = clampi(v, lo, hi);
-      sat_cnt += (cs == lo || cs == hi) ? 1u : 0u;
-      contrib += (uint32_t)cs * (uint32_t)mults[i * n_j + j];
+      sats += (ok && (cs == lo || cs == hi)) ? 1u : 0u;
+      acc += (uint32_t)cs * (uint32_t)mj[i * MAX_J];
     }
-    atomicAdd(reinterpret_cast<unsigned int*>(out) + (size_t)(b0 + b) * C + c,
-              contrib);
+    return acc;
   }
-  if (sat_cnt) atomicAdd(&red, (unsigned long long)sat_cnt);
-  __syncthreads();
-  if (tid == 0 && red) atomicAdd(sats, red);
+
+  template <class Add>
+  __device__ __forceinline__ void count(Add&& add) { add(sats, 0); }
+  __device__ __forceinline__ int slots() const { return SLOTS; }
+};
+
+template <int BT, bool VEC>
+__global__ void __launch_bounds__(THREADS) crossbar_kernel(
+    const int32_t* __restrict__ x, const int8_t* __restrict__ w,
+    const int32_t* __restrict__ mults, const int32_t* __restrict__ centers,
+    int32_t* __restrict__ out, unsigned long long* __restrict__ counts,
+    unsigned long long* __restrict__ next_counts, int B, int R, int C,
+    int n_seg, int n_j, int ppr, int lo, int hi,
+    const __grid_constant__ Tables tab) {
+  CrossbarEpilogue epi(tab, lo, hi);
+  gemm<BT, VEC>(x, w, mults, centers, out, counts, next_counts, B, R, C,
+                n_seg, n_j, ppr, tab.n_i, epi);
 }
 
-template <int BM>
-cudaError_t launch(const int32_t* x, const int8_t* w, const int32_t* mults,
-                   const int32_t* centers, int32_t* out,
-                   unsigned long long* sats, int B, int R, int C, int n_seg,
-                   int n_j, int lo, int hi, const Tables& tab,
-                   cudaStream_t stream) {
-  const dim3 grid((C + BN - 1) / BN, (B + BM - 1) / BM, n_seg * n_j);
-  crossbar_kernel<BM><<<grid, BN * WARPS, 0, stream>>>(
-      x, w, mults, centers, out, sats, B, R, C, n_seg, n_j, lo, hi, tab);
-  return cudaGetLastError();
+template <bool VEC>
+cudaError_t launch_bt(const int32_t* x, const int8_t* w, const int32_t* m,
+                      const int32_t* c, int32_t* out,
+                      unsigned long long* counts, unsigned long long* next,
+                      int B, int R, int C, int n_seg, int n_j, int lo, int hi,
+                      const Tables& tab, int bt, int cluster, int ppr,
+                      cudaStream_t st) {
+  static bool attr[3] = {};  // one attribute call per instantiation
+  switch (bt) {
+    case 1: return launch<1>(crossbar_kernel<1, VEC>, attr[0], B, C, cluster, st, x, w, m, c, out, counts, next, B, R, C, n_seg, n_j, ppr, lo, hi, tab);
+    case 2: return launch<2>(crossbar_kernel<2, VEC>, attr[1], B, C, cluster, st, x, w, m, c, out, counts, next, B, R, C, n_seg, n_j, ppr, lo, hi, tab);
+    case 4: return launch<4>(crossbar_kernel<4, VEC>, attr[2], B, C, cluster, st, x, w, m, c, out, counts, next, B, R, C, n_seg, n_j, ppr, lo, hi, tab);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // x (B, R) int32 codes 0..255; w (n_j, n_seg*512, C) int8; mults (n_i, n_j)
-// int32; centers (n_seg, C) int32; out (B, C) int32 and sats () int64, both
-// zeroed by the caller: blocks add into them. li / mask (n_i,) are host
-// tables; the caller guarantees li + (bits of mask) <= 8 (the 8 bit planes
-// are all the kernel computes). bm (1, 2, 4 or 8) is the batch-row tile.
-// Returns the launch's cudaError_t.
+// int32; centers (n_seg, C) int32; out (B, C) int32, every element written
+// once; counts (1,) int64, the saturations, zero before the launch: blocks
+// add into it; next_counts (1,) int64, which the launch zeroes for the
+// next launch of this kernel on the stream.
+// li / mask (n_i,) are host tables; li + (bits of mask) <= 8 (the 8 bit
+// planes are all the kernel computes), else the launch is refused.
+// The tile plan is checked against the header's constants
+// (bitplane::plan_ok). Operands whose rows all start 16-byte aligned take
+// the cp.async path, others the word-load path. Returns the launch's
+// cudaError_t.
 extern "C" int fused_crossbar_launch(
     const void* x, const void* w, const void* mults, const void* centers,
-    void* out, void* sats, int B, int R, int C, int n_seg, int n_j, int n_i,
-    const int* li, const int* mask, int adc_lo, int adc_hi, int bm,
-    void* stream) {
-  if (n_i < 1 || n_i > MAX_I || n_j < 1 || n_j > MAX_J || B < 1 || C < 1 ||
-      n_seg < 1 || R > n_seg * ROWS || n_seg * n_j > 65535)
+    void* out, void* counts, void* next_counts, int B, int R, int C,
+    int n_seg, int n_j, int n_i, const int* li, const int* mask, int adc_lo,
+    int adc_hi, int bn, int bk, int stages, int bt, int cluster, int ppr,
+    int smem, void* stream) {
+  if (n_i < 1 || n_i > MAX_I ||
+      !plan_ok(B, R, C, n_seg, n_j, bn, bk, stages, bt, cluster, ppr, smem))
     return (int)cudaErrorInvalidValue;
   Tables tab{};
   tab.n_i = n_i;
-  for (int i = 0; i < n_i; ++i) {
-    tab.li[i] = li[i];
-    tab.mask[i] = mask[i];
-  }
+  if (!slice_weights(n_i, li, mask, tab.sw)) return (int)cudaErrorInvalidValue;
   const auto* xp = static_cast<const int32_t*>(x);
   const auto* wp = static_cast<const int8_t*>(w);
   const auto* mp = static_cast<const int32_t*>(mults);
   const auto* cp = static_cast<const int32_t*>(centers);
   auto* op = static_cast<int32_t*>(out);
-  auto* sp = static_cast<unsigned long long*>(sats);
+  auto* kp = static_cast<unsigned long long*>(counts);
+  auto* nk = static_cast<unsigned long long*>(next_counts);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (bm) {
-    case 1: return (int)launch<1>(xp, wp, mp, cp, op, sp, B, R, C, n_seg, n_j, adc_lo, adc_hi, tab, st);
-    case 2: return (int)launch<2>(xp, wp, mp, cp, op, sp, B, R, C, n_seg, n_j, adc_lo, adc_hi, tab, st);
-    case 4: return (int)launch<4>(xp, wp, mp, cp, op, sp, B, R, C, n_seg, n_j, adc_lo, adc_hi, tab, st);
-    case 8: return (int)launch<8>(xp, wp, mp, cp, op, sp, B, R, C, n_seg, n_j, adc_lo, adc_hi, tab, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)(vec_ok(x, w, R, C)
+                   ? launch_bt<true>(xp, wp, mp, cp, op, kp, nk, B, R, C,
+                                     n_seg, n_j, adc_lo, adc_hi, tab, bt,
+                                     cluster, ppr, st)
+                   : launch_bt<false>(xp, wp, mp, cp, op, kp, nk, B, R, C,
+                                      n_seg, n_j, adc_lo, adc_hi, tab, bt,
+                                      cluster, ppr, st));
 }
 
 extern "C" const char* fused_crossbar_error_string(int err) {

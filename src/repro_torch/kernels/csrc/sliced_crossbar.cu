@@ -8,10 +8,11 @@
 // What it computes, per output (b, c):
 //   out = sum_{s, i, j} clip(x_i[b, seg s] . w_j[seg s, c], lo, hi) * mults(i, j)
 // over 512-row segments s, input slices i and weight planes j. There is no
-// center term and no counter: it is K1 (csrc/fused_crossbar.cu) on inputs
-// that arrive already sliced, as any int8 values.
+// center term and no counter: it is K1's function (csrc/fused_crossbar.cu)
+// on inputs that arrive already sliced, as any int8 values.
 //
-// Design (K1's skeleton). One block per (32-column tile, batch-row tile,
+// Design (K1's first, dp4a skeleton; K1 now runs the bit-plane GEMM of
+// bitplane_gemm.cuh, which takes codes, not pre-sliced values). One block per (32-column tile, batch-row tile,
 // segment s, plane j) adds into the zeroed output with an integer
 // atomicAdd; 4 warps split the segment's 512 rows and meet in shared memory
 // before the clamp. The block stages every input slice's rows of the

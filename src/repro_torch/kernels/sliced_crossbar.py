@@ -16,15 +16,21 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.fused_crossbar import MAX_SLICES, batch_tile
+from repro_torch.kernels.bitplane import MAX_SLICES
 
 plain = ref.sliced_crossbar_matmul
 ROWS_PER_XBAR = 512  # the segment length the kernel is compiled for
+MAX_BM = 8           # batch rows per block
 
 _c = ctypes.c_int
 _p = ctypes.c_void_p
 KERNEL = build.CudaKernel(
     "sliced_crossbar", [_p, _p, _p, _p, _c, _c, _c, _c, _c, _c, _c, _c, _p])
+
+
+def batch_tile(B: int) -> int:
+    """Batch rows per block: the next power of two of B, at most 8."""
+    return min(MAX_BM, 1 << (B - 1).bit_length())
 
 
 def launch(x_slices: torch.Tensor, w_planes: torch.Tensor,

@@ -2,9 +2,20 @@
 
 Port of ``repro.serve.engine``. With ``cfg.pim_mode != 'off'`` the engine
 needs the compiled plan tree (``models.pim.prepare_pim_params``) and passes
-it to every prefill/decode call. Greedy decoding is deterministic; at
-``temperature > 0`` tokens are drawn from a ``torch.Generator`` seeded per
-call (not the reference's ``jax.random`` stream).
+it to every prefill/decode call. Greedy decoding is deterministic and
+touches no generator.
+
+Sampling (``temperature > 0``) draws on the host: the last position's
+logits come to the CPU and ``sample`` draws from a CPU ``torch.Generator``
+seeded with the call's seed, whatever the model's device. The continuous
+engine samples each request's host row with the same function and a CPU
+generator seeded with the request's seed, so a sampled request there
+replays this engine's B = 1 stream on any device, as the reference's
+contract asks. Host generators, not device ones: a CUDA generator gives
+another stream than a CPU one for the same seed, and the continuous
+engine already pulls every iteration's logits to the host in one copy,
+so sampling there on the device would cost a sync per slot. The draws are
+not the reference's ``jax.random`` stream.
 """
 
 from __future__ import annotations
@@ -38,11 +49,14 @@ def check_plans(cfg: ArchConfig, plans: Any) -> None:
 
 def sample(logits: torch.Tensor, temperature: float,
            gen: torch.Generator | None) -> torch.Tensor:
-    """(B, vocab) logits -> (B,) ids: argmax (first maximum) when greedy."""
+    """(B, vocab) logits -> (B,) ids on the logits' device: argmax (first
+    maximum) when greedy; else one draw per row, in row order, from the
+    CPU generator ``gen`` on the rows brought to the host."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
-    probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=gen)[:, 0]
+    probs = torch.softmax(logits.cpu().to(torch.float32) / temperature,
+                          dim=-1)
+    return torch.multinomial(probs, 1, generator=gen)[:, 0].to(logits.device)
 
 
 class ServeEngine:
@@ -67,7 +81,7 @@ class ServeEngine:
             raise ValueError("prompt + steps exceeds engine max_len")
         gen = None
         if self.temperature > 0.0:
-            gen = torch.Generator(device=dev).manual_seed(seed)
+            gen = torch.Generator().manual_seed(seed)  # host: see sample
         logits, state = T.prefill(self.params, self.cfg, toks,
                                   max_len=self.max_len, plans=self.plans)
         tok = sample(logits[:, -1], self.temperature, gen)[:, None]

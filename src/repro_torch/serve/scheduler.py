@@ -15,7 +15,10 @@ Greedy outputs equal running each request alone through the lockstep
 engine: decode math is per-slot independent and chunked prefill reproduces
 whole-prompt prefill for float KV caches. Each iteration makes one host
 sync for all slots' logits (greedy argmax takes the first maximum, as
-``np.argmax`` and ``torch.argmax`` both do).
+``np.argmax`` and ``torch.argmax`` both do). A sampled request draws from
+a CPU generator seeded with its seed, through the lockstep engine's
+``sample`` on its host row, so it replays that engine's B = 1 stream
+(``serve.engine`` says why the host).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as T
-from repro_torch.serve.engine import check_plans
+from repro_torch.serve.engine import check_plans, sample
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,11 +132,9 @@ class ContinuousServeEngine:
                 greedy_tok: int) -> int:
         if slot.req.temperature <= 0.0:
             return greedy_tok
-        if slot.gen is None:
+        if slot.gen is None:  # a host generator, as the lockstep engine's
             slot.gen = torch.Generator().manual_seed(slot.req.seed)
-        probs = torch.softmax(logits_row.to(torch.float32)
-                              / slot.req.temperature, dim=-1)
-        return int(torch.multinomial(probs, 1, generator=slot.gen))
+        return int(sample(logits_row[None], slot.req.temperature, slot.gen))
 
     def _commit(self, idx: int, slot: _Slot, tok: int,
                 finished: list[RequestOutput]) -> None:

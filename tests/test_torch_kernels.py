@@ -19,6 +19,7 @@ from repro.kernels import ops as ref_ops
 from repro_torch.core import adc as adc_lib
 from repro_torch.core import center_offset as co
 from repro_torch.core import speculation as spec
+from repro_torch.kernels import bitplane as bp
 from repro_torch.kernels import fused_spec_crossbar as fs
 from repro_torch.kernels import int8_matmul as im
 from repro_torch.kernels import ops
@@ -253,6 +254,25 @@ def test_kernel_tables_reject_bits_past_eight():
                     ((1, 2, 4, 8), (1, 2, 0, 0), (1, 2, 0, 0)))
 
 
+def test_library_path_follows_included_headers(tmp_path, monkeypatch):
+    """The built library's name hashes the source and every local header
+    it includes, recursively: editing a header, even one included only by
+    another header, names another library, so no stale build loads."""
+    from repro_torch.kernels import build
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cstdint>\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("constexpr int N = 1;\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert [p.name for p in build.sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("constexpr int N = 2;\n")
+    second = build.library_path("k")
+    assert second != first
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// x\n')
+    assert build.library_path("k") not in (first, second)
+
+
 def test_plain_kernels_refuse_other_devices():
     """The wrappers dispatch by device: plain on the CPU, the kernel on
     CUDA, an error for anything else — never a silent fallback."""
@@ -291,8 +311,8 @@ def test_k2_tile_plan_within_limits(RC, B, n_j):
     assert p.grid == (-(-B // p.bt) * p.cluster, -(-C // p.bn))
     owners = [pr // p.pairs_per_rank for pr in range(n_pairs)]
     assert sorted(set(owners)) == list(range(p.cluster))  # none empty
-    assert (p.bn, p.bk, p.stages) == (fs.BN, fs.BK, fs.STAGES)
-    assert p.smem_bytes == fs.smem_bytes(p.bt, p.cluster)
+    assert (p.bn, p.bk, p.stages) == (bp.BN, bp.BK, bp.STAGES)
+    assert p.smem_bytes == bp.smem_bytes(p.bt, p.cluster)
 
 
 # ---------------------------------------------------------------- K2 walk
@@ -382,29 +402,28 @@ def k2_tables(spec_li, spec_mask, rmults):
     return sw, rmb
 
 
-def k2_walk(x, planes, spec_li, spec_mask, mults, rmults, centers, lo, hi,
-            plan):
-    """numpy walk of the K2 kernel: per (column tile, batch tile) and
+def bitplane_walk(x, planes, mults, centers, plan, epilogue, n_counts):
+    """numpy walk of the bit-plane GEMM that K1 and K2 share
+    (``csrc/bitplane_gemm.cuh``): per (column tile, batch tile) and
     cluster rank, its (segment, plane) pairs in 128-row stages zero-filled
     past the operands; warp w's k32 step of each stage with its A fragments
     from the swizzled stage and its B fragments one bit plane per n8
     column, as m16n8k32 products by the PTX fragment layouts; at a pair's
     end every warp's C fragments added into the slab by the kernel's index
-    formula and read back per thread element; speculation, clamp,
-    recovery, select and center term in uint32; counters masked to
-    (B, C); contributions pushed to the owning rank's inbox and summed
-    there."""
+    formula and read back per thread element; the kernel's ``epilogue``
+    (d (elements, 8), ok (elements,), plane j, counts) -> contributions
+    mod 2^32, adding its counters (masked to (B, C)) into ``counts``; the
+    center term in uint32; contributions pushed to the owning rank's inbox
+    and summed there. Returns (psum int32, counts)."""
     B, R = x.shape
     n_j, Rp, C = planes.shape
-    n_seg, n_i = Rp // 512, len(spec_li)
+    n_seg = Rp // 512
     bt, cs, ppr = plan.bt, plan.cluster, plan.pairs_per_rank
-    tile, S = bt * 64, fs.SLAB_STRIDE
+    tile, S = bt * 64, bp.SLAB_STRIDE
     n_el = -(-tile // 128)
-    sw, rmb = k2_tables(spec_li, spec_mask, rmults)
     M = 2**32
     out = np.full((B, C), -1, np.int64)
-    fails = np.zeros(n_i, np.int64)
-    rsats = 0
+    counts = np.zeros(n_counts, np.int64)
     xp = np.zeros((-(-B // bt) * bt, Rp), np.int64)
     xp[:B, :R] = x
     for ct in range(plan.grid[1]):
@@ -463,17 +482,7 @@ def k2_walk(x, planes, spec_li, spec_mask, mults, rmults, centers, lo, hi,
                                       for p in range(8)], -1)  # (thread, 8)
                         col = col0 + c
                         ok = (b0 + b < B) & (col < C)
-                        rcs = np.clip(d, lo, hi)
-                        rsat = (rcs == lo) | (rcs == hi)
-                        for i in range(n_i):
-                            cs_ = np.clip((d * sw[i]).sum(-1), lo, hi)
-                            sat = (cs_ == lo) | (cs_ == hi)
-                            fails[i] += (ok & sat).sum()
-                            rec = (rcs * rmb[i]).sum(-1)
-                            rsats += (ok[:, None] & sat[:, None] & rsat
-                                      & (rmb[i] > 0)).sum()
-                            val = np.where(sat, rec, cs_) % M
-                            contrib[k, :len(e)] += val * int(mults[i, j]) % M
+                        contrib[k, :len(e)] += epilogue(d, ok, j, counts)
                         if j == 0:
                             cen = np.where(col < C, centers[s, np.minimum(
                                 col, C - 1)], 0)
@@ -495,7 +504,53 @@ def k2_walk(x, planes, spec_li, spec_mask, mults, rmults, centers, lo, hi,
                     if row < B and col < C:
                         out[row, col] = inbox[owner, jj::per].sum() % M
     assert (out >= 0).all()  # every element written once
-    return ((out + 2**31) % M - 2**31).astype(np.int32), fails, rsats
+    return ((out + 2**31) % M - 2**31).astype(np.int32), counts
+
+
+def k2_walk(x, planes, spec_li, spec_mask, mults, rmults, centers, lo, hi,
+            plan):
+    """``bitplane_walk`` with K2's epilogue: speculation, clamp, recovery
+    and select in uint32; failures per spec slice and recovery
+    saturations. Returns (psum, failures, recovery saturations)."""
+    n_i = len(spec_li)
+    sw, rmb = k2_tables(spec_li, spec_mask, rmults)
+    M = 2**32
+
+    def epilogue(d, ok, j, counts):
+        out = np.zeros(len(d), np.int64)
+        rcs = np.clip(d, lo, hi)
+        rsat = (rcs == lo) | (rcs == hi)
+        for i in range(n_i):
+            cs_ = np.clip((d * sw[i]).sum(-1), lo, hi)
+            sat = (cs_ == lo) | (cs_ == hi)
+            counts[i] += (ok & sat).sum()
+            rec = (rcs * rmb[i]).sum(-1)
+            counts[n_i] += (ok[:, None] & sat[:, None] & rsat
+                            & (rmb[i] > 0)).sum()
+            val = np.where(sat, rec, cs_) % M
+            out += val * int(mults[i, j]) % M
+        return out
+    psum, counts = bitplane_walk(x, planes, mults, centers, plan, epilogue,
+                                 n_i + 1)
+    return psum, counts[:n_i], int(counts[n_i])
+
+
+def k1_walk(x, planes, in_li, in_mask, mults, centers, lo, hi, plan):
+    """``bitplane_walk`` with K1's epilogue: per input slice the shifted
+    sum of its bit-plane sums, the clamp, the saturation count and the
+    multiply by mults in uint32. Returns (psum, saturations)."""
+    sw, _ = k2_tables(in_li, in_mask, [[0]] * len(in_li))
+    M = 2**32
+
+    def epilogue(d, ok, j, counts):
+        out = np.zeros(len(d), np.int64)
+        for i in range(len(in_li)):
+            cs_ = np.clip((d * sw[i]).sum(-1), lo, hi)
+            counts[0] += (ok & ((cs_ == lo) | (cs_ == hi))).sum()
+            out += cs_ % M * int(mults[i, j]) % M
+        return out
+    psum, counts = bitplane_walk(x, planes, mults, centers, plan, epilogue, 1)
+    return psum, int(counts[0])
 
 
 # (B, R, C, n_j, spec slicing, padded plane, wrapping centers): clusters of
@@ -553,3 +608,79 @@ def test_k2_tile_walk_matches_plain(case, bits):
         full = (x.astype(np.int64).reshape(B, -1).sum(1).max()
                 * np.abs(centers.astype(np.int64)).max())
         assert full > 2**31  # the center term wraps
+
+
+# ---------------------------------------------------------------- K1
+# (B, R, C, n_j, input slicing, padded plane, wrapping centers): Algorithm
+# 1's 1b slices at its B = 16 with 8 planes (a padded one), the pinned
+# (4,2,2) and the widest (8,) slicing; clusters of 6, 8, 5 and 4 ranks,
+# batch tiles of 4, 2 and 1 rows, ragged segments and column tiles
+K1_WALKS = [(3, 1100, 100, 3, (1,) * 8, False, False),
+            (16, 520, 64, 8, (1,) * 8, True, True),
+            (2, 1024, 72, 3, (4, 2, 2), False, True),
+            (1, 700, 90, 4, (8,), True, False)]
+
+
+@pytest.mark.parametrize("bits", [7, 24])
+@pytest.mark.parametrize("case", K1_WALKS)
+def test_k1_tile_walk_matches_plain(case, bits):
+    """The K1 kernel: K2's plan, fragments and cluster reduction (the same
+    walk) with K1's epilogue, equal ``ref.fused_crossbar`` exactly: psum
+    and the saturation count; a padded plane adds nothing."""
+    from repro_torch.kernels import fused_crossbar as fx
+    from repro_torch.kernels import ref
+    B, R, C, n_j, slicing, padded, wrap = case
+    rng = np.random.default_rng(B * R + C + n_j + 1)
+    n_seg = -(-R // 512)
+    planes = np.concatenate([rng.integers(-m, m + 1, (1, n_seg * 512, C))
+                             for m in (15, 3, 3, 1, 7, 3, 1, 15)[:n_j]])
+    planes[:, R:] = 0  # zero padding rows
+    planes = planes.astype(np.int8)
+    shifts = np.array([4, 2, 0, 6, 1, 3, 5, 7][:n_j], np.int32)
+    valid = None
+    if padded:  # the last plane pads a ragged plan: zeroed, mults 0
+        valid = torch.ones(n_j, dtype=torch.bool)
+        valid[-1] = False
+    x = rng.integers(0, 256, (B, R)).astype(np.int32)
+    lo_hi = (-2**31, 2**31) if wrap else (1, 256)
+    centers = rng.integers(*lo_hi, (n_seg, C)).astype(np.int32)
+    w_flat, li, mask, mults = ops.crossbar_tables(
+        torch.from_numpy(planes.reshape(n_j, n_seg, 512, C)),
+        torch.from_numpy(shifts), slicing, valid)
+    adc = adc_lib.ADCConfig(bits=bits)
+    want = ref.fused_crossbar(torch.from_numpy(x), w_flat, li, mask, mults,
+                              torch.from_numpy(centers), adc_lo=adc.lo,
+                              adc_hi=adc.hi)
+    plan = fx.tile_plan(B, R, C, n_j)
+    got = k1_walk(x, w_flat.numpy(), li, mask, mults.numpy(), centers,
+                  adc.lo, adc.hi, plan)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    assert got[1] == int(want[1])
+    if bits == 7:
+        assert got[1] > 0
+    if padded:  # the padded plane's psum share is zero
+        assert not w_flat[-1].any() and not mults[:, -1].any()
+
+
+@pytest.mark.parametrize("B", [1, 3, 4, 16, 17, 64, 65])
+@pytest.mark.parametrize("RC", SITE_SHAPES + [(1000, 1008)])
+def test_k1_tile_plan_within_limits(RC, B):
+    """K1's launch plan fits the card at 1, 3 and 8 planes: shared memory
+    within 227 KB, a portable cluster of 1..8 ranks that divides the grid
+    with every (segment, plane) pair owned by one rank and none empty, the
+    grid limits; its batch tile holds B (or 4 rows); the C launcher's
+    constants."""
+    from repro_torch.kernels import fused_crossbar as fx
+    R, C = RC
+    for n_j in (1, 3, 8):
+        p = fx.tile_plan(B, R, C, n_j)
+        n_pairs = -(-R // 512) * n_j
+        assert p.smem_bytes <= SMEM_LIMIT
+        assert 1 <= p.cluster <= 8 and p.grid[0] % p.cluster == 0
+        assert p.grid[0] < 2**31 and p.grid[1] <= 65535
+        assert p.bt in (1, 2, 4) and p.bt >= min(B, 4)
+        assert p.grid == (-(-B // p.bt) * p.cluster, -(-C // p.bn))
+        owners = [pr // p.pairs_per_rank for pr in range(n_pairs)]
+        assert sorted(set(owners)) == list(range(p.cluster))  # none empty
+        assert (p.bn, p.bk, p.stages) == (bp.BN, bp.BK, bp.STAGES)
+        assert p.smem_bytes == bp.smem_bytes(p.bt, p.cluster)

@@ -2,7 +2,8 @@
 
 - Continuous batching (chunked prefill, slot reuse) gives each request
   the greedy tokens the lockstep engine gives it alone, bit for bit, in
-  the float and the PIM modes (reduced yi-6b, GQA, on the CPU).
+  the float and the PIM modes (reduced yi-6b, GQA, on the CPU); a sampled
+  request replays the lockstep engine's stream for its seed.
 - No module of ``repro_torch`` — nor ``chip_smoke.py``'s imports — pulls
   in ``jax`` or the reference package ``repro``.
 - Without CUDA the port's entry point refuses to run on its default
@@ -55,6 +56,26 @@ def test_continuous_matches_lockstep(model, mode):
         want = lock.generate(r.prompt[None], steps=r.max_new_tokens)
         np.testing.assert_array_equal(o.tokens, want.tokens[0])
         assert o.finish_reason == "length"
+
+
+def test_sampled_stream_is_seed_reproducible(model):
+    """temperature > 0: the same seed replays the stream, another seed
+    gives another, and the continuous engine at B = 1 draws the lockstep
+    engine's stream for the request's seed (the reference test of this
+    name, on the port)."""
+    cfg, params = model
+    prompts = np.arange(1, 6, dtype=np.int32)[None]
+    eng = ServeEngine(cfg, params, max_len=32, temperature=1.0)
+    a = eng.generate(prompts, steps=12, seed=3)
+    b = eng.generate(prompts, steps=12, seed=3)
+    assert np.array_equal(a.tokens, b.tokens)
+    c = eng.generate(prompts, steps=12, seed=4)
+    assert not np.array_equal(a.tokens, c.tokens)
+    ceng = ContinuousServeEngine(cfg, params, n_slots=2, max_len=32,
+                                 prefill_chunk=4)
+    [out] = ceng.run([Request(uid=0, prompt=prompts[0], max_new_tokens=12,
+                              temperature=1.0, seed=3)])
+    assert np.array_equal(out.tokens, a.tokens[0])
 
 
 def test_engine_needs_plans_in_pim_modes(model):
