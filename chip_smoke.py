@@ -31,14 +31,23 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            launch counts are zeroed before and read after each run; every
            exact run's tokens must equal the int8 tokens at the 24b ADC;
            then Algorithm 1's compile again under ``torch.profiler`` (K1's
-           device time in it), and a sampled request (temperature 1.0)
-           whose stream must be the same in both engines for one seed;
+           device time in it), a sampled request (temperature 1.0)
+           whose stream must be the same in both engines for one seed,
+           and ``PagedServeEngine`` (blocks of 16, max_len 32 in every
+           run): ``paged-exact`` (K2) under a pool of 5 blocks that must
+           evict, its tokens the continuous exact tokens; ``paged-prefix``
+           (K3), 4 requests sharing a 32-token prefix, 6 prefix-block
+           hits, its tokens the continuous engine's at the same chunks;
+           ``paged-int8kv`` (K3, int8 KV cache), its tokens the continuous
+           engine's under the same cache; both int8-KV runs again under
+           ``torch.profiler`` (every kernel's device time);
   timing   one decode step's worth of kernel calls on the compiled plans
            (distinct weights per layer, as the model has them) against the
            plain versions and, for K3, ``torch._int_mm`` (x padded with zero
            rows); K2 also on Algorithm 1's adaptive plans; K4 at the four
            projection shapes; K1 at B = 16 with batch tiles of 1, 2 and 4
-           rows.
+           rows; the copies the paged engine adds to a decode step (block
+           gathers, int8 dequantize), device and host time.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -68,6 +77,7 @@ BATCHES = (1, 4, 64)
 K1_BATCHES = (1, 4, 16, 64)  # 16: Algorithm 1's search rows
 SPEC = (4, 2, 2)
 ONE_BIT = (1,) * 8           # Algorithm 1's input slicing
+BLOCK = 16                   # the paged runs' KV tokens per pool block
 
 
 def say(phase: str, **fields) -> None:
@@ -586,9 +596,11 @@ def phase_serve(ctx: dict) -> None:
         vocab=cfg0.vocab_size, dtype=cfg0.dtype,
         init_s=round(time.perf_counter() - t0, 3))
     reqs = serve_requests(cfg0.vocab_size)
-    max_len = max(len(r.prompt) for r in reqs) + 8 + 1
+    # a whole number of blocks, so that the paged runs and the contiguous
+    # runs attend over one length (the condition of _paged_gather's
+    # bit-identity argument)
+    max_len = BLOCK * -(-(max(len(r.prompt) for r in reqs) + 8 + 1) // BLOCK)
     calib = calibration_tokens(cfg0, 16)
-    n_proj = 7 * cfg0.n_layers + 1  # weight-static projections per call
     runs = (("exact", dict(pim_mode="exact")),
             ("int8", dict(pim_mode="int8")),
             ("fast", dict(pim_mode="fast")),
@@ -616,47 +628,23 @@ def phase_serve(ctx: dict) -> None:
             serve_s = time.perf_counter() - t0
             launches = ops.launch_counts()
             totals[run] = L.pim_stats_totals(sink)
-        st = eng.stats
-        n_tok = sum(len(o.tokens) for o in outs)
-        assert len(outs) == len(reqs) and all(
-            o.finish_reason == "length" and len(o.tokens) == 8 for o in outs)
-        assert all(0 <= int(t) < cfg0.vocab_size for o in outs
-                   for t in o.tokens)
-        calls = st.decode_steps + st.prefill_chunks
+        assert len(outs) == len(reqs)
         served = {k: launches[k] - compile_launches[k] for k in launches}
-        k1, k2, k3, k4 = (served[k] for k in (
-            "fused_crossbar", "fused_spec_crossbar", "centered_int8_matmul",
-            "sliced_crossbar"))
-        # every projection, both signed passes, through one kernel
-        want = {"exact": (0, 2 * n_proj * calls, 0),
-                "fast": (0, 0, n_proj * calls),
-                "int8": (0, 0, 0),
-                "exact-nospec": (2 * n_proj * calls, 0, 0),
-                "exact-adaptive": (0, 2 * n_proj * calls, 0)}[run]
-        assert (k1, k2, k3) == want and k4 == 0, (run, launches)
         tokens[run] = [o.tokens.tolist() for o in outs]
-        row = dict(mode=run, compile_s=round(compile_s, 3),
-                   serve_s=round(serve_s, 3),
-                   prefill_s=round(st.prefill_seconds, 3),
-                   decode_s=round(st.decode_seconds, 3),
-                   tokens=n_tok, decode_steps=st.decode_steps,
-                   prefill_chunks=st.prefill_chunks,
-                   tok_per_s=round(n_tok / serve_s, 2),
-                   decode_tok_per_s=round(
-                       (n_tok - len(outs)) / st.decode_seconds, 2),
-                   launches=json.dumps(launches),
-                   launches_per_step=json.dumps(
-                       {k: v / calls for k, v in served.items()}))
+        row = engine_row(run, eng, outs, serve_s, launches, PER_CALL[run],
+                         cfg0.vocab_size, served=served)
+        row["compile_s"] = round(compile_s, 3)
+        n_tok = row["tokens"]
         if run.startswith("exact"):
             tot = totals[run]
             row.update(adc_converts_per_token=tot["adc_converts"] / n_tok,
                        no_spec_converts_per_token=tot["no_spec_converts"]
                        / n_tok, spec_failures=tot["spec_failures"])
         if run == "exact":
-            ctx["k2_launches"] = k2
+            ctx["k2_launches"] = served["fused_spec_crossbar"]
             ctx["exact_compiled"] = compiled
         elif run == "fast":
-            ctx["k3_launches"] = k3
+            ctx["k3_launches"] = served["centered_int8_matmul"]
             ctx["fast_plans"] = compiled.plans
         elif run == "exact-nospec":
             # both count B * n_seg * C * 8 * n_j converts per pass
@@ -690,9 +678,211 @@ def phase_serve(ctx: dict) -> None:
             raise AssertionError(
                 f"{run} tokens differ from int8 tokens at the 24b ADC: "
                 f"{tokens[run]} vs {tokens['int8']}")
+    serve_paged(ctx, params, cfg0, reqs, tokens, max_len)
     say("serve", ok=True, exact_equals_int8=True,
         first_tokens=json.dumps(tokens["exact"][0]))
     del params
+
+
+def prefix_requests(vocab: int):
+    """4 requests whose prompts share a 32-token prefix (2 blocks), each
+    with 4-8 tokens of its own, 8 new tokens each (seeded)."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(2)
+    prefix = rng.integers(0, vocab, 2 * BLOCK)
+    return [Request(uid=u, prompt=np.concatenate(
+        [prefix, rng.integers(0, vocab, n)]).astype(np.int32),
+        max_new_tokens=8) for u, n in enumerate((4, 8, 6, 5))]
+
+
+def drive(eng, reqs, first=None):
+    """Serve ``reqs`` with every launch count zeroed just before and read
+    just after. With ``first``, that request runs alone until its prompt
+    blocks are registered for sharing, then ``reqs`` join."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = []
+    if first is not None:
+        eng.submit(first)
+        while not eng.alloc.prefix_index:
+            outs += eng.step()
+    outs += eng.run(reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    assert len(outs) == len(reqs) + (first is not None)
+    return (sorted(outs, key=lambda o: o.uid), serve_s,
+            ops.launch_counts())
+
+
+# each serve run's launches per engine call (decode step or prefill
+# chunk): every projection through one kernel, both signed passes in exact
+# mode; no other kernel launches
+PER_CALL = {"exact": {"fused_spec_crossbar": 2}, "int8": {},
+            "fast": {"centered_int8_matmul": 1},
+            "exact-nospec": {"fused_crossbar": 2},
+            "exact-adaptive": {"fused_spec_crossbar": 2},
+            "paged-exact": {"fused_spec_crossbar": 2},
+            "paged-prefix": {"centered_int8_matmul": 1},
+            "continuous-prefix": {"centered_int8_matmul": 1},
+            "paged-int8kv": {"centered_int8_matmul": 1},
+            "continuous-int8kv": {"centered_int8_matmul": 1}}
+
+
+def engine_row(run: str, eng, outs, serve_s: float, launches: dict,
+               per_call: dict, vocab: int, served: dict | None = None
+               ) -> dict:
+    """One serve line: each request's 8 tokens in the vocabulary, and the
+    launches the serving made (``served``, default ``launches``) equal to
+    ``per_call[kernel]`` x projections x engine calls for every kernel."""
+    st = eng.stats
+    served = launches if served is None else served
+    calls = st.decode_steps + st.prefill_chunks
+    n_proj = 7 * eng.cfg.n_layers + 1  # weight-static projections per call
+    assert all(o.finish_reason == "length" and len(o.tokens) == 8
+               and all(0 <= int(t) < vocab for t in o.tokens) for o in outs)
+    want = {k: per_call.get(k, 0) * n_proj * calls for k in served}
+    if served != want:
+        raise AssertionError(f"{run}: launches {served}, want {want}")
+    n_tok = sum(len(o.tokens) for o in outs)
+    row = dict(mode=run, engine=type(eng).__name__,
+               serve_s=round(serve_s, 3),
+               prefill_s=round(st.prefill_seconds, 3),
+               decode_s=round(st.decode_seconds, 3), tokens=n_tok,
+               decode_steps=st.decode_steps,
+               prefill_chunks=st.prefill_chunks,
+               step_ms=round(1e3 * st.decode_seconds / st.decode_steps, 2),
+               tok_per_s=round(n_tok / serve_s, 2),
+               decode_tok_per_s=round(
+                   (n_tok - len(outs)) / st.decode_seconds, 2),
+               launches=json.dumps(launches),
+               launches_per_step=json.dumps(
+                   {k: v / calls for k, v in served.items()}))
+    if hasattr(eng, "alloc"):
+        row.update(n_blocks=eng.alloc.n_blocks, block_size=BLOCK,
+                   blocks_in_use=st.blocks_in_use,
+                   peak_blocks_in_use=st.peak_blocks_in_use,
+                   evictions=st.evictions,
+                   prefix_block_hits=st.prefix_block_hits,
+                   admission_waits=st.admission_waits)
+    return row
+
+
+def serve_paged(ctx: dict, params, cfg0, reqs, tokens: dict,
+                max_len: int) -> None:
+    """The paged engine at full width: exact mode (K2) under a pool that
+    must evict, fast mode (K3) with a shared 2-block prefix, and fast mode
+    with an int8 KV cache, each held to the continuous engine's tokens;
+    then the int8-KV runs of both engines again under ``torch.profiler``."""
+    import dataclasses
+    from repro_torch.serve import ContinuousServeEngine, PagedServeEngine
+    vocab = cfg0.vocab_size
+    exact = dataclasses.replace(cfg0, pim_mode="exact")
+    fast = dataclasses.replace(cfg0, pim_mode="fast")
+    # paged-exact: the requests need 8 blocks at their peak, the pool has 5
+    eng = PagedServeEngine(exact, params, n_slots=4, max_len=max_len,
+                           prefill_chunk=64, block_size=BLOCK, n_blocks=5,
+                           plans=ctx["exact_compiled"].plans)
+    outs, serve_s, launches = drive(eng, reqs)
+    row = engine_row("paged-exact", eng, outs, serve_s, launches,
+                     PER_CALL["paged-exact"], vocab)
+    if not (eng.stats.evictions >= 1 and eng.stats.blocks_in_use == 0):
+        raise AssertionError(f"paged-exact: {eng.stats}")
+    if [o.tokens.tolist() for o in outs] != tokens["exact"]:
+        raise AssertionError("paged-exact tokens differ from the continuous "
+                             "engine's exact tokens")
+    say("serve", **row, equals_continuous_exact=True)
+    # paged-prefix: the first request registers the prefix, 3 share it
+    preqs = prefix_requests(vocab)
+    kw = dict(n_slots=4, max_len=3 * BLOCK, prefill_chunk=2 * BLOCK,
+              plans=ctx["fast_plans"])
+    eng = PagedServeEngine(fast, params, block_size=BLOCK, **kw)
+    outs, serve_s, launches = drive(eng, preqs[1:], first=preqs[0])
+    row = engine_row("paged-prefix", eng, outs, serve_s, launches,
+                     PER_CALL["paged-prefix"], vocab)
+    if eng.stats.prefix_block_hits != 6 or eng.stats.blocks_in_use != 0:
+        raise AssertionError(f"paged-prefix: {eng.stats}")
+    cont = ContinuousServeEngine(fast, params, **kw)
+    couts, cserve_s, claunches = drive(cont, preqs)
+    if [o.tokens.tolist() for o in outs] != [o.tokens.tolist()
+                                            for o in couts]:
+        raise AssertionError("paged-prefix tokens differ from the "
+                             "continuous engine's")
+    say("serve", **row, equals_continuous=True)
+    say("serve", **engine_row("continuous-prefix", cont, couts, cserve_s,
+                              claunches, PER_CALL["continuous-prefix"],
+                              vocab))
+    # paged-int8kv: int8 KV, prefix sharing off, against the continuous
+    kv8 = dataclasses.replace(fast, kv_cache_dtype="int8")
+    kw = dict(n_slots=4, max_len=max_len, prefill_chunk=64,
+              plans=ctx["fast_plans"])
+
+    def int8kv_engines():
+        return (PagedServeEngine(kv8, params, block_size=BLOCK, **kw),
+                ContinuousServeEngine(kv8, params, **kw))
+    eng, cont = int8kv_engines()
+    if eng.prefix_sharing is not False:
+        raise AssertionError("prefix sharing is on under an int8 KV cache")
+    outs, serve_s, launches = drive(eng, reqs)
+    couts, cserve_s, claunches = drive(cont, reqs)
+    got = [o.tokens.tolist() for o in outs]
+    if got != [o.tokens.tolist() for o in couts]:
+        raise AssertionError("paged-int8kv tokens differ from the "
+                             "continuous engine's")
+    say("serve", **engine_row("paged-int8kv", eng, outs, serve_s, launches,
+                              PER_CALL["paged-int8kv"], vocab),
+        equals_continuous=True, equals_bf16_kv_fast=got == tokens["fast"])
+    say("serve", **engine_row("continuous-int8kv", cont, couts, cserve_s,
+                              claunches, PER_CALL["continuous-int8kv"],
+                              vocab))
+    for name, e in zip(("paged-int8kv", "continuous-int8kv"),
+                       int8kv_engines()):
+        say("serve", scope=f"{name} again, under torch.profiler",
+            **device_profile(e, reqs))
+
+
+def device_us(e) -> float:
+    """A profiler event's device time in µs (the key moved across torch
+    versions)."""
+    return getattr(e, "device_time_total", None) or getattr(
+        e, "cuda_time_total", 0.0)
+
+
+def device_profile(eng, reqs) -> dict:
+    """Serve ``reqs`` under ``torch.profiler``: every kernel's device time
+    summed by name (CUPTI records), the launches, and the six kernels that
+    took the most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.run(reqs)
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and device_us(e) > 0]
+    if not kernels:
+        raise AssertionError("the profiler saw no kernel")
+    top = sorted(kernels, key=device_us, reverse=True)[:6]
+    st = eng.stats
+    return dict(profiled_serve_s=round(wall_s, 3),
+                decode_steps=st.decode_steps,
+                prefill_chunks=st.prefill_chunks,
+                all_kernels_device_ms=sum(map(device_us, kernels)) / 1e3,
+                kernel_launches=sum(e.count for e in kernels),
+                top_kernels=json.dumps([[short_name(e.key), e.count,
+                                         round(device_us(e) / 1e3, 3)]
+                                        for e in top]))
+
+
+def short_name(kernel: str) -> str:
+    """A CUDA kernel's name without its namespaces, cut to 90 characters."""
+    return re.sub(r"void |at::native::|\(anonymous namespace\)::|"
+                  r"at::detail::", "", kernel)[:90]
 
 
 def k1_compile_device_time(params, cfg, calib) -> dict:
@@ -712,23 +902,19 @@ def k1_compile_device_time(params, cfg, calib) -> dict:
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = fx.KERNEL.launches - n0
-
-    def dev_us(e):
-        return getattr(e, "device_time_total", None) or getattr(
-            e, "cuda_time_total", 0.0)
     events = prof.key_averages()
     k1 = [e for e in events if "crossbar_kernel" in e.key
           and "sliced" not in e.key]
     kernels = [e for e in events if str(getattr(e, "device_type", "")).endswith(
-        "CUDA") and dev_us(e) > 0]
-    k1_ms = sum(dev_us(e) for e in k1) / 1e3
+        "CUDA") and device_us(e) > 0]
+    k1_ms = sum(device_us(e) for e in k1) / 1e3
     k1_calls = sum(e.count for e in k1)
     if k1_calls != launches or k1_ms <= 0:
         raise AssertionError(f"profiler saw {k1_calls} K1 kernels with "
                              f"{k1_ms} ms; the compile launched {launches}")
     return dict(profiled_compile_s=round(wall_s, 3), k1_launches=launches,
                 k1_device_ms=k1_ms,
-                all_kernels_device_ms=sum(dev_us(e) for e in kernels) / 1e3,
+                all_kernels_device_ms=sum(device_us(e) for e in kernels) / 1e3,
                 slice_histogram=json.dumps(compiled.slice_histogram()))
 
 
@@ -833,6 +1019,59 @@ def k1_batch_tiles(gen) -> dict:
     return out
 
 
+def host_ms(fn, reps: int) -> float:
+    """Mean host time to enqueue one call of ``fn`` (the device keeps up:
+    these calls are short), synchronised before and after."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * dt / reps
+
+
+def kv_copies(gen) -> dict:
+    """The plain-PyTorch copies the paged engine adds to a decode step, at
+    the serve phase's shapes (4 slots, max_len 32, blocks of 16, every
+    layer): the block-table gathers of K and V (bf16 cache) or of K, V and
+    their scales (int8 cache), and the int8 dequantize of K and V that
+    both engines run. Device time (CUDA events) and host time per step."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    cfg = configs.get(ARCH)
+    layout = T.PagedLayout(n_blocks=8, block_size=BLOCK)
+    shape = (layout.pool_rows, BLOCK, cfg.n_kv_heads, cfg.resolved_head_dim)
+    tables = torch.arange(8, device="cuda").reshape(4, 2)
+    n = 2 * cfg.n_layers  # K and V of every layer
+    bf16 = [torch.randn(shape, generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(n)]
+    codes = [torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                           dtype=torch.int8) for _ in range(n)]
+    scales = [torch.rand(shape[:-1], generator=gen, device="cuda")
+              for _ in range(n)]
+
+    def gather(pools):
+        return [T._paged_gather(p, tables, layout) for p in pools]
+    gq, gs = gather(codes), gather(scales)
+
+    def dequant():
+        return [T._dequantize_kv(q, sc, torch.bfloat16)
+                for q, sc in zip(gq, gs)]
+    calls = {"gather_bf16": lambda: gather(bf16),
+             "gather_int8": lambda: gather(codes + scales),
+             "dequant_int8": dequant}
+    out = {"gathered_bytes_bf16": sum(2 * g.numel() for g in gather(bf16)),
+           "layers": cfg.n_layers}
+    for name, fn in calls.items():
+        out[f"{name}_device_ms"] = cuda_ms(fn, 5)
+        out[f"{name}_host_ms"] = host_ms(fn, 5)
+    return out
+
+
 def phase_timing(ctx: dict, rows: list) -> list:
     """Time one decode step's worth of each kernel's calls (B = 4 slots)
     on the compiled plans: distinct weights per layer, as the model has
@@ -917,6 +1156,8 @@ def phase_timing(ctx: dict, rows: list) -> list:
         say("timing", kernel=name, scope=scope, **d)
     say("timing", scope="K1 at B=16 by batch tile, per call",
         **k1_batch_tiles(gen))
+    say("timing", scope="one paged decode step's KV copies, 4 slots",
+        **kv_copies(gen))
     say("timing", scope="Algorithm 1 compile, full width",
         adaptive_compile_s=ctx["adaptive_compile_s"],
         search_k1_launches=ctx["k1_launches"],

@@ -5,12 +5,15 @@
 Runs on the CUDA card unless ``--device cpu`` is given (without a card the
 default device raises). ``--engine continuous`` (default) drives the
 slot-based scheduler on a mixed-length trace and reports decode-step
-utilization next to throughput; ``--engine lockstep`` runs the fixed-batch
-reference engine. ``--pim fast|exact|int8`` compiles PIM plans
-(calibrated on ``np.random.default_rng(7)`` tokens; ``--pim-slicing`` pins
-a slicing like ``4,2,2`` or, with ``adaptive``, runs Algorithm 1 per
-projection site through the static-slicing crossbar kernel and prints the
-per-site table) and routes every weight-static projection through the
+utilization next to throughput; ``--engine paged`` serves the same trace
+from a paged KV block pool (``--block-size``/``--blocks``, see
+``repro_torch.serve.PagedServeEngine``) and prints the pool's counters;
+``--engine lockstep`` runs the fixed-batch reference engine.
+``--pim fast|exact|int8`` compiles PIM plans (calibrated on
+``np.random.default_rng(7)`` tokens; ``--pim-slicing`` pins a slicing like
+``4,2,2`` or, with ``adaptive``, runs Algorithm 1 per projection site
+through the static-slicing crossbar kernel and prints the per-site table)
+and routes every weight-static projection through the
 centered int8 kernel (fast), the speculation/recovery crossbar kernel
 (exact) or the ideal 8b-quantized reference (int8). Weights are random,
 from seed 0.
@@ -30,7 +33,12 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import pim
 from repro_torch.models import transformer as T
-from repro_torch.serve import ContinuousServeEngine, Request, ServeEngine
+from repro_torch.serve import (
+    ContinuousServeEngine,
+    PagedServeEngine,
+    Request,
+    ServeEngine,
+)
 
 
 def build_trace(n: int, *, prompt_len: int, steps: int, vocab: int,
@@ -60,8 +68,15 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
-    ap.add_argument("--engine", choices=("continuous", "lockstep"),
+    ap.add_argument("--engine", choices=("continuous", "lockstep", "paged"),
                     default="continuous")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="paged engine: KV tokens per pool block")
+    ap.add_argument("--blocks", type=int, default=None,
+                    help="paged engine: pool size in blocks (default "
+                         "slots * max_len/block_size — no memory pressure; "
+                         "smaller values exercise queue-until-blocks-free "
+                         "and eviction)")
     ap.add_argument("--requests", type=int, default=8,
                     help="trace length (continuous) / batch size (lockstep)")
     ap.add_argument("--slots", type=int, default=4)
@@ -127,9 +142,18 @@ def main(argv=None) -> None:
     trace = [dataclasses.replace(r, temperature=args.temperature)
              for r in build_trace(args.requests, prompt_len=args.prompt_len,
                                   steps=args.steps, vocab=cfg.vocab_size)]
-    eng = ContinuousServeEngine(cfg, params, n_slots=args.slots,
-                                max_len=max_len,
-                                prefill_chunk=args.prefill_chunk, plans=plans)
+    if args.engine == "paged":
+        max_len = -(-max_len // args.block_size) * args.block_size
+        eng = PagedServeEngine(cfg, params, n_slots=args.slots,
+                               max_len=max_len,
+                               prefill_chunk=args.prefill_chunk,
+                               block_size=args.block_size,
+                               n_blocks=args.blocks, plans=plans)
+    else:
+        eng = ContinuousServeEngine(cfg, params, n_slots=args.slots,
+                                    max_len=max_len,
+                                    prefill_chunk=args.prefill_chunk,
+                                    plans=plans)
     t0 = time.monotonic()
     with L.collect_pim_stats() as sink:
         outs = eng.run(trace)
@@ -137,11 +161,16 @@ def main(argv=None) -> None:
     dt = time.monotonic() - t0
     total = sum(len(o.tokens) for o in outs)
     st = eng.stats
-    print(f"{cfg.name} continuous on {dev}: {len(outs)} requests, {total} "
-          f"tokens in {dt:.2f}s ({total / dt:.1f} tok/s)")
+    print(f"{cfg.name} {args.engine} on {dev}: {len(outs)} requests, "
+          f"{total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s)")
     print(f"decode utilization {st.decode_utilization:.2f} tokens/step over "
           f"{args.slots} slots ({st.decode_steps} decode steps, "
           f"{st.prefill_chunks} prefill chunks)")
+    if args.engine == "paged":
+        print(f"block pool: peak {st.peak_blocks_in_use}/"
+              f"{eng.alloc.n_blocks} blocks of {args.block_size}, "
+              f"{st.prefix_block_hits} prefix hits, {st.evictions} "
+              f"evictions, {st.admission_waits} admission waits")
     if cfg.pim_mode == "exact":
         print(f"adc converts/token {totals['adc_converts'] / max(total, 1):.1f}"
               f" (no-speculation baseline "

@@ -8,18 +8,32 @@ in a Python loop (``models.convert`` carries a reference pytree across).
 Public surface:
   init_params(cfg, seed=, device=)           -> params
   forward(params, cfg, tokens, plans)        -> logits
-  init_decode_state(cfg, B, L, ...)          -> state (contiguous caches)
+  init_decode_state(cfg, B, L, ..., paged=)  -> state (contiguous or paged)
   prefill / prefill_chunk / decode_step / insert_request
+  PagedLayout / prefill_chunk_paged / insert_request_paged
 
 Decode states hold per-layer ``{"k", "v"}`` caches ``(B, max_len, K, hd)``
 and ``pos``: a Python int (lockstep; the host always knows it) or a
-``(B,)`` int64 tensor (per-slot, continuous batching). Unlike the
-reference's immutable arrays, ``prefill_chunk``, ``decode_step`` and
-``insert_request`` write into the state's cache tensors in place — a decode
-step would otherwise copy the whole KV cache.
+``(B,)`` int64 tensor (per-slot, continuous batching). With
+``kv_cache_dtype="int8"`` the caches hold int8 codes plus float32
+``k_scale``/``v_scale`` leaves, one scale per (token, head). A paged state
+holds one block pool per layer, ``(n_blocks + 1, block_size, K, hd)``,
+shared by every slot and addressed through per-slot block tables.
+
+Unlike the reference's immutable arrays, ``prefill_chunk``,
+``prefill_chunk_paged``, ``decode_step`` and the ``insert_request`` pair
+write into the state's cache tensors in place — a decode step would
+otherwise copy the whole KV cache. In a paged pool, slots whose table
+entry is the sentinel write into the scratch row, several of them in one
+``index_put`` possibly at one index (CUDA then keeps an arbitrary one);
+every such position lies at or past its reader's ``kv_len``, so no live
+row ever takes a duplicate write.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -34,8 +48,6 @@ def _check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the port serves dense attention-only token models "
             "(MoE, mamba, rwkv and embedding inputs are later slices)")
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError("int8 KV caches are a later slice")
 
 
 # ------------------------------------------------------------------ init
@@ -125,21 +137,95 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 
 
 # ------------------------------------------------------------------ decode
+@dataclasses.dataclass(frozen=True)
+class PagedLayout:
+    """Geometry of a paged KV pool (vLLM-style block tables).
+
+    Attention caches become one pool of ``n_blocks`` fixed-size blocks
+    shared by every slot, plus one scratch row at index ``n_blocks`` (the
+    ``sentinel``). A slot's block table maps block index -> pool row;
+    sentinel entries land writes in scratch and gather garbage that the
+    attention ``kv_len`` mask turns into exact-zero contributions, so idle
+    or mid-prefill slots need no branch in the decode step.
+    """
+    n_blocks: int
+    block_size: int
+
+    @property
+    def sentinel(self) -> int:
+        return self.n_blocks
+
+    @property
+    def pool_rows(self) -> int:
+        return self.n_blocks + 1
+
+    def blocks_for(self, n_tokens: int) -> int:
+        return -(-n_tokens // self.block_size)
+
+
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
-                      per_slot_pos: bool = False, device=None) -> dict:
+                      per_slot_pos: bool = False,
+                      paged: PagedLayout | None = None, device=None) -> dict:
     """Zeroed per-layer KV caches ``(batch, max_len, kv_heads, head_dim)``
-    and a position: int 0, or a ``(batch,)`` tensor with ``per_slot_pos``
-    (the substrate for continuous batching)."""
+    — or, with ``paged``, block pools ``(n_blocks + 1, block_size,
+    kv_heads, head_dim)`` that ``decode_step`` addresses through per-slot
+    ``block_tables`` — and a position: int 0, or a ``(batch,)`` tensor with
+    ``per_slot_pos`` (the substrate for continuous batching). An int8 KV
+    cache adds float32 ``k_scale``/``v_scale`` leaves without the
+    ``head_dim`` axis."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dt = getattr(torch, cfg.kv_cache_dtype)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    caches = [{"k": torch.zeros(shape, dtype=dt, device=dev),
-               "v": torch.zeros(shape, dtype=dt, device=dev)}
-              for _ in range(cfg.n_layers)]
+    lead = (batch, max_len) if paged is None else (paged.pool_rows,
+                                                   paged.block_size)
+    shape = lead + (cfg.n_kv_heads, cfg.resolved_head_dim)
+    caches = []
+    for _ in range(cfg.n_layers):
+        c = {"k": torch.zeros(shape, dtype=dt, device=dev),
+             "v": torch.zeros(shape, dtype=dt, device=dev)}
+        if dt == torch.int8:
+            c["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=dev)
+            c["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=dev)
+        caches.append(c)
     pos = torch.zeros(batch, dtype=torch.int64, device=dev) \
         if per_slot_pos else 0
     return {"caches": caches, "pos": pos}
+
+
+def _quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., hd) -> int8 codes and a float32 scale per (token, head):
+    ``max |t| / 127`` floored at 1e-8, codes rounded half to even."""
+    t32 = t.to(torch.float32)
+    scale = (t32.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
+    q = torch.round(t32 / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    return (q.to(torch.float32) * scale[..., None]).to(dtype)
+
+
+def _kv_entries(cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """New K/V as the cache stores them, leaf by leaf: int8 codes and
+    their scales, or K/V in the cache's dtype."""
+    if "k_scale" not in cache:
+        return {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
+    kq, ks = _quantize_kv(k)
+    vq, vs = _quantize_kv(v)
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+
+
+def _kv_read(cache: dict, dtype: torch.dtype, view=None):
+    """The cache's K and V in ``dtype`` for attention, int8 codes
+    dequantized; ``view`` maps each leaf first (a paged gather)."""
+    view = view or (lambda t: t)
+    if "k_scale" not in cache:
+        return view(cache["k"]).to(dtype), view(cache["v"]).to(dtype)
+    return (_dequantize_kv(view(cache["k"]), view(cache["k_scale"]), dtype),
+            _dequantize_kv(view(cache["v"]), view(cache["v_scale"]), dtype))
 
 
 def _write_token(buf: torch.Tensor, new: torch.Tensor, pos) -> None:
@@ -158,9 +244,40 @@ def _write_token(buf: torch.Tensor, new: torch.Tensor, pos) -> None:
                                  buf[rows, idx])
 
 
+def _paged_write_token(pool: torch.Tensor, new: torch.Tensor,
+                       pos: torch.Tensor, tables: torch.Tensor,
+                       paged: PagedLayout) -> None:
+    """Write each slot's one-token slice ``new`` (B, 1, ...) into its
+    current block of a ``(pool_rows, block_size, ...)`` pool leaf, in
+    place. Slots whose table entry is the sentinel (idle, retired or
+    mid-prefill) write into the scratch row, which no live gather unmasks."""
+    B = new.shape[0]
+    bi = (pos // paged.block_size).clamp(0, tables.shape[1] - 1)
+    rows = tables[torch.arange(B, device=tables.device), bi]
+    pool[rows, pos % paged.block_size] = new[:, 0].to(pool.dtype)
+
+
+def _paged_gather(pool: torch.Tensor, tables: torch.Tensor,
+                  paged: PagedLayout) -> torch.Tensor:
+    """(pool_rows, block_size, ...) pool + (B, max_blocks) tables -> a
+    (B, max_blocks * block_size, ...) contiguous-cache copy.
+
+    Sentinel entries gather the scratch block; those positions sit at or
+    beyond ``kv_len``, so the attention mask turns them into exact-zero
+    contributions and the copy attends bit-identically to a contiguous
+    ``(B, max_len, ...)`` cache of the same total length."""
+    B, max_blocks = tables.shape
+    view = pool[tables.clamp(0, paged.sentinel)]
+    return view.reshape((B, max_blocks * paged.block_size) + pool.shape[2:])
+
+
 def _attn_decode(bp: dict, cfg: ArchConfig, cache: dict, x: torch.Tensor,
-                 pos, plans=None) -> torch.Tensor:
-    """Single-token attention against the cache (written in place)."""
+                 pos, plans=None, tables=None,
+                 paged: PagedLayout | None = None) -> torch.Tensor:
+    """Single-token attention against the cache (written in place). With
+    ``tables``/``paged`` the cache leaves are block pools: the new token
+    goes into each slot's current block and attention reads a block-table
+    gather of the slot's history."""
     B = x.shape[0]
     if isinstance(pos, int):
         positions = torch.full((B, 1), pos, dtype=torch.int64,
@@ -168,25 +285,46 @@ def _attn_decode(bp: dict, cfg: ArchConfig, cache: dict, x: torch.Tensor,
     else:
         positions = pos[:, None]
     q, k_new, v_new = L.qkv_project(bp["core"], cfg, x, positions, plans)
-    _write_token(cache["k"], k_new, pos)
-    _write_token(cache["v"], v_new, pos)
-    out = L.chunked_attention(q, cache["k"], cache["v"], q_positions=positions,
+    for name, new in _kv_entries(cache, k_new, v_new).items():
+        if tables is None:
+            _write_token(cache[name], new, pos)
+        else:
+            _paged_write_token(cache[name], new, pos, tables, paged)
+    view = None if tables is None else functools.partial(
+        _paged_gather, tables=tables, paged=paged)
+    k_all, v_all = _kv_read(cache, x.dtype, view)
+    out = L.chunked_attention(q, k_all, v_all, q_positions=positions,
                               kv_len=pos + 1, causal=True)
     return L.pim_matmul(out.reshape(B, 1, -1), bp["core"]["wo"],
                         L.plan_leaf(plans, "wo"), cfg)
 
 
 def decode_step(params: dict, cfg: ArchConfig, state: dict,
-                tokens: torch.Tensor, plans=None) -> tuple[torch.Tensor, dict]:
+                tokens: torch.Tensor, plans=None, *, block_tables=None,
+                paged: PagedLayout | None = None
+                ) -> tuple[torch.Tensor, dict]:
     """One decode step. tokens: (B, 1) ids. Every slot's position advances
-    by one; the caches are updated in place."""
-    x = embed_inputs(params, cfg, tokens)
+    by one; the caches are updated in place.
+
+    With a paged state pass ``block_tables`` ((B, max_blocks) int64 pool
+    rows on the state's device, ``paged.sentinel`` for unmapped entries)
+    and the matching ``paged`` layout: each slot writes its token into its
+    current block and attends over a block-table gather, bit-identical to
+    a contiguous cache when ``max_blocks * block_size == max_len``. Slots
+    the caller does not want touched get an all-sentinel row."""
+    if (block_tables is None) != (paged is None):
+        raise ValueError("block_tables and paged must be passed together")
     pos = state["pos"]
+    if block_tables is not None and isinstance(pos, int):
+        raise ValueError("paged decode needs per-slot positions "
+                         "(init_decode_state(..., per_slot_pos=True))")
+    x = embed_inputs(params, cfg, tokens)
     for bp, cache, plan in zip(params["layers"], state["caches"],
                                _layer_plans(cfg, plans)):
         h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
         x = x + _attn_decode(bp, cfg, cache, h, pos,
-                             plans=L.plan_leaf(plan, "core"))
+                             plans=L.plan_leaf(plan, "core"),
+                             tables=block_tables, paged=paged)
         h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
         x = x + L.mlp_block(bp["ffn"], cfg, h,
                             plans=L.plan_leaf(plan, "ffn"))
@@ -197,28 +335,18 @@ def decode_step(params: dict, cfg: ArchConfig, state: dict,
 
 # ------------------------------------------------------------------ prefill
 def _prefill_layers(params: dict, cfg: ArchConfig, x: torch.Tensor,
-                    caches: list, pos0: int, plans, raw_attn: bool):
-    """Run a prompt chunk at offset ``pos0`` through every layer, storing
-    its K/V into ``caches`` in place. ``raw_attn`` attends over this
-    call's own K/V (whole-prompt prefill); otherwise over the cache, which
-    holds the earlier chunks (chunked continuation)."""
+                    caches: list, positions: torch.Tensor, plans, attend):
+    """Run a prompt chunk at ``positions`` through every layer.
+    ``attend(cache, q, k, v)`` stores the chunk's K/V into the layer's
+    cache in place and returns the attention output (B, C, H, hd)."""
     B, C = x.shape[0], x.shape[1]
-    positions = (pos0 + torch.arange(C, device=x.device)).expand(B, C)
     with L.suspend_pim_stats():
         for bp, cache, plan in zip(params["layers"], caches,
                                    _layer_plans(cfg, plans)):
             core_plan = L.plan_leaf(plan, "core")
             hn = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
             q, k, v = L.qkv_project(bp["core"], cfg, hn, positions, core_plan)
-            cache["k"][:, pos0:pos0 + C] = k.to(cache["k"].dtype)
-            cache["v"][:, pos0:pos0 + C] = v.to(cache["v"].dtype)
-            if raw_attn:
-                o = L.chunked_attention(q, k, v, q_positions=positions,
-                                        kv_len=C, causal=cfg.causal)
-            else:
-                o = L.chunked_attention(
-                    q, cache["k"].to(hn.dtype), cache["v"].to(hn.dtype),
-                    q_positions=positions, kv_len=pos0 + C, causal=True)
+            o = attend(cache, q, k, v)
             x = x + L.pim_matmul(o.reshape(B, C, -1), bp["core"]["wo"],
                                  L.plan_leaf(core_plan, "wo"), cfg)
             hn2 = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
@@ -228,16 +356,30 @@ def _prefill_layers(params: dict, cfg: ArchConfig, x: torch.Tensor,
     return L.lm_head(params["embed"], cfg, x[:, -1:], plan=_head_plan(plans))
 
 
+def _store_span(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                pos0: int) -> None:
+    for name, val in _kv_entries(cache, k, v).items():
+        cache[name][:, pos0:pos0 + val.shape[1]] = val
+
+
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             max_len: int | None = None,
             plans=None) -> tuple[torch.Tensor, dict]:
     """Process a prompt, returning last-position logits and a filled
-    decode state (caches sized to ``max_len``, default the prompt)."""
+    decode state (caches sized to ``max_len``, default the prompt).
+    Attention reads this call's raw K/V; an int8 cache stores their
+    codes."""
     x = embed_inputs(params, cfg, tokens)
     B, S = x.shape[0], x.shape[1]
     state = init_decode_state(cfg, B, max_len or S, device=x.device)
-    logits = _prefill_layers(params, cfg, x, state["caches"], 0, plans,
-                             raw_attn=True)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+
+    def attend(cache, q, k, v):
+        _store_span(cache, k, v, 0)
+        return L.chunked_attention(q, k, v, q_positions=positions, kv_len=S,
+                                   causal=cfg.causal)
+    logits = _prefill_layers(params, cfg, x, state["caches"], positions,
+                             plans, attend)
     return logits, {"caches": state["caches"], "pos": S}
 
 
@@ -247,21 +389,102 @@ def prefill_chunk(params: dict, cfg: ArchConfig, state: dict,
     """Process the next prompt chunk of an in-flight (chunked) prefill.
 
     ``state`` is a scalar-pos decode state whose caches hold positions
-    ``[0, state["pos"])``; ``tokens`` (B, C) continue the prompt there.
-    Over a whole prompt this reproduces ``prefill`` for float KV caches.
+    ``[0, state["pos"])``; ``tokens`` (B, C) continue the prompt there and
+    attend over the cache, which holds the earlier chunks. Over a whole
+    prompt this reproduces ``prefill`` for float KV caches; an int8 cache
+    adds one quantize/dequantize round trip per chunk boundary.
     """
     x = embed_inputs(params, cfg, tokens)
+    B, C = x.shape[0], x.shape[1]
     pos0 = state["pos"]
-    logits = _prefill_layers(params, cfg, x, state["caches"], pos0, plans,
-                             raw_attn=False)
-    return logits, {"caches": state["caches"], "pos": pos0 + x.shape[1]}
+    positions = (pos0 + torch.arange(C, device=x.device)).expand(B, C)
+
+    def attend(cache, q, k, v):
+        _store_span(cache, k, v, pos0)
+        k_all, v_all = _kv_read(cache, x.dtype)
+        return L.chunked_attention(q, k_all, v_all, q_positions=positions,
+                                   kv_len=pos0 + C, causal=True)
+    logits = _prefill_layers(params, cfg, x, state["caches"], positions,
+                             plans, attend)
+    return logits, {"caches": state["caches"], "pos": pos0 + C}
 
 
 def insert_request(state: dict, one: dict, slot: int) -> dict:
     """Splice a batch-1 scalar-pos state into slot ``slot`` of a per-slot
-    state, in place: every cache row of the slot is replaced."""
+    state, in place: every cache row of the slot is replaced, scales
+    included."""
     for cache, c1 in zip(state["caches"], one["caches"]):
         for key in cache:
             cache[key][slot] = c1[key][0].to(cache[key].dtype)
+    state["pos"][slot] = one["pos"]
+    return state
+
+
+# ------------------------------------------------------------------ paged
+def prefill_chunk_paged(params: dict, cfg: ArchConfig, state: dict,
+                        tokens: torch.Tensor, *, slot: int,
+                        table_row: torch.Tensor, pos0: int,
+                        paged: PagedLayout,
+                        plans=None) -> tuple[torch.Tensor, dict]:
+    """Advance one slot's in-flight prefill inside the shared block pool:
+    the prompt streams straight into the slot's claimed blocks.
+
+    ``tokens`` (1, C) is the next prompt chunk of ``slot``, whose earlier
+    context — refcount-shared prefix blocks included — is read back
+    through ``table_row`` ((max_blocks,) int64 pool rows on the state's
+    device). ``pos0`` is the chunk's absolute start, passed by the host
+    because the batched ``pos[slot]`` advances with every decode step
+    interleaved while the slot is still prefilling (those writes land in
+    the scratch row); ``pos[slot]`` is set to ``pos0 + C`` on return, so a
+    finished prefill leaves the slot decode-ready.
+
+    Attention-only patterns: recurrent carries cannot be rebuilt from
+    paged context, so those archs stage their prefill at B=1 and hand it
+    over through ``insert_request_paged``.
+    """
+    bad = [k for k in cfg.block_pattern if k != "attn"]
+    if bad:
+        raise ValueError(
+            f"prefill_chunk_paged supports attention-only patterns; "
+            f"{cfg.name} has {bad} blocks — stage the prefill at B=1 and "
+            f"use insert_request_paged")
+    x = embed_inputs(params, cfg, tokens)
+    B, C = x.shape[0], x.shape[1]
+    abs_pos = pos0 + torch.arange(C, device=x.device)
+    positions = abs_pos.expand(B, C)
+    rows_c = table_row[(abs_pos // paged.block_size).clamp(
+        0, table_row.shape[0] - 1)]
+    offs_c = abs_pos % paged.block_size
+    view = functools.partial(_paged_gather, tables=table_row[None],
+                             paged=paged)
+
+    def attend(cache, q, k, v):
+        for name, val in _kv_entries(cache, k, v).items():
+            cache[name][rows_c, offs_c] = val[0]
+        k_all, v_all = _kv_read(cache, x.dtype, view)
+        return L.chunked_attention(q, k_all, v_all, q_positions=positions,
+                                   kv_len=pos0 + C, causal=True)
+    logits = _prefill_layers(params, cfg, x, state["caches"], positions,
+                             plans, attend)
+    state["pos"][slot] = pos0 + C
+    return logits, state
+
+
+def insert_request_paged(state: dict, one: dict, slot: int,
+                         table_row: torch.Tensor,
+                         paged: PagedLayout) -> dict:
+    """Scatter a contiguous B=1 prefilled state into a slot's pool blocks,
+    in place: position ``p`` of every cache leaf goes to pool row
+    ``table_row[p // block_size]`` at offset ``p % block_size`` (sentinel
+    rows absorb the unused tail in scratch), and ``pos[slot]`` is set as
+    ``insert_request`` sets it. The staged-admission path of recurrent
+    archs; attention-only engines prefill in the pool instead."""
+    bs = paged.block_size
+    for cache, c1 in zip(state["caches"], one["caches"]):
+        p = torch.arange(c1["k"].shape[1], device=table_row.device)
+        rows = table_row[(p // bs).clamp(0, table_row.shape[0] - 1)].clamp(
+            0, paged.sentinel)
+        for key in cache:
+            cache[key][rows, p % bs] = c1[key][0].to(cache[key].dtype)
     state["pos"][slot] = one["pos"]
     return state

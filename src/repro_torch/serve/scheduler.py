@@ -65,12 +65,22 @@ class ServeStats:
     # (the logits fetch), so device time is included
     prefill_seconds: float = 0.0
     decode_seconds: float = 0.0
+    # block-pool accounting (paged engine, ``serve.paged``; zero on the
+    # contiguous engine, whose per-slot regions are never shared)
+    blocks_in_use: int = 0                 # current pool occupancy
+    peak_blocks_in_use: int = 0
+    evictions: int = 0                     # preempt-by-recompute events
+    prefix_block_hits: int = 0             # shared-prefix blocks reused
+    admission_waits: int = 0               # iterations head-of-queue waited
 
     @property
     def decode_utilization(self) -> float:
         """Average useful tokens per decode step (0.0 before any step)."""
         return 0.0 if self.decode_steps == 0 else (
             self.decode_slot_tokens / self.decode_steps)
+
+
+EngineStats = ServeStats   # the reference's older name
 
 
 @dataclasses.dataclass
@@ -99,11 +109,16 @@ class ContinuousServeEngine:
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
         self.device = params["embed"]["embed"].device
-        self.state = T.init_decode_state(cfg, n_slots, max_len,
-                                         per_slot_pos=True, device=self.device)
+        self.state = self._init_state()
         self.slots: list[_Slot | None] = [None] * n_slots
         self.queue: collections.deque[Request] = collections.deque()
         self.stats = ServeStats()
+
+    def _init_state(self) -> dict:
+        """The batched decode state: one contiguous ``max_len`` region per
+        slot (the paged engine allocates a block pool instead)."""
+        return T.init_decode_state(self.cfg, self.n_slots, self.max_len,
+                                   per_slot_pos=True, device=self.device)
 
     # ------------------------------------------------------------- intake
     def submit(self, req: Request) -> None:
@@ -211,15 +226,19 @@ class ContinuousServeEngine:
                                           int(greedy[i])), finished)
         return finished
 
+    def _drain_budget(self) -> int:
+        """Iteration cap for ``run`` (the paged engine widens it: evicted
+        requests recompute from scratch)."""
+        return ((len(self.queue) + len(self.active_uids) + 1)
+                * (self.max_len + self.max_len // self.prefill_chunk + 2))
+
     def run(self, requests: list[Request] | None = None,
             max_iters: int | None = None) -> list[RequestOutput]:
         """Submit ``requests`` and step until everything finishes; outputs
         ordered by ``uid``."""
         for r in requests or ():
             self.submit(r)
-        budget = max_iters if max_iters is not None else (
-            (len(self.queue) + len(self.active_uids) + 1)
-            * (self.max_len + self.max_len // self.prefill_chunk + 2))
+        budget = max_iters if max_iters is not None else self._drain_budget()
         outputs: list[RequestOutput] = []
         it = 0
         while self.has_work:

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 import _torch_parity as P
+from _torch_parity import one_thread  # noqa: F401  (autouse fixture)
 from repro import configs as ref_configs
 from repro.core import adaptive as ref_ad
 from repro.core import adc as ref_adc

@@ -21,6 +21,8 @@ from repro_torch.core import crossbar as xbar
 from repro_torch.core import pim_linear as pl
 from repro_torch.quant import quantize as q
 
+from _torch_parity import one_thread  # noqa: F401  (autouse fixture)
+
 
 def _eq(got: torch.Tensor, ref) -> None:
     np.testing.assert_array_equal(got.detach().numpy(), np.asarray(ref))

@@ -38,6 +38,8 @@ from repro_torch.kernels import fused_crossbar as fx
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
+from _torch_parity import one_thread  # noqa: F401  (autouse fixture)
+
 STAT_FIELDS = ("adc_converts", "saturations", "conversions_possible", "macs")
 INPUT_SLICINGS = [(1,) * 8, (4, 2, 2), (3, 3, 2), (8,)]
 WEIGHT_SLICINGS = [(4, 2, 2), (4, 4), (1,) * 8]

@@ -24,6 +24,8 @@ from repro_torch.kernels import fused_spec_crossbar as fs
 from repro_torch.kernels import int8_matmul as im
 from repro_torch.kernels import ops
 
+from _torch_parity import one_thread  # noqa: F401  (autouse fixture)
+
 STAT_FIELDS = ("adc_converts", "no_spec_converts", "spec_failures",
                "spec_attempts", "recovery_saturations", "cycles", "macs")
 ROWS, COLS, BATCH = 1100, 40, 6   # 3 segments, the last one ragged

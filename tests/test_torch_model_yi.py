@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 import _torch_parity as P
+from _torch_parity import one_thread  # noqa: F401  (autouse fixture)
 
 ARCH = "yi-6b"
 

@@ -7,7 +7,8 @@
 - No module of ``repro_torch`` — nor ``chip_smoke.py``'s imports — pulls
   in ``jax`` or the reference package ``repro``.
 - Without CUDA the port's entry point refuses to run on its default
-  device instead of carrying on on the CPU.
+  device instead of carrying on on the CPU; with ``--device cpu`` it
+  serves a reduced model, the paged engine included.
 """
 
 import dataclasses
@@ -24,6 +25,8 @@ from repro_torch import configs, resolve_device
 from repro_torch.models import pim
 from repro_torch.models import transformer as T
 from repro_torch.serve import ContinuousServeEngine, Request, ServeEngine
+
+from _torch_parity import one_thread  # noqa: F401  (autouse fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -99,11 +102,26 @@ def test_imports_are_torch_only():
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
+        "assert 'repro_torch.serve.paged' in sys.modules\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 20  # every module was imported
+
+
+def test_launcher_paged_engine_on_cpu():
+    """``--engine paged`` with a pool of 2 blocks (one max-length request)
+    serves the trace on the CPU and prints the pool's counters."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "yi-6b",
+         "--reduced", "--device", "cpu", "--engine", "paged", "--blocks", "2",
+         "--requests", "4"], capture_output=True, text=True, timeout=300,
+        cwd=ROOT, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "yi-6b-smoke paged on cpu: 4 requests" in out.stdout
+    assert "block pool: peak 2/2 blocks of 16" in out.stdout
 
 
 def test_default_device_refuses_without_cuda():
