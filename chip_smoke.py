@@ -41,16 +41,32 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            ``paged-int8kv`` (K3, int8 KV cache), its tokens the continuous
            engine's under the same cache; both int8-KV runs again under
            ``torch.profiler`` (every kernel's device time);
+  moe      phi3.5-moe-42b at its published widths, 4 of its 32 layers
+           (random bf16 weights from a seed): the same 4 requests through
+           ``ContinuousServeEngine`` in ``exact`` (K2 per expert),
+           ``int8``, ``fast`` (K3 per expert) and ``exact`` with Algorithm
+           1 per (layer, expert) through K1; launches per engine call
+           counted from the plans (418 K2, 209 K3), exact == int8 ==
+           exact-adaptive tokens, empty expert buffers at calibration and
+           peak memory printed; at capacity 8.0, where no slot can drop,
+           exact through the continuous and (on 5 blocks, evicting) the
+           paged engine, fast through the lockstep, continuous and paged
+           engines, tokens equal; one decode step's K2 and K3 calls timed;
   timing   one decode step's worth of kernel calls on the compiled plans
            (distinct weights per layer, as the model has them) against the
            plain versions and, for K3, ``torch._int_mm`` (x padded with zero
            rows); K2 also on Algorithm 1's adaptive plans; K4 at the four
            projection shapes; K1 at B = 16 with batch tiles of 1, 2 and 4
            rows; the copies the paged engine adds to a decode step (block
-           gathers, int8 dequantize), device and host time.
+           gathers, int8 dequantize), device and host time; the moe
+           phase's K2 and K3 step times beside qwen's.
 
-Before the last line it prints one JSON object ``{"kernels": [...]}``; the
-last line is ``{"ok": true, "device": {...}}``.
+Before the last line it prints one JSON object ``{"kernels": [...]}``:
+each kernel's entry gives its launches on the qwen path and its decode
+step's times, and ``moe_launches`` (the moe phase's own run; K1's are
+Algorithm 1's compile) with ``moe_ms``, ``moe_plain_ms``, ``moe_bound_ms``,
+``moe_bound_by`` and ``moe_library_ms`` for the MoE decode step, null
+where not measured. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -78,6 +94,16 @@ K1_BATCHES = (1, 4, 16, 64)  # 16: Algorithm 1's search rows
 SPEC = (4, 2, 2)
 ONE_BIT = (1,) * 8           # Algorithm 1's input slicing
 BLOCK = 16                   # the paged runs' KV tokens per pool block
+MOE_ARCH = "phi3.5-moe-42b"
+# of its 32 layers: the whole model (42 G parameters, 84 GB in bf16) does
+# not fit one card
+MOE_LAYERS = 4
+# capacity E / k = 16 / 2: cap >= B at decode and >= S in prefill, so no
+# slot can drop and every engine routes every token alike
+DROP_FREE_CF = 8.0
+# an expert's rows in a decode step of 4 slots at capacity 1.25: the
+# dispatch buffer's cap = max(k, ceil(1.25 * 4 * k / E)) = 2
+MOE_DECODE_CAP = 2
 
 
 def say(phase: str, **fields) -> None:
@@ -684,6 +710,198 @@ def phase_serve(ctx: dict) -> None:
     del params
 
 
+def empty_experts(plans: dict) -> int:
+    """Expert instances whose calibration buffer held no token: x_scale
+    at the 1e-12 floor (``quant.calibrate_layer``)."""
+    import torch
+    floor = torch.tensor(1e-12, dtype=torch.float32)
+    return sum(int((leaf["x_scale"].cpu() == floor).sum())
+               for lp in plans["layers"] for leaf in lp["ffn"].values()
+               if leaf["w_q"].ndim == 3)
+
+
+def peak_gb() -> float:
+    import torch
+    return round(torch.cuda.max_memory_allocated() / 2**30, 3)
+
+
+def phase_moe(ctx: dict) -> None:
+    """Serve phi3.5-moe-42b (published widths, MOE_LAYERS layers, random
+    bf16 weights from seed 0) through ``ContinuousServeEngine``: exact
+    (K2 per expert), int8, fast (K3 per expert) and exact with Algorithm 1
+    per (layer, expert) through K1; launch counts per engine call from the
+    plans, exact == int8 == exact-adaptive tokens. At capacity DROP_FREE_CF
+    (no slot can drop): fast through the lockstep, continuous and paged
+    engines, tokens equal, and exact on a pool that must evict, equal to
+    the continuous exact tokens. Each plan set is freed before the next
+    compile; the decode step's K2 and K3 calls are timed while their
+    plans are alive (printed by the timing phase)."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import fused_spec_crossbar as fs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import calibration_tokens
+    from repro_torch.models import layers as L
+    from repro_torch.models import pim
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import (ContinuousServeEngine, PagedServeEngine,
+                                   ServeEngine)
+    cfg0 = dataclasses.replace(configs.get(MOE_ARCH), n_layers=MOE_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg0, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for layer in params["layers"]
+                   for g in layer.values() for t in g.values()) \
+        + sum(t.numel() for t in params["embed"].values())
+    say("moe", arch=MOE_ARCH, layers=cfg0.n_layers,
+        reduced=f"n_layers {configs.get(MOE_ARCH).n_layers} -> "
+        f"{cfg0.n_layers}", d_model=cfg0.d_model, n_heads=cfg0.n_heads,
+        n_kv_heads=cfg0.n_kv_heads, d_ff=cfg0.d_ff,
+        n_experts=cfg0.n_experts, top_k=cfg0.experts_per_token,
+        vocab=cfg0.vocab_size, capacity_factor=cfg0.capacity_factor,
+        dtype=cfg0.dtype, params=n_params,
+        init_s=round(time.perf_counter() - t0, 3), peak_gb=peak_gb())
+    reqs = serve_requests(cfg0.vocab_size)
+    max_len = BLOCK * -(-(max(len(r.prompt) for r in reqs) + 8 + 1) // BLOCK)
+    calib = calibration_tokens(cfg0, 16)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    kw = dict(n_slots=4, max_len=max_len, prefill_chunk=64)
+    tokens: dict = {}
+
+    def compile_plans(cfg):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        compiled = pim.compile_pim_params(params, cfg, calib)
+        torch.cuda.synchronize()
+        info = dict(compile_s=round(time.perf_counter() - t0, 3),
+                    compile_launches=json.dumps(ops.launch_counts()),
+                    sites=len(compiled.sites),
+                    empty_expert_instances=empty_experts(compiled.plans),
+                    compile_peak_gb=peak_gb())
+        return compiled, info
+
+    def serve(run, cfg, plans, engine=ContinuousServeEngine, **extra):
+        eng = engine(cfg, params, plans=plans, **dict(kw, **extra))
+        with L.collect_pim_stats() as sink:
+            outs, serve_s, launches = drive(eng, reqs)
+            totals = L.pim_stats_totals(sink)
+        row = engine_row(run, eng, outs, serve_s, launches,
+                         PER_CALL[cfg.pim_mode], cfg.vocab_size)
+        row.update(peak_gb=peak_gb(), projections_per_call=len(
+            step_calls(plans)))
+        if cfg.pim_mode == "exact":
+            n_tok = row["tokens"]
+            row.update(adc_converts_per_token=totals["adc_converts"] / n_tok,
+                       spec_failures=totals["spec_failures"])
+        tokens[run] = [o.tokens.tolist() for o in outs]
+        return eng, row
+
+    # exact, pinned (4,2,2): K2 per projection and expert
+    exact = dataclasses.replace(cfg0, pim_mode="exact")
+    compiled, info = compile_plans(exact)
+    row = serve("moe-exact", exact, compiled.plans)[1]
+    ctx["moe_k2_launches"] = json.loads(row["launches"])[
+        "fused_spec_crossbar"]
+    say("moe", **row, **info)
+    k2_calls, k2_bytes, k2_ops = crossbar_step(compiled.plans, SPEC, True,
+                                               gen)
+    kw24 = dict(adc_lo=-(1 << 23), adc_hi=(1 << 23) - 1)
+    ctx["moe_k2"] = dict(
+        ms=cuda_ms(lambda: [fs.launch(x, *t, c, **kw24)
+                            for x, t, c in k2_calls], 3),
+        plain_ms=cuda_ms(lambda: [fs.plain(x, *t, c, **kw24)
+                                  for x, t, c in k2_calls], 1, warmup=0),
+        library_ms=None, calls=len(k2_calls), **bound(k2_bytes, k2_ops))
+    del k2_calls
+    # capacity DROP_FREE_CF, exact: continuous, then paged on 5 blocks
+    exact8 = dataclasses.replace(exact, capacity_factor=DROP_FREE_CF)
+    row = serve("moe-exact-cf8", exact8, compiled.plans)[1]
+    say("moe", **row)
+    eng, row = serve("paged-moe-exact", exact8, compiled.plans,
+                     engine=PagedServeEngine, block_size=BLOCK, n_blocks=5)
+    if not (eng.stats.evictions >= 1 and eng.stats.blocks_in_use == 0):
+        raise AssertionError(f"paged-moe-exact: {eng.stats}")
+    if tokens["paged-moe-exact"] != tokens["moe-exact-cf8"]:
+        raise AssertionError("paged-moe-exact tokens differ from the "
+                             "continuous engine's at the same capacity")
+    say("moe", **row, equals_continuous_exact=True)
+    del compiled, eng
+    # int8: the ideal 8b reference, no kernel
+    int8 = dataclasses.replace(cfg0, pim_mode="int8")
+    compiled, info = compile_plans(int8)
+    row = serve("moe-int8", int8, compiled.plans)[1]
+    say("moe", **row, **info)
+    del compiled
+    if tokens["moe-exact"] != tokens["moe-int8"]:
+        raise AssertionError("moe-exact tokens differ from moe-int8 tokens "
+                             "at the 24b ADC")
+    # fast: K3 per projection and expert; then the three engines at
+    # capacity DROP_FREE_CF
+    fast = dataclasses.replace(cfg0, pim_mode="fast")
+    compiled, info = compile_plans(fast)
+    row = serve("moe-fast", fast, compiled.plans)[1]
+    ctx["moe_k3_launches"] = json.loads(row["launches"])[
+        "centered_int8_matmul"]
+    say("moe", **row, **info)
+    ctx["moe_k3"] = k3_step(compiled.plans, gen)[1]
+    fast8 = dataclasses.replace(fast, capacity_factor=DROP_FREE_CF)
+    row = serve("moe-fast-cf8", fast8, compiled.plans)[1]
+    say("moe", **row)
+    row = serve("paged-moe-fast", fast8, compiled.plans,
+                engine=PagedServeEngine, block_size=BLOCK)[1]
+    say("moe", **row)
+    ops.reset_launch_counts()
+    lock = ServeEngine(fast8, params, max_len=max_len, plans=compiled.plans)
+    t0 = time.perf_counter()
+    lock_tokens = [lock.generate(r.prompt[None], steps=r.max_new_tokens)
+                   .tokens[0].tolist() for r in reqs]
+    torch.cuda.synchronize()
+    lock_launches = ops.launch_counts()
+    calls = sum(r.max_new_tokens for r in reqs)  # prefill + 7 decodes each
+    want = len(step_calls(compiled.plans)) * calls
+    if lock_launches["centered_int8_matmul"] != want:
+        raise AssertionError(f"lockstep launches {lock_launches}, want K3 "
+                             f"{want}")
+    if not (lock_tokens == tokens["moe-fast-cf8"]
+            == tokens["paged-moe-fast"]):
+        raise AssertionError(
+            f"capacity {DROP_FREE_CF}: lockstep {lock_tokens}, continuous "
+            f"{tokens['moe-fast-cf8']}, paged {tokens['paged-moe-fast']}")
+    say("moe", mode="lockstep-moe-fast-cf8", engine="ServeEngine",
+        serve_s=round(time.perf_counter() - t0, 3), engine_calls=calls,
+        launches=json.dumps(lock_launches),
+        lockstep_equals_continuous_equals_paged=True)
+    del compiled, lock
+    # exact with Algorithm 1 per (layer, expert) through K1, then K2
+    adaptive = dataclasses.replace(exact, pim_weight_slicing="adaptive")
+    compiled, info = compile_plans(adaptive)
+    search = json.loads(info["compile_launches"])["fused_crossbar"]
+    errs = [sp.error for sp in compiled.sites]
+    row = serve("moe-exact-adaptive", adaptive, compiled.plans)[1]
+    ctx["moe_k1_launches"] = search
+    say("moe", **row, **info, search_k1_launches=search,
+        slice_histogram=json.dumps(compiled.slice_histogram()),
+        distinct_slicings=json.dumps(["-".join(map(str, sl)) for sl in
+                                      compiled.distinct_slicings()]),
+        mean_site_error=sum(errs) / len(errs), max_site_error=max(errs))
+    if search <= 0:
+        raise AssertionError("Algorithm 1's compile launched no K1")
+    del compiled
+    if tokens["moe-exact-adaptive"] != tokens["moe-int8"]:
+        raise AssertionError("moe-exact-adaptive tokens differ from "
+                             "moe-int8 tokens at the 24b ADC")
+    say("moe", ok=True, exact_equals_int8=True,
+        exact_adaptive_equals_int8=True,
+        first_tokens=json.dumps(tokens["moe-exact"][0]))
+    del params
+    torch.cuda.empty_cache()
+
+
 def prefix_requests(vocab: int):
     """4 requests whose prompts share a 32-token prefix (2 blocks), each
     with 4-8 tokens of its own, 8 new tokens each (seeded)."""
@@ -740,7 +958,7 @@ def engine_row(run: str, eng, outs, serve_s: float, launches: dict,
     st = eng.stats
     served = launches if served is None else served
     calls = st.decode_steps + st.prefill_chunks
-    n_proj = 7 * eng.cfg.n_layers + 1  # weight-static projections per call
+    n_proj = len(step_calls(eng.plans))  # weight-static projections a call
     assert all(o.finish_reason == "length" and len(o.tokens) == 8
                and all(0 <= int(t) < vocab for t in o.tokens) for o in outs)
     want = {k: per_call.get(k, 0) * n_proj * calls for k in served}
@@ -947,14 +1165,24 @@ def check_sampling(cfg, params, plans, prompt) -> dict:
 
 
 def step_calls(plans: dict) -> list:
-    """One decode step's projections, in the model's order: (name, leaf)
-    per layer and projection, then the LM head."""
+    """One engine call's weight-static projections, in the model's order:
+    (name, leaf, rows) per layer and projection — one per expert where a
+    leaf carries a leading expert axis, every expert, as the model runs
+    them — then the LM head, with the rows each gets in a decode step of
+    4 slots."""
     out = []
     for lp in plans["layers"]:
         for g, names in (("core", ("wq", "wk", "wv", "wo")),
                          ("ffn", ("w1", "w3", "w2"))):
-            out += [(n, lp[g][n]) for n in names]
-    return out + [("head", plans["head"])]
+            for n in names:
+                leaf = lp[g][n]
+                if leaf["w_q"].ndim == 3:
+                    out += [(f"{n}[e{e}]", {k: v[e] for k, v in leaf.items()},
+                             MOE_DECODE_CAP)
+                            for e in range(leaf["w_q"].shape[0])]
+                else:
+                    out.append((n, leaf, 4))
+    return out + [("head", plans["head"], 4)]
 
 
 def bound(n_bytes: int, n_ops: int) -> dict:
@@ -967,16 +1195,17 @@ def bound(n_bytes: int, n_ops: int) -> dict:
 
 
 def crossbar_step(plans: dict, slicing: tuple, spec: bool, gen):
-    """One decode step's crossbar calls (B = 4 slots, two signed passes per
-    projection, codes 0..127) on compiled exact plans: K2's operands
-    (``spec``) or K1's, with the bytes and int8 operations they need."""
+    """One decode step's crossbar calls (B = 4 slots, an expert at its
+    ``cap`` rows, two signed passes per projection, codes 0..127) on
+    compiled exact plans: K2's operands (``spec``) or K1's, with the bytes
+    and int8 operations they need."""
     import torch
     from repro_torch.kernels import ops
-    B, n_i = 4, len(slicing)
+    n_i = len(slicing)
     tables_fn = ops.spec_tables if spec else ops.crossbar_tables
     n_counts = n_i + 1 if spec else 1  # int64 counters out
     calls, n_bytes, n_ops = [], 0, 0
-    for _, leaf in step_calls(plans):
+    for _, leaf, B in step_calls(plans):
         n_j, n_seg, rx, C = leaf["planes"].shape
         R = leaf["w_q"].shape[0]
         tables = tables_fn(leaf["planes"], leaf["slice_shifts"], slicing)
@@ -1072,6 +1301,30 @@ def kv_copies(gen) -> dict:
     return out
 
 
+def k3_step(plans: dict, gen) -> tuple[list, dict]:
+    """One decode step's K3 calls (int8 codes, 4 rows a projection, an
+    expert at its ``cap`` rows) on fast plans, timed against the plain
+    version and ``torch._int_mm`` on x padded with zero rows (no center
+    term), with the bytes and operations they need."""
+    import torch
+    from repro_torch.kernels import int8_matmul as im
+    calls, n_bytes, n_ops = [], 0, 0
+    for _, leaf, B in step_calls(plans):
+        R, C = leaf["w_off"].shape
+        x = torch.randint(-127, 128, (B, R), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        calls.append((x, leaf["w_off"], leaf["centers"]))
+        n_bytes += B * R + R * C + 4 * C + 4 * B * C
+        n_ops += 2 * B * R * C
+    lib_calls = [(int_mm_operand(x), w) for x, w, _ in calls]
+    return calls, dict(
+        ms=cuda_ms(lambda: [im.launch(*a) for a in calls], 5),
+        plain_ms=cuda_ms(lambda: [im.plain(*a) for a in calls], 2),
+        library_ms=cuda_ms(lambda: [torch._int_mm(*a) for a in lib_calls], 5),
+        library_rows=lib_calls[0][0].shape[0], calls=len(calls),
+        **bound(n_bytes, n_ops))
+
+
 def phase_timing(ctx: dict, rows: list) -> list:
     """Time one decode step's worth of each kernel's calls (B = 4 slots)
     on the compiled plans: distinct weights per layer, as the model has
@@ -1080,7 +1333,6 @@ def phase_timing(ctx: dict, rows: list) -> list:
     import torch
     from repro_torch.kernels import fused_crossbar as fx
     from repro_torch.kernels import fused_spec_crossbar as fs
-    from repro_torch.kernels import int8_matmul as im
     gen = torch.Generator(device="cuda").manual_seed(1)
     exact_plans = ctx["exact_compiled"].plans
     kw = dict(adc_lo=-(1 << 23), adc_hi=(1 << 23) - 1)  # the 24b ADC
@@ -1118,22 +1370,7 @@ def phase_timing(ctx: dict, rows: list) -> list:
               library_ms=None, calls=len(k1_calls),
               **bound(k1_bytes, k1_ops))
     # K3: one call per projection, int8 codes
-    k3_calls, k3_bytes, k3_ops = [], 0, 0
-    for _, leaf in step_calls(ctx["fast_plans"]):
-        R, C = leaf["w_off"].shape
-        x = torch.randint(-127, 128, (4, R), generator=gen, device="cuda",
-                          dtype=torch.int8)
-        k3_calls.append((x, leaf["w_off"], leaf["centers"]))
-        k3_bytes += 4 * R + R * C + 4 * C + 4 * 4 * C
-        k3_ops += 2 * 4 * R * C
-    lib_calls = [(int_mm_operand(x), w) for x, w, _ in k3_calls]
-    k3 = dict(ms=cuda_ms(lambda: [im.launch(*a) for a in k3_calls], 5),
-              plain_ms=cuda_ms(lambda: [im.plain(*a) for a in k3_calls], 2),
-              # torch._int_mm on x padded with zero rows, no center term
-              library_ms=cuda_ms(
-                  lambda: [torch._int_mm(*a) for a in lib_calls], 5),
-              library_rows=lib_calls[0][0].shape[0], calls=len(k3_calls),
-              **bound(k3_bytes, k3_ops))
+    k3_calls, k3 = k3_step(ctx["fast_plans"], gen)
     # what as many back-to-back launches of an empty kernel take: the
     # share of the step that no kernel design removes
     z = torch.empty(1, device="cuda")
@@ -1154,6 +1391,12 @@ def phase_timing(ctx: dict, rows: list) -> list:
              ("sliced_crossbar", k4, "the four projection shapes, B=4"))
     for name, d, scope in table:
         say("timing", kernel=name, scope=scope, **d)
+    moe = {"fused_spec_crossbar": ctx.get("moe_k2"),
+           "centered_int8_matmul": ctx.get("moe_k3")}
+    for name, d in moe.items():
+        if d is not None:
+            say("timing", kernel=name, scope=f"one decode step of {MOE_ARCH}"
+                f", {MOE_LAYERS} layers, B=4, experts at 2 rows", **d)
     say("timing", scope="K1 at B=16 by batch tile, per call",
         **k1_batch_tiles(gen))
     say("timing", scope="one paged decode step's KV copies, 4 slots",
@@ -1168,6 +1411,10 @@ def phase_timing(ctx: dict, rows: list) -> list:
 
     def err(kernel):
         return max(r["max_abs_err"] for r in rows if r["kernel"] == kernel)
+    moe_launches = {"fused_crossbar": ctx.get("moe_k1_launches"),
+                    "fused_spec_crossbar": ctx.get("moe_k2_launches"),
+                    "centered_int8_matmul": ctx.get("moe_k3_launches"),
+                    "sliced_crossbar": 0}
     meta = {
         "fused_crossbar": ("fused_crossbar.cu", "fused_crossbar.py:104",
                            ctx["k1_launches"]),
@@ -1191,13 +1438,21 @@ def phase_timing(ctx: dict, rows: list) -> list:
             max_abs_err=err(name), ms=d["ms"], plain_ms=d["plain_ms"],
             bound_ms=d["bound_ms"], bound_by=d["bound_by"],
             library_ms=d["library_ms"]))
+        if moe_launches[name] is not None:  # the MoE path's own run
+            m = moe.get(name) or {}
+            out[-1].update(
+                moe_launches=moe_launches[name], moe_ms=m.get("ms"),
+                moe_plain_ms=m.get("plain_ms"),
+                moe_bound_ms=m.get("bound_ms"),
+                moe_bound_by=m.get("bound_by"),
+                moe_library_ms=m.get("library_ms"))
     return out
 
 
 # ---------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="build,kernels,serve,timing",
+    ap.add_argument("--phases", default="build,kernels,serve,moe,timing",
                     help="comma list of phases to run (default: all)")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -1226,6 +1481,8 @@ def main() -> int:
     kernels = None
     if "serve" in phases:
         phase_serve(ctx)
+    if "moe" in phases:
+        phase_moe(ctx)
     if "timing" in phases:
         kernels = phase_timing(ctx, rows)
     print(smi, flush=True)  # again, within the tail a log keeps

@@ -22,13 +22,16 @@ from repro_torch.models.transformer import _check_supported
 
 def _unstack(np_blocks: list, cfg: ArchConfig, leaf_fn) -> list:
     """Reference ``blocks`` (one subtree per pattern position, leaves
-    stacked over repeats) -> one dict per layer, layer ``r * n_pat + i``."""
+    stacked over repeats; an expert leaf is ``(n_repeats, E, ...)``) ->
+    one dict per layer, layer ``r * n_pat + i``; ``leaf_fn(name, leaf, r)``
+    takes repeat ``r`` of a leaf."""
     n_pat = len(cfg.block_pattern)
     layers = [None] * cfg.n_layers
     for i, stack in enumerate(np_blocks):
         for r in range(cfg.n_repeats):
             layers[r * n_pat + i] = {
-                group: {name: leaf_fn(leaf, r) for name, leaf in sub.items()}
+                group: {name: leaf_fn(name, leaf, r)
+                        for name, leaf in sub.items()}
                 for group, sub in stack.items()}
     return layers
 
@@ -36,18 +39,22 @@ def _unstack(np_blocks: list, cfg: ArchConfig, leaf_fn) -> list:
 def params_from_reference(np_params: dict, cfg: ArchConfig,
                           device=None) -> dict:
     """Reference ``T.init_params`` pytree (numpy leaves) -> port params in
-    ``cfg.dtype`` on ``device``. bf16 leaves pass through float32, which
-    holds them exactly."""
+    ``cfg.dtype`` on ``device``; a MoE router stays float32, as the
+    reference keeps it (a narrower router would route differently).
+    bf16 leaves pass through float32, which holds them exactly. Expert
+    weights keep their expert axis: ``(E, d_in, d_out)`` per layer."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
 
-    def t(a):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+    def t(a, dtype=dt):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+
+    def layer_leaf(name, leaf, r):
+        return t(leaf[r], torch.float32 if name == "router" else dt)
 
     return {"embed": {k: t(v) for k, v in np_params["embed"].items()},
-            "layers": _unstack(np_params["blocks"], cfg,
-                               lambda leaf, r: t(leaf[r])),
+            "layers": _unstack(np_params["blocks"], cfg, layer_leaf),
             "final_norm": {"scale": t(np_params["final_norm"]["scale"])}}
 
 
@@ -57,7 +64,7 @@ def plans_from_reference(np_plans: dict, cfg: ArchConfig,
     [{"core": ..., "ffn": ...}]}``, leaves stacked over repeats, numpy) ->
     the port's ``{"layers": [...], "head": leaf}`` on ``device``. Every
     leaf keeps its dtype (int8 planes, int32 centers and shifts, bool
-    masks, float32 scales)."""
+    masks, float32 scales) and an expert site's leaf its expert axis."""
     _check_supported(cfg)
     dev = resolve_device(device)
 
@@ -65,5 +72,6 @@ def plans_from_reference(np_plans: dict, cfg: ArchConfig,
         return {k: torch.from_numpy(np.array(v if r is None else v[r]))
                 .to(dev) for k, v in d.items()}
 
-    return {"layers": _unstack(np_plans["blocks"], cfg, leaf),
+    return {"layers": _unstack(np_plans["blocks"], cfg,
+                               lambda _, d, r: leaf(d, r)),
             "head": leaf(np_plans["embed"]["head"])}

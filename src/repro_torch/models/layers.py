@@ -1,8 +1,9 @@
-"""Transformer building blocks (dense subset), plain PyTorch.
+"""Transformer building blocks (attention models), plain PyTorch.
 
 Port of ``repro.models.layers``: the PIM projection dispatcher with its
 work-stats collector, RMSNorm, RoPE, QKV projection, chunked online-softmax
-attention, the gated MLP, embedding and the LM head. Attention is plain
+attention, the gated MLP, the top-k mixture-of-experts FFN, embedding and
+the LM head. Attention is plain
 tensor code with the reference's online-softmax math (the reference wrote
 it in jnp, not Pallas). Layouts follow the reference: q ``(B, S, H, D)``,
 k/v ``(B, S, K, D)``, weights ``(d_in, d_out)``.
@@ -11,6 +12,8 @@ k/v ``(B, S, K, D)``, weights ``(d_in, d_out)``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -82,13 +85,15 @@ def pim_stats_totals(stats) -> dict:
 class PimTap:
     """Calibration recorder: stands in for a plan leaf during the capture
     forward of ``models.pim_compile``. ``pim_matmul`` records the
-    projection's input activations (float32) and runs the float path."""
+    projection's input activations (float32, ``(N, d_in)``) and runs the
+    float path; an expert projection records its dispatch buffer
+    ``(E, N, d_in)``, zero rows included."""
 
     def __init__(self):
         self.x: list[torch.Tensor] = []
 
-    def record(self, x2d: torch.Tensor) -> None:
-        self.x.append(x2d.detach().to(torch.float32))
+    def record(self, x: torch.Tensor) -> None:
+        self.x.append(x.detach().to(torch.float32))
 
 
 def _plan_to_pim_plan(plan: dict, cfg: ArchConfig,
@@ -289,6 +294,125 @@ def mlp_block(params: dict, cfg: ArchConfig, x: torch.Tensor,
     h = a(pim_matmul(x, params["w1"], plan_leaf(plans, "w1"), cfg)) \
         * pim_matmul(x, params["w3"], plan_leaf(plans, "w3"), cfg)
     return pim_matmul(h, params["w2"], plan_leaf(plans, "w2"), cfg)
+
+
+# ------------------------------------------------------------------ moe
+def _moe_group_size(E: int) -> int:
+    """Dispatch-group length (slots), the reference's: large enough that
+    per-group expert capacity is not over-quantized."""
+    return 1024 if E >= 64 else 512
+
+
+@dataclasses.dataclass
+class MoeRoute:
+    """One ``moe_block`` call's routing. Slots are ``(token, choice)``
+    pairs in token-major order, padded with expert ``E`` ("none") to
+    ``n_groups * group`` per batch row. A slot is kept iff its rank among
+    the group's earlier slots of the same expert is below ``cap``; a kept
+    slot sits at row ``(b * n_groups + n) * cap + pos`` of its expert's
+    dispatch buffer."""
+    expert: torch.Tensor   # (B, n_groups, group) int64, E for padding
+    weight: torch.Tensor   # (B, n_groups, group) gate weight, x.dtype
+    pos: torch.Tensor      # (B, n_groups, group) int64 rank in its expert
+    keep: torch.Tensor     # (B, n_groups, group) bool
+    group: int
+    n_groups: int
+    cap: int
+
+
+def moe_route(params: dict, cfg: ArchConfig, x: torch.Tensor) -> MoeRoute:
+    """Top-k routing with the reference's capacity rule (``moe_block`` of
+    ``repro.models.layers``), for x (B, S, D).
+
+    The router is float32, as in the reference; its logits are contracted
+    in float64 and rounded to float32, so a token's logits do not depend
+    on how many rows share the product (the engines then route a token
+    alike at every batch size); they agree with the reference's float32
+    einsum to a few ulp. ``torch.topk`` orders equal logits unlike
+    ``jax.lax.top_k`` (which keeps the lower index first): a tie between
+    float logits of random inputs does not occur in practice, and the
+    parity tests use inputs without ties.
+    """
+    B, S, _ = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    logits = (x.reshape(B * S, -1).to(torch.float64)
+              @ params["router"].to(torch.float64)).to(torch.float32)
+    vals, idx = torch.topk(logits.reshape(B, S, E), k, dim=-1)
+    weights = torch.sigmoid(vals) if k == 1 else torch.softmax(vals, dim=-1)
+    slots = S * k
+    g = min(_moe_group_size(E), slots)
+    n_groups = -(-slots // g)
+    pad = n_groups * g - slots
+    cap = max(k, int(math.ceil(cfg.capacity_factor * g / E)))
+    fe = F.pad(idx.reshape(B, slots), (0, pad), value=E)
+    fw = F.pad(weights.reshape(B, slots).to(x.dtype), (0, pad))
+    fe = fe.reshape(B, n_groups, g)
+    # rank within the expert, counted over the group in slot order (the
+    # reference's float32 cumsum of one-hots; exact in int64 alike)
+    eh = F.one_hot(fe, E + 1)[..., :E]
+    pos = ((eh.cumsum(dim=2) - eh) * eh).sum(dim=-1)
+    keep = (pos < cap) & (fe < E)
+    return MoeRoute(expert=fe, weight=fw.reshape(B, n_groups, g), pos=pos,
+                    keep=keep, group=g, n_groups=n_groups, cap=cap)
+
+
+def _expert_matmul(buf: torch.Tensor, w: torch.Tensor, plan,
+                   cfg: ArchConfig) -> torch.Tensor:
+    """Per-expert projection ``buf (E, N, d_in) @ w (E, d_in, d_out)``.
+    ``plan`` leaves carry a leading expert axis; ``pim_matmul`` runs once
+    per expert on ``plan[e]``, every expert, empty buffers included (the
+    reference vmaps it). Work stats stay suspended, as in the reference:
+    converts per token bill attention and the LM head, not the experts."""
+    if isinstance(plan, PimTap):
+        plan.record(buf)
+        plan = None
+    if plan is None or cfg.pim_mode == "off":
+        return torch.matmul(buf, w)
+    with suspend_pim_stats():
+        return torch.stack([
+            pim_matmul(buf[e], w[e], {k: v[e] for k, v in plan.items()}, cfg)
+            for e in range(buf.shape[0])])
+
+
+def moe_block(params: dict, cfg: ArchConfig, x: torch.Tensor,
+              plans=None) -> torch.Tensor:
+    """Top-k capacity-based MoE FFN, the reference's function.
+
+    The reference dispatches and combines with one-hot einsums; here the
+    kept slots are scattered into a zeroed ``(E, B * n_groups * cap, D)``
+    buffer and gathered back by row index (dropped and padding slots
+    read a zero row), which keeps the same (token, expert, position)
+    triples. Each slot's output is its gate weight times its expert row
+    in ``x.dtype``, and the k choices of a token are summed in choice
+    order, as the reference's combine does. A decode step (S == 1, B > 1)
+    routes the whole batch as one dispatch group, so idle and mid-prefill
+    slots compete for capacity, as in the reference.
+    """
+    B, S, D = x.shape
+    if S == 1 and B > 1:
+        return moe_block(params, cfg, x.reshape(1, B, D),
+                         plans).reshape(B, 1, D)
+    E, k = cfg.n_experts, cfg.experts_per_token
+    rt = moe_route(params, cfg, x)
+    n_rows = B * rt.n_groups * rt.cap  # dispatch rows per expert
+    b = torch.arange(B, device=x.device)[:, None, None]
+    n = torch.arange(rt.n_groups, device=x.device)[None, :, None]
+    row = rt.expert * n_rows + (b * rt.n_groups + n) * rt.cap + rt.pos
+    # dropped and padding slots write to (and read) one extra row
+    row = torch.where(rt.keep, row, E * n_rows).reshape(-1)
+    xg = F.pad(x.repeat_interleave(k, dim=1),
+               (0, 0, 0, rt.n_groups * rt.group - S * k)).reshape(-1, D)
+    buf = x.new_zeros((E * n_rows + 1, D))
+    buf[row] = xg
+    buf = buf[:-1].reshape(E, n_rows, D)
+    a = act_fn(cfg.activation)
+    h = a(_expert_matmul(buf, params["w1"], plan_leaf(plans, "w1"), cfg)) \
+        * _expert_matmul(buf, params["w3"], plan_leaf(plans, "w3"), cfg)
+    y = _expert_matmul(h, params["w2"], plan_leaf(plans, "w2"), cfg)
+    y = torch.cat([y.reshape(E * n_rows, D), y.new_zeros((1, D))])
+    out = rt.weight.reshape(-1, 1) * y[row]
+    out = out.reshape(B, rt.n_groups * rt.group, D)[:, :S * k]
+    return out.reshape(B, S, k, D).sum(dim=2)
 
 
 # ------------------------------------------------------------------ embedding

@@ -1,30 +1,37 @@
 """Per-site PIM plan compiler (the paper's Algorithm 1, per site).
 
 Port of ``repro.models.pim_compile``: one *projection site* per
-weight-static matmul (per layer, plus the LM head), compiled in three
+weight-static matmul and pattern position, with one instance per repeat
+— per (repeat, expert) on a MoE FFN — plus the LM head, compiled in three
 steps:
 
 1. *capture* — an eager float forward over the calibration tokens with
    ``PimTap`` recorders standing in for plan leaves, so each site is
-   calibrated on exactly the activations the real forward feeds it;
+   calibrated on exactly the activations the real forward feeds it (an
+   expert on its dispatch buffer, zero rows included);
 2. *plan* — with ``cfg.pim_weight_slicing == "adaptive"``,
    ``core.adaptive.find_best_slicing`` runs per instance on
    ``SEARCH_ROWS`` calibration rows under the search ADC
    (``cfg.pim_search_adc_bits``), through the static-slicing crossbar
    (kernel K1), with the conservative 1b-per-slice override for the LM
-   head; a tuple pins every site to that slicing;
+   head; a tuple pins every site to that slicing. An expert that no
+   calibration token reached has an all-zero buffer: its ``x_scale``
+   sits at the 1e-12 floor and every candidate measures error 0, so it
+   takes the first two-slice candidate, as in the reference;
 3. *prepare* — for ``fast``/``int8``, ``calibrate_layer`` +
    ``quantize_weights_centered`` per instance; for ``exact``, the
    instances of a site are grouped by chosen slicing and each group is
-   folded into the column axis of ONE ``co.encode`` call (Eq. 2 centers
-   are per column, so this is exact); planes are padded to the site's max
-   slice count with ``slice_shifts`` / ``slice_valid`` tables — zero
-   planes past each instance's slice count.
+   folded into the column axis of ``co.encode`` calls of at most
+   ``FOLD_ELEMENTS`` weights (Eq. 2 centers are per column, so this is
+   exact); planes are padded to the site's max slice count with
+   ``slice_shifts`` / ``slice_valid`` tables — zero planes past each
+   instance's slice count.
 
 Everything runs on the params' device. Plans come out as ``{"layers":
 [{"core": {...}, "ffn": {...}}, ...], "head": leaf}``; leaf keys match the
-reference's. The reference's energy report (``CompiledPim.report``) needs
-``core.energy`` and ``core.mapping``, which are not ported yet.
+reference's, and an expert site's leaves carry a leading expert axis. The
+reference's energy report (``CompiledPim.report``) needs ``core.energy``
+and ``core.mapping``, which are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,6 +52,9 @@ from repro_torch.quant import quantize as q
 _PROJ = {"core": ("wq", "wk", "wv", "wo"), "ffn": ("w1", "w3", "w2")}
 
 SEARCH_ROWS = 16  # calibration rows fed to Algorithm 1 (paper: ~10 inputs)
+# most weights folded into one ``co.encode`` call (its int64 temporaries
+# take ~24 B a weight): 26 M-weight experts fold five at a time
+FOLD_ELEMENTS = 1 << 27
 CONSERVATIVE_SLICING = (1,) * slc.WEIGHT_BITS
 
 
@@ -93,30 +103,30 @@ def _capture(params: dict, cfg: ArchConfig, calib_tokens: torch.Tensor,
     x = T.embed_inputs(params, cfg, calib_tokens)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
-    for bp, tap in zip(params["layers"], taps["layers"]):
-        x = T.apply_block(bp, cfg, x, positions, plan=tap)
+    for layer, (bp, tap) in enumerate(zip(params["layers"], taps["layers"])):
+        x = T.apply_block(bp, cfg, layer, x, positions, plan=tap)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     L.lm_head(params["embed"], cfg, x, plan=taps["head"])
 
 
 # ------------------------------------------------------------------ slicing
-def _site_slicings(wf: torch.Tensor, xf: torch.Tensor, cfg: ArchConfig,
+def _site_slicings(ws: list, xs: list, cfg: ArchConfig,
                    last_layer: bool) -> tuple[list, list]:
-    """Per-instance (slicing, error) for one site's stack.
+    """Per-instance (slicing, error) for one site's instances.
 
-    wf: (K, d_in, d_out); xf: (K, N, d_in). Adaptive mode runs Algorithm 1
-    per instance on the first ``SEARCH_ROWS`` calibration rows under the
-    search ADC; tuple mode pins every instance (error None — nothing was
-    measured).
+    ws: K weights (d_in, d_out); xs: K calibration inputs (N, d_in).
+    Adaptive mode runs Algorithm 1 per instance on the first
+    ``SEARCH_ROWS`` calibration rows under the search ADC; tuple mode pins
+    every instance (error None — nothing was measured).
     """
-    K = wf.shape[0]
+    K = len(ws)
     if cfg.pim_weight_slicing != "adaptive":
         return [tuple(cfg.pim_weight_slicing)] * K, [None] * K
     adc = adc_lib.ADCConfig(bits=cfg.pim_search_adc_bits, signed=True)
     slicings, errors = [], []
-    for k in range(K):
-        choice = ad.find_best_slicing(wf[k], xf[k][:SEARCH_ROWS], adc=adc,
-                                      last_layer=last_layer)
+    for w, x in zip(ws, xs):
+        choice = ad.find_best_slicing(w.to(torch.float32), x[:SEARCH_ROWS],
+                                      adc=adc, last_layer=last_layer)
         slicings.append(choice.slicing)
         errors.append(choice.error)
     return slicings, errors
@@ -135,7 +145,8 @@ def _fast_prepare_2d(w: torch.Tensor, x_cal: torch.Tensor) -> dict:
 
 def _ref_quant_2d(w: torch.Tensor, x_cal: torch.Tensor) -> dict:
     """Exact-mode reference quantization of one layer."""
-    lq, w_q = q.calibrate_layer(w, x_cal, signed_inputs=True)
+    lq, w_q = q.calibrate_layer(w.to(torch.float32), x_cal,
+                                signed_inputs=True)
     return {"w_q": w_q, "w_scale": lq.w_scale, "x_scale": lq.x_scale}
 
 
@@ -143,22 +154,24 @@ def _stack(dicts: list[dict]) -> dict:
     return {k: torch.stack([d[k] for d in dicts]) for k in dicts[0]}
 
 
-def _exact_prepare_stacked(wf: torch.Tensor, xf: torch.Tensor,
-                           slicings: list) -> dict:
-    """Exact-mode leaves for one site's stack of K instances.
+def _exact_prepare_stacked(ws: list, xs: list, slicings: list) -> dict:
+    """Exact-mode leaves for one site's K instances.
 
-    wf: (K, R, C) float; xf: (K, N, R). Instances are grouped by slicing;
-    each group's Center+Offset encode folds the group into the column axis,
-    then planes are padded to the site's max slice count with
-    ``slice_valid`` masks and ``slice_shifts``.
+    ws: K weights (R, C); xs: K calibration inputs (N, R). Instances are
+    grouped by slicing; each group is Center+Offset encoded with its
+    instances folded into the column axis, in folds of at most
+    ``FOLD_ELEMENTS`` weights (Eq. 2 centers are per column, so any
+    grouping gives the reference's one-call fold bit for bit), then planes
+    are padded to the site's max slice count with ``slice_valid`` masks
+    and ``slice_shifts``.
     """
-    K, R, C = wf.shape
-    qd = _stack([_ref_quant_2d(wf[k], xf[k]) for k in range(K)])
-    w_u = qd["w_q"].to(torch.int64) + 128  # unsigned crossbar domain
+    K = len(ws)
+    R, C = ws[0].shape
+    qd = _stack([_ref_quant_2d(w, x) for w, x in zip(ws, xs)])
     n_max = max(len(s) for s in slicings)
     rx = co.ROWS_PER_CROSSBAR
     n_seg = -(-R // rx)
-    dev = wf.device
+    dev = ws[0].device
     planes = torch.zeros((K, n_max, n_seg, rx, C), dtype=torch.int8,
                          device=dev)
     centers = torch.zeros((K, n_seg, C), dtype=torch.int32, device=dev)
@@ -167,42 +180,53 @@ def _exact_prepare_stacked(wf: torch.Tensor, xf: torch.Tensor,
     groups: dict[tuple, list[int]] = {}
     for k, s in enumerate(slicings):
         groups.setdefault(tuple(s), []).append(k)
-    for s, ks in groups.items():
-        kg, n_s = len(ks), len(s)
-        folded = w_u[ks].permute(1, 0, 2).reshape(R, kg * C)
-        enc = co.encode(folded, s)
-        pl = enc.planes.reshape(n_s, n_seg, rx, kg, C)
-        ce = enc.centers.reshape(n_seg, kg, C)
-        for j, k in enumerate(ks):
-            planes[k, :n_s] = pl[:, :, :, j]
-            centers[k] = ce[:, j]
-            shifts[k, :n_s] = torch.tensor(enc.shifts, dtype=torch.int32)
-            valid[k, :n_s] = True
-        del folded, enc, pl
+    per_fold = max(1, FOLD_ELEMENTS // (R * C))
+    for s, members in groups.items():
+        n_s = len(s)
+        for f0 in range(0, len(members), per_fold):
+            ks = members[f0:f0 + per_fold]
+            kg = len(ks)
+            # unsigned crossbar domain
+            w_u = qd["w_q"][ks].to(torch.int64) + 128
+            folded = w_u.permute(1, 0, 2).reshape(R, kg * C)
+            del w_u
+            enc = co.encode(folded, s)
+            del folded
+            pl = enc.planes.reshape(n_s, n_seg, rx, kg, C)
+            ce = enc.centers.reshape(n_seg, kg, C)
+            for j, k in enumerate(ks):
+                planes[k, :n_s] = pl[:, :, :, j]
+                centers[k] = ce[:, j]
+                shifts[k, :n_s] = torch.tensor(enc.shifts, dtype=torch.int32)
+                valid[k, :n_s] = True
+            del enc, pl, ce
     return {"planes": planes, "enc_centers": centers, "slice_shifts": shifts,
             "slice_valid": valid, "w_q": qd["w_q"],
             "w_scale": qd["w_scale"], "x_scale": qd["x_scale"]}
 
 
-def _compile_site(name: str, ws: list[torch.Tensor], xs: list[torch.Tensor],
-                  cfg: ArchConfig, last_layer: bool = False
+def _compile_site(name: str, ws: list, xs: list, cfg: ArchConfig,
+                  last_layer: bool = False, tags: list | None = None
                   ) -> tuple[dict, list[SitePlan]]:
-    """Compile one projection site over its instances (one per layer, or
-    the single LM head). Returns the stacked leaf and the site table."""
-    wf = torch.stack([w.to(torch.float32) for w in ws])
-    xf = torch.stack(xs)
-    K, d_in, d_out = wf.shape
-    slicings, errors = _site_slicings(wf, xf, cfg, last_layer)
-    tags = [f"[r{k}]" for k in range(K)] if not last_layer else [""]
+    """Compile one projection site over its instances: ``ws`` (d_in, d_out)
+    weights and ``xs`` (N, d_in) calibration inputs, one per instance,
+    named ``name + tags[k]`` (default ``[r{k}]``; the LM head has one
+    instance and no tag). Weights are taken to float32 one instance at a
+    time. Returns the leaf stacked over instances and the site table."""
+    K = len(ws)
+    d_in, d_out = ws[0].shape
+    if tags is None:
+        tags = [""] if last_layer else [f"[r{k}]" for k in range(K)]
+    slicings, errors = _site_slicings(ws, xs, cfg, last_layer)
     sites = [SitePlan(site=name + tag, d_in=d_in, d_out=d_out,
                       slicing=tuple(s), error=e,
                       search_adc_bits=cfg.pim_search_adc_bits,
                       last_layer=last_layer)
              for tag, s, e in zip(tags, slicings, errors)]
     if cfg.pim_mode in ("fast", "int8"):
-        leaf = _stack([_fast_prepare_2d(wf[k], xf[k]) for k in range(K)])
+        leaf = _stack([_fast_prepare_2d(w, x) for w, x in zip(ws, xs)])
     else:
-        leaf = _exact_prepare_stacked(wf, xf, slicings)
+        leaf = _exact_prepare_stacked(ws, xs, slicings)
     return leaf, sites
 
 
@@ -213,6 +237,11 @@ def compile_pim_params(params: dict, cfg: ArchConfig,
 
     calib_tokens: (B, S) token ids (numpy or tensor) for the activation
     calibration. Mode 'off' returns None — the float path needs no compile.
+    Sites are per pattern position ``i``, as in the reference: a dense
+    site has one instance per repeat (``blocks[i].core.wq[r1]``), an
+    expert site one per (repeat, expert) (``blocks[i].ffn.w1[r1,e3]``),
+    each with its own Algorithm 1 decision on its own calibration rows —
+    an expert's dispatch buffer, zero rows included.
     """
     if cfg.pim_mode == "off":
         return None
@@ -224,19 +253,31 @@ def compile_pim_params(params: dict, cfg: ArchConfig,
             "layers": [{g: {n: L.PimTap() for n in names}
                         for g, names in _PROJ.items()}
                        for _ in range(cfg.n_layers)]}
+    n_pat, E = len(cfg.block_pattern), cfg.n_experts
     with torch.no_grad():
         _capture(params, cfg, tokens, taps)
         sites: list[SitePlan] = []
         layer_plans = [{g: {} for g in _PROJ} for _ in range(cfg.n_layers)]
-        for g, names in _PROJ.items():
-            for name in names:
-                leaf, leaf_sites = _compile_site(
-                    f"blocks[0].{g}.{name}",
-                    [bp[g][name] for bp in params["layers"]],
-                    [tap[g][name].x[0] for tap in taps["layers"]], cfg)
-                for layer, lp in enumerate(layer_plans):
-                    lp[g][name] = {k: v[layer] for k, v in leaf.items()}
-                sites.extend(leaf_sites)
+        for i in range(n_pat):
+            layers = range(i, cfg.n_layers, n_pat)  # repeat r: r*n_pat + i
+            for g, names in _PROJ.items():
+                expert = g == "ffn" and cfg.moe_layer(i)
+                for name in names:
+                    ws = [params["layers"][l][g][name] for l in layers]
+                    xs = [taps["layers"][l][g][name].x[0] for l in layers]
+                    tags = [f"[r{r}]" for r in range(len(layers))]
+                    if expert:  # (E, ...) per layer -> one per expert
+                        ws = [w[e] for w in ws for e in range(E)]
+                        xs = [x[e] for x in xs for e in range(E)]
+                        tags = [f"[r{r},e{e}]" for r in range(len(layers))
+                                for e in range(E)]
+                    leaf, leaf_sites = _compile_site(
+                        f"blocks[{i}].{g}.{name}", ws, xs, cfg, tags=tags)
+                    for r, l in enumerate(layers):
+                        at = slice(r * E, (r + 1) * E) if expert else r
+                        layer_plans[l][g][name] = {k: v[at]
+                                                   for k, v in leaf.items()}
+                    sites.extend(leaf_sites)
         head, head_sites = _compile_site(
             "embed.head", [params["embed"]["head"]], [taps["head"].x[0]],
             cfg, last_layer=True)

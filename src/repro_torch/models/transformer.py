@@ -1,6 +1,8 @@
-"""Model assembly for dense attention transformers, plain PyTorch.
+"""Model assembly for attention transformers, plain PyTorch.
 
-Port of the dense-attention subset of ``repro.models.transformer``. The
+Port of the attention-only subset of ``repro.models.transformer``: dense
+and mixture-of-experts FFNs (layer ``l`` has pattern index ``l %
+len(block_pattern)``; ``cfg.moe_layer`` of it picks ``moe_block``). The
 reference stacks layers per pattern repeat under ``lax.scan``; the port
 keeps one parameter dict per layer in ``params["layers"]`` and walks them
 in a Python loop (``models.convert`` carries a reference pytree across).
@@ -43,20 +45,37 @@ from repro_torch.models import layers as L
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if tuple(cfg.block_pattern) != ("attn",) or cfg.is_moe \
+    if any(k != "attn" for k in cfg.block_pattern) \
             or cfg.input_mode != "tokens":
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense attention-only token models "
-            "(MoE, mamba, rwkv and embedding inputs are later slices)")
+            f"{cfg.name}: the port serves attention-only token models, "
+            "dense or MoE (mamba, rwkv and embedding inputs are later "
+            "slices)")
+
+
+def _is_moe(cfg: ArchConfig, layer: int) -> bool:
+    """Does layer ``layer`` (pattern index ``layer % len(pattern)``) have
+    a MoE FFN?"""
+    return cfg.moe_layer(layer % len(cfg.block_pattern))
+
+
+def ffn_block(bp: dict, cfg: ArchConfig, layer: int, x: torch.Tensor,
+              plan=None) -> torch.Tensor:
+    """Layer ``layer``'s FFN: ``moe_block`` where the config puts a MoE
+    FFN, else the gated MLP."""
+    fn = L.moe_block if _is_moe(cfg, layer) else L.mlp_block
+    return fn(bp["ffn"], cfg, x, plans=L.plan_leaf(plan, "ffn"))
 
 
 # ------------------------------------------------------------------ init
 def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> dict:
     """Random parameters with the reference's shapes, distributions and
     scales (``T.init_params`` / ``L.init_attention`` / ``L.init_mlp`` /
-    ``L.init_embedding``): normal weights scaled by fan-in ** -0.5, zero
-    QKV biases, unit norms — drawn from a ``torch.Generator`` on the
-    target device (the values differ from ``jax.random``'s)."""
+    ``L.init_moe`` / ``L.init_embedding``): normal weights scaled by
+    fan-in ** -0.5, zero QKV biases, unit norms, a float32 router and
+    ``(E, d_in, d_out)`` expert weights on MoE layers — drawn from a
+    ``torch.Generator`` on the target device (the values differ from
+    ``jax.random``'s)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
@@ -72,7 +91,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> dict:
         return {"scale": torch.ones(n, dtype=dt, device=dev)}
 
     layers = []
-    for _ in range(cfg.n_layers):
+    for layer in range(cfg.n_layers):
         core = {"wq": normal((d, h * hd), d ** -0.5),
                 "wk": normal((d, kv * hd), d ** -0.5),
                 "wv": normal((d, kv * hd), d ** -0.5),
@@ -83,8 +102,17 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> dict:
         if cfg.qk_norm:
             core["q_norm"] = torch.ones(hd, dtype=dt, device=dev)
             core["k_norm"] = torch.ones(hd, dtype=dt, device=dev)
-        ffn = {"w1": normal((d, f), d ** -0.5), "w3": normal((d, f), d ** -0.5),
-               "w2": normal((f, d), f ** -0.5)}
+        if _is_moe(cfg, layer):
+            e = cfg.n_experts
+            ffn = {"router": (torch.randn((d, e), generator=gen, device=dev)
+                              * d ** -0.5),  # float32, as the reference's
+                   "w1": normal((e, d, f), d ** -0.5),
+                   "w3": normal((e, d, f), d ** -0.5),
+                   "w2": normal((e, f, d), f ** -0.5)}
+        else:
+            ffn = {"w1": normal((d, f), d ** -0.5),
+                   "w3": normal((d, f), d ** -0.5),
+                   "w2": normal((f, d), f ** -0.5)}
         layers.append({"norm1": ones(d), "core": core, "norm2": ones(d),
                        "ffn": ffn})
     embed = {"embed": normal((cfg.vocab_size, d), d ** -0.5),
@@ -101,13 +129,13 @@ def _head_plan(plans):
     return None if plans is None else plans["head"]
 
 
-def apply_block(bp: dict, cfg: ArchConfig, x: torch.Tensor,
+def apply_block(bp: dict, cfg: ArchConfig, layer: int, x: torch.Tensor,
                 positions: torch.Tensor, plan=None) -> torch.Tensor:
     h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
     x = x + L.attention_block(bp["core"], cfg, h, positions,
                               plans=L.plan_leaf(plan, "core"))
     h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
-    return x + L.mlp_block(bp["ffn"], cfg, h, plans=L.plan_leaf(plan, "ffn"))
+    return x + ffn_block(bp, cfg, layer, h, plan)
 
 
 def embed_inputs(params: dict, cfg: ArchConfig,
@@ -123,8 +151,9 @@ def forward_hidden(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
     with L.suspend_pim_stats():
-        for bp, plan in zip(params["layers"], _layer_plans(cfg, plans)):
-            x = apply_block(bp, cfg, x, positions, plan)
+        for layer, (bp, plan) in enumerate(zip(params["layers"],
+                                               _layer_plans(cfg, plans))):
+            x = apply_block(bp, cfg, layer, x, positions, plan)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
@@ -319,15 +348,14 @@ def decode_step(params: dict, cfg: ArchConfig, state: dict,
         raise ValueError("paged decode needs per-slot positions "
                          "(init_decode_state(..., per_slot_pos=True))")
     x = embed_inputs(params, cfg, tokens)
-    for bp, cache, plan in zip(params["layers"], state["caches"],
-                               _layer_plans(cfg, plans)):
+    for layer, (bp, cache, plan) in enumerate(zip(
+            params["layers"], state["caches"], _layer_plans(cfg, plans))):
         h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
         x = x + _attn_decode(bp, cfg, cache, h, pos,
                              plans=L.plan_leaf(plan, "core"),
                              tables=block_tables, paged=paged)
         h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
-        x = x + L.mlp_block(bp["ffn"], cfg, h,
-                            plans=L.plan_leaf(plan, "ffn"))
+        x = x + ffn_block(bp, cfg, layer, h, plan)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = L.lm_head(params["embed"], cfg, x, plan=_head_plan(plans))
     return logits, {"caches": state["caches"], "pos": pos + 1}
@@ -341,8 +369,8 @@ def _prefill_layers(params: dict, cfg: ArchConfig, x: torch.Tensor,
     cache in place and returns the attention output (B, C, H, hd)."""
     B, C = x.shape[0], x.shape[1]
     with L.suspend_pim_stats():
-        for bp, cache, plan in zip(params["layers"], caches,
-                                   _layer_plans(cfg, plans)):
+        for layer, (bp, cache, plan) in enumerate(zip(
+                params["layers"], caches, _layer_plans(cfg, plans))):
             core_plan = L.plan_leaf(plan, "core")
             hn = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
             q, k, v = L.qkv_project(bp["core"], cfg, hn, positions, core_plan)
@@ -350,8 +378,7 @@ def _prefill_layers(params: dict, cfg: ArchConfig, x: torch.Tensor,
             x = x + L.pim_matmul(o.reshape(B, C, -1), bp["core"]["wo"],
                                  L.plan_leaf(core_plan, "wo"), cfg)
             hn2 = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
-            x = x + L.mlp_block(bp["ffn"], cfg, hn2,
-                                plans=L.plan_leaf(plan, "ffn"))
+            x = x + ffn_block(bp, cfg, layer, hn2, plan)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.lm_head(params["embed"], cfg, x[:, -1:], plan=_head_plan(plans))
 
