@@ -51,7 +51,12 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            peak memory printed; at capacity 8.0, where no slot can drop,
            exact through the continuous and (on 5 blocks, evicting) the
            paged engine, fast through the lockstep, continuous and paged
-           engines, tokens equal; one decode step's K2 and K3 calls timed;
+           engines, tokens equal; every K2 call of one decode step (on
+           the pinned and on Algorithm 1's plans) and every K3 call held
+           bit for bit against the plain versions, psum and counters
+           included, and timed; K1 at Algorithm 1's search shape (16
+           rows, 1b input slices, 24b and 7b ADC) on expert matrices of
+           each slice count, held the same way;
   timing   one decode step's worth of kernel calls on the compiled plans
            (distinct weights per layer, as the model has them) against the
            plain versions and, for K3, ``torch._int_mm`` (x padded with zero
@@ -63,10 +68,11 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``:
 each kernel's entry gives its launches on the qwen path and its decode
-step's times, and ``moe_launches`` (the moe phase's own run; K1's are
-Algorithm 1's compile) with ``moe_ms``, ``moe_plain_ms``, ``moe_bound_ms``,
-``moe_bound_by`` and ``moe_library_ms`` for the MoE decode step, null
-where not measured. The last line is ``{"ok": true, "device": {...}}``.
+step's times, its ``max_abs_err`` over every comparison of the run, and
+``moe_launches`` (the moe phase's own run; K1's are Algorithm 1's
+compile) with ``moe_max_abs_err`` (the moe phase's comparisons),
+``moe_ms``, ``moe_plain_ms``, ``moe_bound_ms``, ``moe_bound_by`` and
+``moe_library_ms`` for the MoE decode step, null where not measured. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -101,9 +107,7 @@ MOE_LAYERS = 4
 # capacity E / k = 16 / 2: cap >= B at decode and >= S in prefill, so no
 # slot can drop and every engine routes every token alike
 DROP_FREE_CF = 8.0
-# an expert's rows in a decode step of 4 slots at capacity 1.25: the
-# dispatch buffer's cap = max(k, ceil(1.25 * 4 * k / E)) = 2
-MOE_DECODE_CAP = 2
+N_SLOTS = 4                  # every serve run's slots, the decode batch
 
 
 def say(phase: str, **fields) -> None:
@@ -645,7 +649,8 @@ def phase_serve(ctx: dict) -> None:
         torch.cuda.synchronize()
         compile_s = time.perf_counter() - t0
         compile_launches = ops.launch_counts()
-        eng = ContinuousServeEngine(cfg, params, n_slots=4, max_len=max_len,
+        eng = ContinuousServeEngine(cfg, params, n_slots=N_SLOTS,
+                                    max_len=max_len,
                                     prefill_chunk=64, plans=compiled.plans)
         t0 = time.perf_counter()
         with L.collect_pim_stats() as sink:
@@ -710,14 +715,15 @@ def phase_serve(ctx: dict) -> None:
     del params
 
 
-def empty_experts(plans: dict) -> int:
+def empty_experts(cfg, plans: dict) -> int:
     """Expert instances whose calibration buffer held no token: x_scale
     at the 1e-12 floor (``quant.calibrate_layer``)."""
     import torch
+    from repro_torch.models import layers as L
     floor = torch.tensor(1e-12, dtype=torch.float32)
     return sum(int((leaf["x_scale"].cpu() == floor).sum())
-               for lp in plans["layers"] for leaf in lp["ffn"].values()
-               if leaf["w_q"].ndim == 3)
+               for layer, lp in enumerate(plans["layers"])
+               if L.is_moe_layer(cfg, layer) for leaf in lp["ffn"].values())
 
 
 def peak_gb() -> float:
@@ -725,7 +731,7 @@ def peak_gb() -> float:
     return round(torch.cuda.max_memory_allocated() / 2**30, 3)
 
 
-def phase_moe(ctx: dict) -> None:
+def phase_moe(ctx: dict, rows: list) -> None:
     """Serve phi3.5-moe-42b (published widths, MOE_LAYERS layers, random
     bf16 weights from seed 0) through ``ContinuousServeEngine``: exact
     (K2 per expert), int8, fast (K3 per expert) and exact with Algorithm 1
@@ -734,8 +740,11 @@ def phase_moe(ctx: dict) -> None:
     (no slot can drop): fast through the lockstep, continuous and paged
     engines, tokens equal, and exact on a pool that must evict, equal to
     the continuous exact tokens. Each plan set is freed before the next
-    compile; the decode step's K2 and K3 calls are timed while their
-    plans are alive (printed by the timing phase)."""
+    compile. While plans are alive, one decode step's K2 calls (pinned
+    and Algorithm 1's plans) and K3 calls are held bit for bit against
+    the plain versions (rows in ``rows``) and timed (printed by the
+    timing phase), and K1 runs Algorithm 1's search shape (SEARCH_ROWS
+    rows, 1b input slices) on expert matrices of each slice count."""
     import dataclasses
     import torch
     from repro_torch import configs
@@ -768,7 +777,7 @@ def phase_moe(ctx: dict) -> None:
     max_len = BLOCK * -(-(max(len(r.prompt) for r in reqs) + 8 + 1) // BLOCK)
     calib = calibration_tokens(cfg0, 16)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    kw = dict(n_slots=4, max_len=max_len, prefill_chunk=64)
+    kw = dict(n_slots=N_SLOTS, max_len=max_len, prefill_chunk=64)
     tokens: dict = {}
 
     def compile_plans(cfg):
@@ -781,7 +790,7 @@ def phase_moe(ctx: dict) -> None:
         info = dict(compile_s=round(time.perf_counter() - t0, 3),
                     compile_launches=json.dumps(ops.launch_counts()),
                     sites=len(compiled.sites),
-                    empty_expert_instances=empty_experts(compiled.plans),
+                    empty_expert_instances=empty_experts(cfg, compiled.plans),
                     compile_peak_gb=peak_gb())
         return compiled, info
 
@@ -793,7 +802,7 @@ def phase_moe(ctx: dict) -> None:
         row = engine_row(run, eng, outs, serve_s, launches,
                          PER_CALL[cfg.pim_mode], cfg.vocab_size)
         row.update(peak_gb=peak_gb(), projections_per_call=len(
-            step_calls(plans)))
+            step_calls(cfg, plans)))
         if cfg.pim_mode == "exact":
             n_tok = row["tokens"]
             row.update(adc_converts_per_token=totals["adc_converts"] / n_tok,
@@ -808,14 +817,17 @@ def phase_moe(ctx: dict) -> None:
     ctx["moe_k2_launches"] = json.loads(row["launches"])[
         "fused_spec_crossbar"]
     say("moe", **row, **info)
-    k2_calls, k2_bytes, k2_ops = crossbar_step(compiled.plans, SPEC, True,
-                                               gen)
+    ctx["moe_rows"] = L.moe_dispatch_rows(exact, N_SLOTS, 1)
+    step = f"{MOE_ARCH} decode step"
+    k2_calls, k2_bytes, k2_ops = crossbar_step(exact, compiled.plans, SPEC,
+                                               True, gen)
     kw24 = dict(adc_lo=-(1 << 23), adc_hi=(1 << 23) - 1)
+    say("moe", **check_step(rows, "fused_spec_crossbar", fs.launch, fs.plain,
+                            k2_calls, step, **kw24))
     ctx["moe_k2"] = dict(
-        ms=cuda_ms(lambda: [fs.launch(x, *t, c, **kw24)
-                            for x, t, c in k2_calls], 3),
-        plain_ms=cuda_ms(lambda: [fs.plain(x, *t, c, **kw24)
-                                  for x, t, c in k2_calls], 1, warmup=0),
+        ms=cuda_ms(lambda: [fs.launch(*a, **kw24) for _, a in k2_calls], 3),
+        plain_ms=cuda_ms(lambda: [fs.plain(*a, **kw24)
+                                  for _, a in k2_calls], 1, warmup=0),
         library_ms=None, calls=len(k2_calls), **bound(k2_bytes, k2_ops))
     del k2_calls
     # capacity DROP_FREE_CF, exact: continuous, then paged on 5 blocks
@@ -848,7 +860,8 @@ def phase_moe(ctx: dict) -> None:
     ctx["moe_k3_launches"] = json.loads(row["launches"])[
         "centered_int8_matmul"]
     say("moe", **row, **info)
-    ctx["moe_k3"] = k3_step(compiled.plans, gen)[1]
+    ctx["moe_k3"] = k3_step(fast, compiled.plans, gen, rows, step,
+                            "moe")[1]
     fast8 = dataclasses.replace(fast, capacity_factor=DROP_FREE_CF)
     row = serve("moe-fast-cf8", fast8, compiled.plans)[1]
     say("moe", **row)
@@ -863,7 +876,7 @@ def phase_moe(ctx: dict) -> None:
     torch.cuda.synchronize()
     lock_launches = ops.launch_counts()
     calls = sum(r.max_new_tokens for r in reqs)  # prefill + 7 decodes each
-    want = len(step_calls(compiled.plans)) * calls
+    want = len(step_calls(fast8, compiled.plans)) * calls
     if lock_launches["centered_int8_matmul"] != want:
         raise AssertionError(f"lockstep launches {lock_launches}, want K3 "
                              f"{want}")
@@ -891,12 +904,20 @@ def phase_moe(ctx: dict) -> None:
         mean_site_error=sum(errs) / len(errs), max_site_error=max(errs))
     if search <= 0:
         raise AssertionError("Algorithm 1's compile launched no K1")
+    ka_calls = crossbar_step(adaptive, compiled.plans, SPEC, True, gen)[0]
+    say("moe", **check_step(rows, "fused_spec_crossbar", fs.launch, fs.plain,
+                            ka_calls, f"{step}, Algorithm 1's plans", **kw24))
+    del ka_calls
+    check_k1_experts(adaptive, compiled.plans, rows, gen)
     del compiled
     if tokens["moe-exact-adaptive"] != tokens["moe-int8"]:
         raise AssertionError("moe-exact-adaptive tokens differ from "
                              "moe-int8 tokens at the 24b ADC")
+    mine = [r for r in rows
+            if str(r.get("site", "")).startswith(MOE_ARCH)]
     say("moe", ok=True, exact_equals_int8=True,
-        exact_adaptive_equals_int8=True,
+        exact_adaptive_equals_int8=True, kernel_checks=len(mine),
+        kernel_checks_max_abs_err=max(r["max_abs_err"] for r in mine),
         first_tokens=json.dumps(tokens["moe-exact"][0]))
     del params
     torch.cuda.empty_cache()
@@ -958,7 +979,8 @@ def engine_row(run: str, eng, outs, serve_s: float, launches: dict,
     st = eng.stats
     served = launches if served is None else served
     calls = st.decode_steps + st.prefill_chunks
-    n_proj = len(step_calls(eng.plans))  # weight-static projections a call
+    # weight-static projections a call
+    n_proj = len(step_calls(eng.cfg, eng.plans))
     assert all(o.finish_reason == "length" and len(o.tokens) == 8
                and all(0 <= int(t) < vocab for t in o.tokens) for o in outs)
     want = {k: per_call.get(k, 0) * n_proj * calls for k in served}
@@ -1000,7 +1022,7 @@ def serve_paged(ctx: dict, params, cfg0, reqs, tokens: dict,
     exact = dataclasses.replace(cfg0, pim_mode="exact")
     fast = dataclasses.replace(cfg0, pim_mode="fast")
     # paged-exact: the requests need 8 blocks at their peak, the pool has 5
-    eng = PagedServeEngine(exact, params, n_slots=4, max_len=max_len,
+    eng = PagedServeEngine(exact, params, n_slots=N_SLOTS, max_len=max_len,
                            prefill_chunk=64, block_size=BLOCK, n_blocks=5,
                            plans=ctx["exact_compiled"].plans)
     outs, serve_s, launches = drive(eng, reqs)
@@ -1014,7 +1036,7 @@ def serve_paged(ctx: dict, params, cfg0, reqs, tokens: dict,
     say("serve", **row, equals_continuous_exact=True)
     # paged-prefix: the first request registers the prefix, 3 share it
     preqs = prefix_requests(vocab)
-    kw = dict(n_slots=4, max_len=3 * BLOCK, prefill_chunk=2 * BLOCK,
+    kw = dict(n_slots=N_SLOTS, max_len=3 * BLOCK, prefill_chunk=2 * BLOCK,
               plans=ctx["fast_plans"])
     eng = PagedServeEngine(fast, params, block_size=BLOCK, **kw)
     outs, serve_s, launches = drive(eng, preqs[1:], first=preqs[0])
@@ -1034,7 +1056,7 @@ def serve_paged(ctx: dict, params, cfg0, reqs, tokens: dict,
                               vocab))
     # paged-int8kv: int8 KV, prefix sharing off, against the continuous
     kv8 = dataclasses.replace(fast, kv_cache_dtype="int8")
-    kw = dict(n_slots=4, max_len=max_len, prefill_chunk=64,
+    kw = dict(n_slots=N_SLOTS, max_len=max_len, prefill_chunk=64,
               plans=ctx["fast_plans"])
 
     def int8kv_engines():
@@ -1149,7 +1171,7 @@ def check_sampling(cfg, params, plans, prompt) -> dict:
     want = lock.generate(prompt[None], steps=n_new, seed=seed).tokens[0]
     again = lock.generate(prompt[None], steps=n_new, seed=seed).tokens[0]
     other = lock.generate(prompt[None], steps=n_new, seed=seed + 1).tokens[0]
-    eng = ContinuousServeEngine(cfg, params, n_slots=4, max_len=max_len,
+    eng = ContinuousServeEngine(cfg, params, n_slots=N_SLOTS, max_len=max_len,
                                 prefill_chunk=64, plans=plans)
     [out] = eng.run([Request(uid=0, prompt=prompt, max_new_tokens=n_new,
                              temperature=1.0, seed=seed)])
@@ -1164,25 +1186,49 @@ def check_sampling(cfg, params, plans, prompt) -> dict:
                 sampled_tokens=json.dumps(want.tolist()))
 
 
-def step_calls(plans: dict) -> list:
+def step_calls(cfg, plans: dict) -> list:
     """One engine call's weight-static projections, in the model's order:
-    (name, leaf, rows) per layer and projection — one per expert where a
-    leaf carries a leading expert axis, every expert, as the model runs
-    them — then the LM head, with the rows each gets in a decode step of
-    4 slots."""
+    (name, leaf, rows) per layer and projection — one per expert in a MoE
+    FFN, every expert, as the model runs them — then the LM head, with the
+    rows each gets in a decode step of N_SLOTS slots (an expert its
+    dispatch buffer's, ``layers.moe_dispatch_rows``)."""
+    from repro_torch.models import layers as L
     out = []
-    for lp in plans["layers"]:
+    for layer, lp in enumerate(plans["layers"]):
         for g, names in (("core", ("wq", "wk", "wv", "wo")),
                          ("ffn", ("w1", "w3", "w2"))):
+            expert = g == "ffn" and L.is_moe_layer(cfg, layer)
             for n in names:
                 leaf = lp[g][n]
-                if leaf["w_q"].ndim == 3:
-                    out += [(f"{n}[e{e}]", {k: v[e] for k, v in leaf.items()},
-                             MOE_DECODE_CAP)
-                            for e in range(leaf["w_q"].shape[0])]
+                name = f"{layer}.{n}"
+                if expert:
+                    rows = L.moe_dispatch_rows(cfg, N_SLOTS, 1)
+                    out += [(f"{name}[e{e}]",
+                             {k: v[e] for k, v in leaf.items()}, rows)
+                            for e in range(cfg.n_experts)]
                 else:
-                    out.append((n, leaf, 4))
-    return out + [("head", plans["head"], 4)]
+                    out.append((name, leaf, N_SLOTS))
+    return out + [("head", plans["head"], N_SLOTS)]
+
+
+def check_step(rows: list, kernel: str, launch, plain, calls: list,
+               tag: str, **kw) -> dict:
+    """Every call of one decode step (``(name, args)`` pairs) through the
+    kernel and its plain version on the same operands, bit for bit (K2
+    and K1: psum and both counters), one row each in ``rows``; returns
+    their summary. Raises on the first mismatch."""
+    mine = []
+    for name, args in calls:
+        got = launch(*args, **kw)
+        row = compare(kernel, got, plain(*args, **kw), site=f"{tag}.{name}",
+                      B=args[0].shape[0], R=args[0].shape[1],
+                      C=(got[0] if isinstance(got, tuple) else got).shape[-1])
+        mine.append(row)
+    rows += mine
+    shapes = sorted({(r["B"], r["R"], r["C"]) for r in mine})
+    return dict(kernel=kernel, scope=tag, match=True, checks=len(mine),
+                tolerance=0, max_abs_err=max(r["max_abs_err"] for r in mine),
+                shapes=json.dumps(shapes))
 
 
 def bound(n_bytes: int, n_ops: int) -> dict:
@@ -1194,29 +1240,67 @@ def bound(n_bytes: int, n_ops: int) -> dict:
                 bytes=n_bytes, ops=n_ops)
 
 
-def crossbar_step(plans: dict, slicing: tuple, spec: bool, gen):
-    """One decode step's crossbar calls (B = 4 slots, an expert at its
-    ``cap`` rows, two signed passes per projection, codes 0..127) on
-    compiled exact plans: K2's operands (``spec``) or K1's, with the bytes
-    and int8 operations they need."""
+def crossbar_step(cfg, plans: dict, slicing: tuple, spec: bool, gen):
+    """One decode step's crossbar calls (N_SLOTS rows, an expert its
+    dispatch rows, two signed passes per projection, codes 0..127) on
+    compiled exact plans, ``(name, args)`` each: K2's operands (``spec``)
+    or K1's, with the bytes and int8 operations they need."""
     import torch
     from repro_torch.kernels import ops
     n_i = len(slicing)
     tables_fn = ops.spec_tables if spec else ops.crossbar_tables
     n_counts = n_i + 1 if spec else 1  # int64 counters out
     calls, n_bytes, n_ops = [], 0, 0
-    for _, leaf, B in step_calls(plans):
+    for name, leaf, B in step_calls(cfg, plans):
         n_j, n_seg, rx, C = leaf["planes"].shape
         R = leaf["w_q"].shape[0]
         tables = tables_fn(leaf["planes"], leaf["slice_shifts"], slicing)
-        for _ in range(2):
+        for sign in "+-":
             x = torch.randint(0, 128, (B, R), generator=gen, device="cuda",
                               dtype=torch.int32)
-            calls.append((x, tables, leaf["enc_centers"].contiguous()))
+            calls.append((f"{name}{sign}", (
+                x, *tables, leaf["enc_centers"].contiguous())))
             n_bytes += (4 * B * R + n_j * n_seg * rx * C + 4 * n_i * n_j
                         + 4 * n_seg * C + 4 * B * C + 8 * n_counts)
             n_ops += 2 * B * n_seg * rx * C * n_j * n_i
     return calls, n_bytes, n_ops
+
+
+def check_k1_experts(cfg, plans: dict, rows: list, gen) -> None:
+    """K1 as Algorithm 1 runs it on expert matrices: SEARCH_ROWS rows of
+    codes 0..127 in 1b input slices, at the 24b and the search ADC, on the
+    first expert instance of each slice count of layer 0's gate and down
+    projections (R = 6400 leaves a ragged last segment), padded planes
+    masked; bit for bit against the plain version, psum and saturations."""
+    import torch
+    from repro_torch.core import adc as adc_lib
+    from repro_torch.kernels import fused_crossbar as fx
+    from repro_torch.kernels import ops
+    from repro_torch.models import pim_compile as pc
+    search = adc_lib.ADCConfig(bits=cfg.pim_search_adc_bits, signed=True)
+    for n in ("w1", "w2"):
+        leaf = plans["layers"][0]["ffn"][n]
+        n_valid = leaf["slice_valid"].sum(dim=-1).tolist()
+        for n_j in sorted(set(n_valid)):
+            e = n_valid.index(n_j)
+            R = leaf["w_q"].shape[1]
+            x = torch.randint(0, 128, (pc.SEARCH_ROWS, R), generator=gen,
+                              device="cuda", dtype=torch.int32)
+            args = (x, *ops.crossbar_tables(
+                leaf["planes"][e], leaf["slice_shifts"][e], ONE_BIT,
+                leaf["slice_valid"][e]), leaf["enc_centers"][e].contiguous())
+            for lo, hi in ((-(1 << 23), (1 << 23) - 1),
+                           (search.lo, search.hi)):
+                got = fx.launch(*args, adc_lo=lo, adc_hi=hi)
+                row = compare("fused_crossbar", got,
+                              fx.plain(*args, adc_lo=lo, adc_hi=hi),
+                              site=f"{MOE_ARCH} search.0.{n}[e{e}]",
+                              B=pc.SEARCH_ROWS, R=R, C=got[0].shape[-1],
+                              n_j=n_j, adc_bits=24 if hi > search.hi else
+                              search.bits, input_slicing="1x8",
+                              sats=int(got[1]))
+                rows.append(row)
+                say("moe", **row)
 
 
 def k1_batch_tiles(gen) -> dict:
@@ -1301,25 +1385,29 @@ def kv_copies(gen) -> dict:
     return out
 
 
-def k3_step(plans: dict, gen) -> tuple[list, dict]:
-    """One decode step's K3 calls (int8 codes, 4 rows a projection, an
-    expert at its ``cap`` rows) on fast plans, timed against the plain
-    version and ``torch._int_mm`` on x padded with zero rows (no center
-    term), with the bytes and operations they need."""
+def k3_step(cfg, plans: dict, gen, rows: list, tag: str,
+            phase: str) -> tuple[list, dict]:
+    """One decode step's K3 calls (int8 codes, N_SLOTS rows a projection,
+    an expert its dispatch rows) on fast plans: each held bit for bit
+    against the plain version (rows in ``rows``), then timed against it
+    and ``torch._int_mm`` on x padded with zero rows (no center term),
+    with the bytes and operations they need."""
     import torch
     from repro_torch.kernels import int8_matmul as im
     calls, n_bytes, n_ops = [], 0, 0
-    for _, leaf, B in step_calls(plans):
+    for name, leaf, B in step_calls(cfg, plans):
         R, C = leaf["w_off"].shape
         x = torch.randint(-127, 128, (B, R), generator=gen, device="cuda",
                           dtype=torch.int8)
-        calls.append((x, leaf["w_off"], leaf["centers"]))
+        calls.append((name, (x, leaf["w_off"], leaf["centers"])))
         n_bytes += B * R + R * C + 4 * C + 4 * B * C
         n_ops += 2 * B * R * C
-    lib_calls = [(int_mm_operand(x), w) for x, w, _ in calls]
+    say(phase, **check_step(rows, "centered_int8_matmul", im.launch,
+                            im.plain, calls, tag))
+    lib_calls = [(int_mm_operand(x), w) for _, (x, w, _) in calls]
     return calls, dict(
-        ms=cuda_ms(lambda: [im.launch(*a) for a in calls], 5),
-        plain_ms=cuda_ms(lambda: [im.plain(*a) for a in calls], 2),
+        ms=cuda_ms(lambda: [im.launch(*a) for _, a in calls], 5),
+        plain_ms=cuda_ms(lambda: [im.plain(*a) for _, a in calls], 2),
         library_ms=cuda_ms(lambda: [torch._int_mm(*a) for a in lib_calls], 5),
         library_rows=lib_calls[0][0].shape[0], calls=len(calls),
         **bound(n_bytes, n_ops))
@@ -1333,14 +1421,17 @@ def phase_timing(ctx: dict, rows: list) -> list:
     import torch
     from repro_torch.kernels import fused_crossbar as fx
     from repro_torch.kernels import fused_spec_crossbar as fs
+    from repro_torch import configs
     gen = torch.Generator(device="cuda").manual_seed(1)
+    cfg = configs.get(ARCH)
     exact_plans = ctx["exact_compiled"].plans
     kw = dict(adc_lo=-(1 << 23), adc_hi=(1 << 23) - 1)  # the 24b ADC
     # K2: the spec-on exact plans
-    k2_calls, k2_bytes, k2_ops = crossbar_step(exact_plans, SPEC, True, gen)
+    k2_calls, k2_bytes, k2_ops = crossbar_step(cfg, exact_plans, SPEC, True,
+                                               gen)
 
     def k2_step(fn):
-        return [fn(x, *t, c, **kw) for x, t, c in k2_calls]
+        return [fn(*a, **kw) for _, a in k2_calls]
     fails = sum(int(r[1].sum()) for r in k2_step(fs.launch))
     assert fails == 0  # no recovery work at 24b: the bound is the spec dots
     k2 = dict(ms=cuda_ms(lambda: k2_step(fs.launch), 5),
@@ -1349,28 +1440,29 @@ def phase_timing(ctx: dict, rows: list) -> list:
               **bound(k2_bytes, k2_ops))
     del k2_calls
     # K2 on Algorithm 1's plans: 3 planes per layer site, 8 on the head
-    ka_calls, ka_bytes, ka_ops = crossbar_step(ctx["adaptive_plans"], SPEC,
-                                               True, gen)
-    k2a = dict(ms=cuda_ms(lambda: [fs.launch(x, *t, c, **kw)
-                                   for x, t, c in ka_calls], 5),
-               plain_ms=cuda_ms(lambda: [fs.plain(x, *t, c, **kw)
-                                         for x, t, c in ka_calls], 1,
+    ka_calls, ka_bytes, ka_ops = crossbar_step(cfg, ctx["adaptive_plans"],
+                                               SPEC, True, gen)
+    k2a = dict(ms=cuda_ms(lambda: [fs.launch(*a, **kw)
+                                   for _, a in ka_calls], 5),
+               plain_ms=cuda_ms(lambda: [fs.plain(*a, **kw)
+                                         for _, a in ka_calls], 1,
                                 warmup=0),
                library_ms=None, calls=len(ka_calls),
                **bound(ka_bytes, ka_ops))
     del ka_calls
     # K1: the same plans, speculation off (1b input slices)
-    k1_calls, k1_bytes, k1_ops = crossbar_step(exact_plans, ONE_BIT, False,
-                                               gen)
+    k1_calls, k1_bytes, k1_ops = crossbar_step(cfg, exact_plans, ONE_BIT,
+                                               False, gen)
 
     def k1_step(fn):
-        return [fn(x, *t, c, **kw) for x, t, c in k1_calls]
+        return [fn(*a, **kw) for _, a in k1_calls]
     k1 = dict(ms=cuda_ms(lambda: k1_step(fx.launch), 5),
               plain_ms=cuda_ms(lambda: k1_step(fx.plain), 1, warmup=0),
               library_ms=None, calls=len(k1_calls),
               **bound(k1_bytes, k1_ops))
     # K3: one call per projection, int8 codes
-    k3_calls, k3 = k3_step(ctx["fast_plans"], gen)
+    k3_calls, k3 = k3_step(cfg, ctx["fast_plans"], gen, rows,
+                           f"{ARCH} decode step", "timing")
     # what as many back-to-back launches of an empty kernel take: the
     # share of the step that no kernel design removes
     z = torch.empty(1, device="cuda")
@@ -1396,7 +1488,8 @@ def phase_timing(ctx: dict, rows: list) -> list:
     for name, d in moe.items():
         if d is not None:
             say("timing", kernel=name, scope=f"one decode step of {MOE_ARCH}"
-                f", {MOE_LAYERS} layers, B=4, experts at 2 rows", **d)
+                f", {MOE_LAYERS} layers, B={N_SLOTS}, experts at "
+                f"{ctx['moe_rows']} rows", **d)
     say("timing", scope="K1 at B=16 by batch tile, per call",
         **k1_batch_tiles(gen))
     say("timing", scope="one paged decode step's KV copies, 4 slots",
@@ -1441,7 +1534,11 @@ def phase_timing(ctx: dict, rows: list) -> list:
         if moe_launches[name] is not None:  # the MoE path's own run
             m = moe.get(name) or {}
             out[-1].update(
-                moe_launches=moe_launches[name], moe_ms=m.get("ms"),
+                moe_launches=moe_launches[name],
+                moe_max_abs_err=max(
+                    (r["max_abs_err"] for r in rows if r["kernel"] == name
+                     and str(r.get("site", "")).startswith(MOE_ARCH)),
+                    default=None), moe_ms=m.get("ms"),
                 moe_plain_ms=m.get("plain_ms"),
                 moe_bound_ms=m.get("bound_ms"),
                 moe_bound_by=m.get("bound_by"),
@@ -1482,7 +1579,7 @@ def main() -> int:
     if "serve" in phases:
         phase_serve(ctx)
     if "moe" in phases:
-        phase_moe(ctx)
+        phase_moe(ctx, rows)
     if "timing" in phases:
         kernels = phase_timing(ctx, rows)
     print(smi, flush=True)  # again, within the tail a log keeps

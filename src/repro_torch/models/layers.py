@@ -303,6 +303,33 @@ def _moe_group_size(E: int) -> int:
     return 1024 if E >= 64 else 512
 
 
+def is_moe_layer(cfg: ArchConfig, layer: int) -> bool:
+    """Does layer ``layer`` (pattern index ``layer % len(pattern)``) have
+    a MoE FFN?"""
+    return cfg.moe_layer(layer % len(cfg.block_pattern))
+
+
+def moe_capacity(cfg: ArchConfig, slots: int) -> tuple[int, int, int]:
+    """``(group, n_groups, cap)`` for one batch row of ``slots`` (token,
+    choice) slots: ``g = min(group size, slots)`` slots a dispatch group
+    and ``cap = max(k, ceil(capacity_factor * g / E))`` kept slots per
+    expert and group, the reference's rule."""
+    E, k = cfg.n_experts, cfg.experts_per_token
+    g = min(_moe_group_size(E), slots)
+    cap = max(k, int(math.ceil(cfg.capacity_factor * g / E)))
+    return g, -(-slots // g), cap
+
+
+def moe_dispatch_rows(cfg: ArchConfig, B: int, S: int) -> int:
+    """Rows of each expert's dispatch buffer (the rows its projections
+    get) for ``moe_block`` on x (B, S, D); a decode step (S == 1, B > 1)
+    is one dispatch group of B tokens."""
+    if S == 1 and B > 1:
+        B, S = 1, B
+    _, n_groups, cap = moe_capacity(cfg, S * cfg.experts_per_token)
+    return B * n_groups * cap
+
+
 @dataclasses.dataclass
 class MoeRoute:
     """One ``moe_block`` call's routing. Slots are ``(token, choice)``
@@ -340,10 +367,8 @@ def moe_route(params: dict, cfg: ArchConfig, x: torch.Tensor) -> MoeRoute:
     vals, idx = torch.topk(logits.reshape(B, S, E), k, dim=-1)
     weights = torch.sigmoid(vals) if k == 1 else torch.softmax(vals, dim=-1)
     slots = S * k
-    g = min(_moe_group_size(E), slots)
-    n_groups = -(-slots // g)
+    g, n_groups, cap = moe_capacity(cfg, slots)
     pad = n_groups * g - slots
-    cap = max(k, int(math.ceil(cfg.capacity_factor * g / E)))
     fe = F.pad(idx.reshape(B, slots), (0, pad), value=E)
     fw = F.pad(weights.reshape(B, slots).to(x.dtype), (0, pad))
     fe = fe.reshape(B, n_groups, g)

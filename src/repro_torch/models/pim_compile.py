@@ -261,7 +261,7 @@ def compile_pim_params(params: dict, cfg: ArchConfig,
         for i in range(n_pat):
             layers = range(i, cfg.n_layers, n_pat)  # repeat r: r*n_pat + i
             for g, names in _PROJ.items():
-                expert = g == "ffn" and cfg.moe_layer(i)
+                expert = g == "ffn" and L.is_moe_layer(cfg, i)
                 for name in names:
                     ws = [params["layers"][l][g][name] for l in layers]
                     xs = [taps["layers"][l][g][name].x[0] for l in layers]

@@ -53,17 +53,11 @@ def _check_supported(cfg: ArchConfig) -> None:
             "slices)")
 
 
-def _is_moe(cfg: ArchConfig, layer: int) -> bool:
-    """Does layer ``layer`` (pattern index ``layer % len(pattern)``) have
-    a MoE FFN?"""
-    return cfg.moe_layer(layer % len(cfg.block_pattern))
-
-
 def ffn_block(bp: dict, cfg: ArchConfig, layer: int, x: torch.Tensor,
               plan=None) -> torch.Tensor:
     """Layer ``layer``'s FFN: ``moe_block`` where the config puts a MoE
     FFN, else the gated MLP."""
-    fn = L.moe_block if _is_moe(cfg, layer) else L.mlp_block
+    fn = L.moe_block if L.is_moe_layer(cfg, layer) else L.mlp_block
     return fn(bp["ffn"], cfg, x, plans=L.plan_leaf(plan, "ffn"))
 
 
@@ -102,7 +96,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> dict:
         if cfg.qk_norm:
             core["q_norm"] = torch.ones(hd, dtype=dt, device=dev)
             core["k_norm"] = torch.ones(hd, dtype=dt, device=dev)
-        if _is_moe(cfg, layer):
+        if L.is_moe_layer(cfg, layer):
             e = cfg.n_experts
             ffn = {"router": (torch.randn((d, e), generator=gen, device=dev)
                               * d ** -0.5),  # float32, as the reference's

@@ -8,13 +8,13 @@ layers, dense FFNs between), the reference's weights carried across.
   prefill shapes, the merged decode group, capacity 1.25 with slots
   dropped and two dispatch groups with padding included; outputs agree
   within ``ATOL_FFN``.
-- ``compile_pim_params``: per-(repeat, expert) site names, slicings and
-  every plan leaf equal in fast and exact mode; ``x_scale`` to a few ulp
+- ``compile_pim_params``: per-(repeat, expert) site names, slicings,
+  errors and every plan leaf equal in fast and exact mode, pinned and
+  adaptive (Algorithm 1 per (repeat, expert)); ``x_scale`` to a few ulp
   from each framework's own forward and bit for bit from the reference's
-  activations. Algorithm 1 per (repeat, expert) through the site
-  compiler: slicings, errors and leaves equal, an expert that no
-  calibration token reached included. The folds of the exact prepare in
-  bounded groups equal the one-call fold.
+  activations. Algorithm 1 through the site compiler on an expert that no
+  calibration token reached. The folds of the exact prepare in bounded
+  groups equal the one-call fold.
 - Logits on the reference's plans within ``_torch_parity.ATOL``, the
   reference's fast mode included (held to its own outputs, not to the
   float-distance bound it misses).
@@ -79,12 +79,20 @@ def setup(arch: str):
     return rcfg, cfg, rparams, np_params, params, calib, tokens
 
 
+def pim_over(mode: str) -> dict:
+    """Config fields of ``mode``: a pim mode with the pinned (4,2,2)
+    slicing, or "adaptive" (exact, Algorithm 1 per instance)."""
+    if mode == "adaptive":
+        return dict(pim_mode="exact", pim_weight_slicing="adaptive")
+    return dict(pim_mode=mode)
+
+
 @functools.lru_cache(maxsize=None)
 def port_compiled(arch: str, mode: str):
-    """The port's CompiledPim for ``mode``, pinned (4,2,2) slicing."""
+    """The port's CompiledPim for ``mode`` (``pim_over``)."""
     _, cfg, _, _, params, calib, _ = setup(arch)
     return pc.compile_pim_params(
-        params, dataclasses.replace(cfg, pim_mode=mode), calib)
+        params, dataclasses.replace(cfg, **pim_over(mode)), calib)
 
 
 @functools.lru_cache(maxsize=None)
@@ -92,8 +100,18 @@ def compiled(arch: str, mode: str):
     """(reference CompiledPim, port CompiledPim) for ``mode``."""
     rcfg, _, rparams, _, _, calib, _ = setup(arch)
     return (ref_pc.compile_pim_params(
-                rparams, dataclasses.replace(rcfg, pim_mode=mode), calib),
+                rparams, dataclasses.replace(rcfg, **pim_over(mode)), calib),
             port_compiled(arch, mode))
+
+
+@functools.lru_cache(maxsize=None)
+def ref_taps(arch: str) -> dict:
+    """The reference's calibration activations of every site (its float
+    capture forward; the pim fields do not enter it)."""
+    rcfg, _, rparams, _, _, calib, _ = setup(arch)
+    taps = ref_pc._build_taps(rcfg)
+    ref_pc._capture(rparams, rcfg, calib, taps)
+    return taps
 
 
 # ------------------------------------------------------------- configs
@@ -181,6 +199,7 @@ def test_moe_block_matches_reference(arch, case):
         _expected_buffer(rt, merged, cfg.experts_per_token, cfg.n_experts),
         ref_buf)
     np.testing.assert_array_equal(taps["w1"].x[0].numpy(), ref_buf)
+    assert ref_buf.shape[1] == L.moe_dispatch_rows(cfg, B, S)
     np.testing.assert_array_equal(taps["w2"].x[0].shape,
                                   rtaps["w2"].x[0].shape)
     np.testing.assert_allclose(got, want, atol=ATOL_FFN, rtol=0)
@@ -198,7 +217,7 @@ def _check_compiled(arch: str, mode: str) -> None:
     """Sites and every plan leaf of the port's compile against the
     reference's (x_scale to a few ulp); then the site compiler on the
     reference's captured activations, x_scale included, bit for bit."""
-    rcfg, cfg, rparams, np_params, _, calib, _ = setup(arch)
+    _, cfg, _, np_params, _, _, _ = setup(arch)
     ref, port = compiled(arch, mode)
     assert [(s.site, s.slicing, s.error, s.d_in, s.d_out)
             for s in port.sites] == \
@@ -220,14 +239,12 @@ def _check_compiled(arch: str, mode: str) -> None:
                                            rtol=XSCALE_RTOL)
             else:
                 np.testing.assert_array_equal(got[k].numpy(), w)
-    rc = ref.cfg
-    c = dataclasses.replace(cfg, pim_mode=mode)
-    taps = ref_pc._build_taps(rc)
-    ref_pc._capture(rparams, rc, calib, taps)
+    c = dataclasses.replace(cfg, **pim_over(mode))
+    taps = ref_taps(arch)
     E = cfg.n_experts
     for i in range(n_pat):
         for g, names in P.PROJ.items():
-            expert = g == "ffn" and cfg.moe_layer(i)
+            expert = g == "ffn" and L.is_moe_layer(cfg, i)
             for name in names:
                 w = np_params["blocks"][i][g][name]
                 x = np.stack(taps["blocks"][i][g][name].x)
@@ -251,11 +268,16 @@ def _check_compiled(arch: str, mode: str) -> None:
 
 
 @pytest.mark.parametrize("arch,mode", [
-    (PHI, "fast"), (PHI, "exact"), (LLAMA4, "exact")])
+    (PHI, "fast"), (PHI, "exact"), (PHI, "adaptive"), (LLAMA4, "exact")])
 def test_compile_matches_reference(arch, mode):
+    """Pinned and adaptive (the reference's Algorithm 1 per instance
+    costs it ~25 s on one thread here)."""
     _check_compiled(arch, mode)
     _, port = compiled(arch, mode)
     names = [s.site for s in port.sites]
+    if mode == "adaptive":  # Algorithm 1 chose per instance
+        assert len({s.slicing for s in port.sites}) >= 2
+        assert all(s.error is not None for s in port.sites)
     if arch == PHI:  # one instance per (repeat, expert)
         assert "blocks[0].ffn.w1[r1,e3]" in names
     else:  # MoE at pattern position 0, a dense FFN at position 1
@@ -264,23 +286,20 @@ def test_compile_matches_reference(arch, mode):
 
 
 def test_adaptive_expert_site_matches_reference():
-    """Algorithm 1 per (repeat, expert): phi's gate projection of both
-    layers through each framework's site compiler, on the reference's
-    activations from 3 calibration tokens: per-instance slicings and
-    measured errors, site names and every exact leaf equal. One expert
-    of each layer has an all-zero buffer: x_scale at the 1e-12 floor,
-    error 0 for every candidate, the first two-slice candidate. (Every
-    site of the adaptive compile, through compile_pim_params, costs the
-    reference ~30 s of XLA compiles on the CPU.)"""
+    """Algorithm 1 on experts that no calibration token reached: phi's
+    gate projection of both layers through each framework's site
+    compiler, on the reference's activations with one expert's dispatch
+    buffer of each layer all zero, as an expert that receives no token
+    has it: per-instance slicings and measured errors, site names and
+    every exact leaf equal; the empty ones get x_scale at the 1e-12
+    floor, error 0 for every candidate and the first two-slice
+    candidate."""
     rcfg, cfg, _, np_params, _, _, _ = setup(PHI)
-    over = dict(pim_mode="exact", pim_weight_slicing="adaptive")
-    rc, c = (dataclasses.replace(a, **over) for a in (rcfg, cfg))
-    calib = np.random.default_rng(6).integers(
-        0, cfg.vocab_size, (1, 3)).astype(np.int32)
-    taps = ref_pc._build_taps(rc)
-    ref_pc._capture(setup(PHI)[2], rc, calib, taps)
+    rc, c = (dataclasses.replace(a, **pim_over("adaptive"))
+             for a in (rcfg, cfg))
     w = np_params["blocks"][0]["ffn"]["w1"]      # (n_rep, E, d, f)
-    x = np.stack(taps["blocks"][0]["ffn"]["w1"].x)  # (n_rep, E, N, d)
+    x = np.stack(ref_taps(PHI)["blocks"][0]["ffn"]["w1"].x)  # (n_rep, E,
+    x[0, 1] = x[1, 2] = 0                                    # N, d)
     name = "blocks[0].ffn.w1"
     want, want_sites = ref_pc._compile_site(name, w, x, rc, stack_dims=2)
     n_rep, E = w.shape[:2]
