@@ -57,6 +57,30 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            included, and timed; K1 at Algorithm 1's search shape (16
            rows, 1b input slices, 24b and 7b ADC) on expert matrices of
            each slice count, held the same way;
+  hybrid   the recurrent blocks. rwkv6-3b whole at its published size (32
+           layers, random bf16 weights from a seed; only its LM head is a
+           crossbar site): the same 4 requests through
+           ``ContinuousServeEngine`` in ``exact`` (K2), ``int8``, ``fast``
+           (K3), ``exact`` with speculation off (K1) and with Algorithm 1
+           on the head (K1 at compile time), launches per engine call from
+           the plans, exact == int8 == exact-nospec == exact-adaptive
+           tokens; exact through the lockstep engine and the paged engine
+           (staged B=1 prefill, 5 blocks, evicting), tokens equal; a
+           sampled request; every K2, K1 and K3 call of one decode step
+           held bit for bit against the plain versions. One
+           jamba-1.5-large-398b layer at its published widths (pattern
+           position 1: mamba mixer, d_inner 16384, and a dense FFN of
+           24576) through ``transformer.run_layer``, its plans from
+           ``pim_compile.compile_layer``: 4 prefills and 7 decode steps of
+           4 slots on the pinned exact, int8, fast and Algorithm 1's plans,
+           launches counted, exact == int8 == adaptive outputs; every K2
+           and K3 call of one decode step and K1 at Algorithm 1's 16-row
+           search shape on the six matrices held bit for bit and timed
+           beside their byte bounds. jamba-1.5-large-398b whole at
+           ``reduced()`` widths: every K2 call of one decode step held bit
+           for bit against the plain version at the narrow shapes it
+           gives; exact mode's lockstep == continuous == paged (staged,
+           evicting) tokens, equal to int8 mode's;
   timing   one decode step's worth of kernel calls on the compiled plans
            (distinct weights per layer, as the model has them) against the
            plain versions and, for K3, ``torch._int_mm`` (x padded with zero
@@ -72,7 +96,13 @@ step's times, its ``max_abs_err`` over every comparison of the run, and
 ``moe_launches`` (the moe phase's own run; K1's are Algorithm 1's
 compile) with ``moe_max_abs_err`` (the moe phase's comparisons),
 ``moe_ms``, ``moe_plain_ms``, ``moe_bound_ms``, ``moe_bound_by`` and
-``moe_library_ms`` for the MoE decode step, null where not measured. The last line is ``{"ok": true, "device": {...}}``.
+``moe_library_ms`` for the MoE decode step, null where not measured, and
+the hybrid phase's ``hybrid_launches`` (rwkv6-3b's runs: K2 in exact, K3
+in fast, K1 in exact-nospec), ``hybrid_max_abs_err`` (its comparisons)
+and ``hybrid_ms``, ``hybrid_plain_ms``, ``hybrid_bound_ms``,
+``hybrid_bound_by`` and ``hybrid_library_ms`` for the jamba layer's
+decode step (K1: its search shape). The last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -108,6 +138,13 @@ MOE_LAYERS = 4
 # slot can drop and every engine routes every token alike
 DROP_FREE_CF = 8.0
 N_SLOTS = 4                  # every serve run's slots, the decode batch
+RWKV_ARCH = "rwkv6-3b"
+JAMBA_ARCH = "jamba-1.5-large-398b"
+# jamba's pattern position 1: a mamba mixer and a dense FFN. Its smallest
+# whole depth, one 8-layer pattern repeat (45.2 G parameters, 90.5 GB in
+# bf16), does not fit the card, so this layer runs alone
+JAMBA_LAYER = 1
+JAMBA_DECODES = 7
 
 
 def say(phase: str, **fields) -> None:
@@ -731,6 +768,16 @@ def peak_gb() -> float:
     return round(torch.cuda.max_memory_allocated() / 2**30, 3)
 
 
+def n_params_of(tree) -> int:
+    """Elements of every tensor in a nested dict of parameters."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.numel()
+    if isinstance(tree, dict):
+        return sum(n_params_of(v) for v in tree.values())
+    return sum(n_params_of(v) for v in tree)
+
+
 def phase_moe(ctx: dict, rows: list) -> None:
     """Serve phi3.5-moe-42b (published widths, MOE_LAYERS layers, random
     bf16 weights from seed 0) through ``ContinuousServeEngine``: exact
@@ -762,16 +809,13 @@ def phase_moe(ctx: dict, rows: list) -> None:
     t0 = time.perf_counter()
     params = T.init_params(cfg0, seed=0, device="cuda")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for layer in params["layers"]
-                   for g in layer.values() for t in g.values()) \
-        + sum(t.numel() for t in params["embed"].values())
     say("moe", arch=MOE_ARCH, layers=cfg0.n_layers,
         reduced=f"n_layers {configs.get(MOE_ARCH).n_layers} -> "
         f"{cfg0.n_layers}", d_model=cfg0.d_model, n_heads=cfg0.n_heads,
         n_kv_heads=cfg0.n_kv_heads, d_ff=cfg0.d_ff,
         n_experts=cfg0.n_experts, top_k=cfg0.experts_per_token,
         vocab=cfg0.vocab_size, capacity_factor=cfg0.capacity_factor,
-        dtype=cfg0.dtype, params=n_params,
+        dtype=cfg0.dtype, params=n_params_of(params),
         init_s=round(time.perf_counter() - t0, 3), peak_gb=peak_gb())
     reqs = serve_requests(cfg0.vocab_size)
     max_len = BLOCK * -(-(max(len(r.prompt) for r in reqs) + 8 + 1) // BLOCK)
@@ -908,7 +952,8 @@ def phase_moe(ctx: dict, rows: list) -> None:
     say("moe", **check_step(rows, "fused_spec_crossbar", fs.launch, fs.plain,
                             ka_calls, f"{step}, Algorithm 1's plans", **kw24))
     del ka_calls
-    check_k1_experts(adaptive, compiled.plans, rows, gen)
+    check_k1_search("moe", adaptive, expert_search_leaves(compiled.plans),
+                    rows, gen)
     del compiled
     if tokens["moe-exact-adaptive"] != tokens["moe-int8"]:
         raise AssertionError("moe-exact-adaptive tokens differ from "
@@ -921,6 +966,419 @@ def phase_moe(ctx: dict, rows: list) -> None:
         first_tokens=json.dumps(tokens["moe-exact"][0]))
     del params
     torch.cuda.empty_cache()
+
+
+def phase_hybrid(ctx: dict, rows: list) -> None:
+    """The recurrent blocks: rwkv6-3b whole at its published size through
+    every engine, one jamba-1.5-large-398b layer at its published widths,
+    and jamba-1.5-large-398b whole at ``reduced()`` widths."""
+    hybrid_rwkv(ctx, rows)
+    hybrid_jamba_layer(ctx, rows)
+    hybrid_jamba_reduced(rows)
+
+
+def hybrid_rwkv(ctx: dict, rows: list) -> None:
+    """Serve rwkv6-3b (all 32 layers at published widths, random bf16
+    weights from seed 0; only the LM head is a crossbar site) through
+    ``ContinuousServeEngine`` in exact (K2), int8, fast (K3), exact with
+    speculation off (K1) and exact with Algorithm 1 on the head (K1 at
+    compile time): launches per engine call from the plans, exact == int8
+    == exact-nospec == exact-adaptive tokens. Then exact mode through the
+    lockstep engine (each request alone) and the paged engine (staged B=1
+    prefill on 5 blocks: it must evict, and the victim prefills again),
+    tokens equal to the continuous engine's; a sampled request; every K2,
+    K1 and K3 call of one decode step held bit for bit against the plain
+    versions."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import fused_crossbar as fx
+    from repro_torch.kernels import fused_spec_crossbar as fs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import calibration_tokens
+    from repro_torch.models import layers as L
+    from repro_torch.models import pim
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ContinuousServeEngine, PagedServeEngine
+    cfg0 = configs.get(RWKV_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg0, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    say("hybrid", arch=RWKV_ARCH, layers=cfg0.n_layers,
+        d_model=cfg0.d_model, d_ff=cfg0.d_ff, vocab=cfg0.vocab_size,
+        head_dim=cfg0.rwkv_head_dim, dtype=cfg0.dtype,
+        params=n_params_of(params), init_s=round(time.perf_counter() - t0, 3),
+        peak_gb=peak_gb())
+    reqs = serve_requests(cfg0.vocab_size)
+    max_len = BLOCK * -(-(max(len(r.prompt) for r in reqs) + 8 + 1) // BLOCK)
+    calib = calibration_tokens(cfg0, 16)
+    kw = dict(n_slots=N_SLOTS, max_len=max_len, prefill_chunk=64)
+    runs = (("rwkv-exact", dict(pim_mode="exact"), "exact"),
+            ("rwkv-int8", dict(pim_mode="int8"), "int8"),
+            ("rwkv-fast", dict(pim_mode="fast"), "fast"),
+            ("rwkv-exact-nospec", dict(pim_mode="exact",
+                                       pim_speculation=False),
+             "exact-nospec"),
+            ("rwkv-exact-adaptive", dict(pim_mode="exact",
+                                         pim_weight_slicing="adaptive"),
+             "exact-adaptive"))
+    tokens, compiled, served = {}, {}, {}
+    for run, over, per_call in runs:
+        cfg = dataclasses.replace(cfg0, **over)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        if run == "rwkv-exact-nospec":  # the pinned exact plans
+            comp = compiled["rwkv-exact"]
+        else:
+            comp = pim.compile_pim_params(params, cfg, calib)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        compile_launches = ops.launch_counts()
+        compiled[run] = comp
+        eng = ContinuousServeEngine(cfg, params, plans=comp.plans, **kw)
+        with L.collect_pim_stats() as sink:
+            outs, serve_s, served[run] = drive(eng, reqs)
+            totals = L.pim_stats_totals(sink)
+        row = engine_row(run, eng, outs, serve_s, served[run],
+                         PER_CALL[per_call], cfg0.vocab_size)
+        row.update(compile_s=round(compile_s, 3),
+                   compile_launches=json.dumps(compile_launches),
+                   sites=len(comp.sites),
+                   head_slicing="-".join(map(str, comp.sites[-1].slicing)),
+                   peak_gb=peak_gb())
+        if cfg.pim_mode == "exact":
+            row.update(adc_converts_per_token=totals["adc_converts"]
+                       / row["tokens"])
+        if run == "rwkv-exact-adaptive":
+            if compile_launches["fused_crossbar"] <= 0:
+                raise AssertionError("Algorithm 1's compile launched no K1")
+            ctx["hybrid_k1_search_launches"] = compile_launches[
+                "fused_crossbar"]
+        tokens[run] = [o.tokens.tolist() for o in outs]
+        say("hybrid", **row)
+        del eng
+    ctx["hybrid_launches"] = {
+        "fused_spec_crossbar": served["rwkv-exact"]["fused_spec_crossbar"],
+        "centered_int8_matmul": served["rwkv-fast"]["centered_int8_matmul"],
+        "fused_crossbar": served["rwkv-exact-nospec"]["fused_crossbar"]}
+    for run in ("rwkv-exact", "rwkv-exact-nospec", "rwkv-exact-adaptive"):
+        if tokens[run] != tokens["rwkv-int8"]:
+            raise AssertionError(f"{run} tokens differ from rwkv-int8 tokens "
+                                 f"at the 24b ADC: {tokens[run]} vs "
+                                 f"{tokens['rwkv-int8']}")
+    exact = dataclasses.replace(cfg0, pim_mode="exact")
+    plans = compiled["rwkv-exact"].plans
+    # the paged engine, staged prefill on 5 blocks (the requests need 8)
+    eng = PagedServeEngine(exact, params, plans=plans, block_size=BLOCK,
+                           n_blocks=5, **kw)
+    outs, serve_s, launches = drive(eng, reqs)
+    row = engine_row("paged-rwkv-exact", eng, outs, serve_s, launches,
+                     PER_CALL["exact"], cfg0.vocab_size)
+    if not (eng.staged_prefill and eng.stats.evictions >= 1
+            and eng.stats.blocks_in_use == 0
+            and eng.stats.prefill_chunks > len(reqs)):
+        raise AssertionError(f"paged-rwkv-exact: {eng.stats}")
+    paged = [o.tokens.tolist() for o in outs]
+    say("hybrid", **row, staged_prefill=True)
+    lock_tokens, lock = lockstep_exact("lockstep-rwkv-exact", exact, params,
+                                       plans, reqs, max_len)
+    if not lock_tokens == tokens["rwkv-exact"] == paged:
+        raise AssertionError(
+            f"lockstep {lock_tokens}, continuous {tokens['rwkv-exact']}, "
+            f"paged {paged}")
+    say("hybrid", lockstep_equals_continuous_equals_paged=True)
+    say("hybrid", **check_sampling(exact, params, plans, reqs[0].prompt))
+    say("hybrid", scope="rwkv-exact again, under torch.profiler",
+        **device_profile(ContinuousServeEngine(exact, params, plans=plans,
+                                               **kw), reqs))
+    # one decode step's kernel calls, each against its plain version
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tag = f"{RWKV_ARCH} decode step"
+    kw24 = dict(adc_lo=-(1 << 23), adc_hi=(1 << 23) - 1)
+    k2_calls = crossbar_step(exact, plans, SPEC, True, gen)[0]
+    say("hybrid", **check_step(rows, "fused_spec_crossbar", fs.launch,
+                               fs.plain, k2_calls, tag, **kw24))
+    k1_calls = crossbar_step(exact, plans, ONE_BIT, False, gen)[0]
+    say("hybrid", **check_step(rows, "fused_crossbar", fx.launch, fx.plain,
+                               k1_calls, f"{tag}, speculation off", **kw24))
+    k3_step(dataclasses.replace(cfg0, pim_mode="fast"),
+            compiled["rwkv-fast"].plans, gen, rows, tag, "hybrid")
+    del compiled, eng, lock, params, k2_calls, k1_calls
+    torch.cuda.empty_cache()
+    say("hybrid", ok=True, arch=RWKV_ARCH, exact_equals_int8=True,
+        first_tokens=json.dumps(tokens["rwkv-exact"][0]))
+
+
+def hybrid_jamba_layer(ctx: dict, rows: list) -> None:
+    """One jamba-1.5-large-398b layer at its published widths (pattern
+    position JAMBA_LAYER: the mamba mixer and a dense FFN, random bf16
+    weights from seed 0) through the port's ``run_layer``: each of the 4
+    requests' prompt prefilled at B=1 from a zero carry (random bf16
+    hidden states stand for the layer's input), the carries spliced into
+    N_SLOTS slots, then JAMBA_DECODES decode steps. On the pinned exact
+    (K2), int8, fast (K3) and Algorithm 1's plans (K1 in the compile,
+    then K2), launches counted from the plans; the exact, int8 and
+    adaptive outputs equal. Every K2 and K3 call of one decode step and
+    K1 at Algorithm 1's search shape on each matrix, held bit for bit
+    against the plain versions and timed."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import fused_spec_crossbar as fs
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import pim_compile as pc
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+    cfg0 = configs.get(JAMBA_ARCH)
+    if not (T.block_kind(cfg0, JAMBA_LAYER) == "mamba"
+            and not L.is_moe_layer(cfg0, JAMBA_LAYER)):
+        raise AssertionError(f"{JAMBA_ARCH} layer {JAMBA_LAYER} is not a "
+                             "mamba layer with a dense FFN")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bp = T.init_layer(cfg0, JAMBA_LAYER, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    di, dtr, ds, conv = S.mamba_dims(cfg0)
+    shapes = {f"{g}.{n}": list(w.shape) for g in ("core", "ffn")
+              for n, w in bp[g].items() if n in ("in_proj", "x_proj",
+                                                 "out_proj", "w1", "w3",
+                                                 "w2")}
+    say("hybrid", arch=JAMBA_ARCH, layer=JAMBA_LAYER,
+        kind=T.block_kind(cfg0, JAMBA_LAYER),
+        reduced=f"one layer of {cfg0.n_layers}", d_model=cfg0.d_model,
+        d_inner=di, d_state=ds, conv=conv, dt_rank=dtr, d_ff=cfg0.d_ff,
+        dtype=cfg0.dtype, params=n_params_of(bp), shapes=json.dumps(shapes),
+        init_s=round(time.perf_counter() - t0, 3), peak_gb=peak_gb())
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dt = getattr(torch, cfg0.dtype)
+
+    def hidden(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dt)
+    x_cal = hidden(2, 16, cfg0.d_model)  # calibration_tokens' (2, 16)
+    prompts = [hidden(1, len(r.prompt), cfg0.d_model)
+               for r in serve_requests(cfg0.vocab_size)]
+    steps = [hidden(N_SLOTS, 1, cfg0.d_model) for _ in range(JAMBA_DECODES)]
+
+    @torch.no_grad()
+    def drive_layer(cfg, plan):
+        """The layer's outputs (prefills, then decode steps) and its K1,
+        K2 and K3 launches."""
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = S.init_mamba_state(cfg, N_SLOTS, "cuda")
+        outs = []
+        for slot, x in enumerate(prompts):
+            one = S.init_mamba_state(cfg, 1, "cuda")
+            outs.append(T.run_layer(bp, cfg, JAMBA_LAYER, x, one, plan, None))
+            for k in state:
+                state[k][slot] = one[k][0]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for x in steps:
+            outs.append(T.run_layer(bp, cfg, JAMBA_LAYER, x, state, plan,
+                                    None))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return outs, ops.launch_counts(), dict(
+            prefill_s=round(t1 - t0, 3),
+            step_ms=round(1e3 * (t2 - t1) / len(steps), 2))
+
+    calls = len(prompts) + len(steps)
+    outs, plans, sites = {}, {}, {}
+    for run, over, per_call in (
+            ("jamba-layer-exact", dict(pim_mode="exact"), "exact"),
+            ("jamba-layer-int8", dict(pim_mode="int8"), "int8"),
+            ("jamba-layer-fast", dict(pim_mode="fast"), "fast"),
+            ("jamba-layer-exact-adaptive",
+             dict(pim_mode="exact", pim_weight_slicing="adaptive"),
+             "exact-adaptive")):
+        cfg = dataclasses.replace(cfg0, **over)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        comp = pc.compile_layer(bp, cfg, JAMBA_LAYER, x_cal)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        compile_launches = ops.launch_counts()
+        outs[run], launches, times = drive_layer(cfg, comp.plans)
+        n_proj = len(step_calls(cfg, {"layers": [None] * JAMBA_LAYER
+                                      + [comp.plans]}))
+        want = {k: PER_CALL[per_call].get(k, 0) * n_proj * calls
+                for k in launches}
+        if launches != want:
+            raise AssertionError(f"{run}: launches {launches}, want {want}")
+        say("hybrid", mode=run, compile_s=round(compile_s, 3),
+            compile_launches=json.dumps(compile_launches),
+            sites=len(comp.sites), slicings=json.dumps(
+                {s.site: "-".join(map(str, s.slicing)) for s in comp.sites}),
+            errors=json.dumps({s.site: s.error for s in comp.sites}),
+            engine_calls=calls, projections_per_call=n_proj,
+            launches=json.dumps(launches), peak_gb=peak_gb(), **times)
+        if run == "jamba-layer-exact-adaptive":
+            if compile_launches["fused_crossbar"] <= 0:
+                raise AssertionError("Algorithm 1's compile launched no K1")
+            ctx["jamba_k1_search_launches"] = compile_launches[
+                "fused_crossbar"]
+        if run != "jamba-layer-int8":
+            plans[run] = comp.plans
+        sites[run] = comp.sites
+        del comp
+    for run in ("jamba-layer-exact", "jamba-layer-exact-adaptive"):
+        if not all(torch.equal(a, b) for a, b in zip(
+                outs[run], outs["jamba-layer-int8"])):
+            raise AssertionError(f"{run} outputs differ from int8's at the "
+                                 "24b ADC")
+    if not all(bool(torch.isfinite(o).all())
+               for o in outs["jamba-layer-fast"]):
+        raise AssertionError("jamba-layer-fast outputs are not finite")
+    # one decode step's kernel calls (N_SLOTS rows, both passes in exact)
+    one = {"layers": [None] * JAMBA_LAYER}
+    tag = f"{JAMBA_ARCH} layer {JAMBA_LAYER} decode step"
+    kw24 = dict(adc_lo=-(1 << 23), adc_hi=(1 << 23) - 1)
+    exact = dataclasses.replace(cfg0, pim_mode="exact")
+    k2_calls, k2_bytes, k2_ops = crossbar_step(
+        exact, dict(one, layers=one["layers"] + [plans["jamba-layer-exact"]]),
+        SPEC, True, gen)
+    say("hybrid", **check_step(rows, "fused_spec_crossbar", fs.launch,
+                               fs.plain, k2_calls, tag, **kw24))
+    ctx["jamba_k2"] = dict(
+        ms=cuda_ms(lambda: [fs.launch(*a, **kw24) for _, a in k2_calls], 5),
+        plain_ms=cuda_ms(lambda: [fs.plain(*a, **kw24)
+                                  for _, a in k2_calls], 1, warmup=0),
+        library_ms=None, calls=len(k2_calls), **bound(k2_bytes, k2_ops))
+    del k2_calls
+    ka_calls = crossbar_step(
+        exact, dict(one, layers=one["layers"]
+                    + [plans["jamba-layer-exact-adaptive"]]),
+        SPEC, True, gen)[0]
+    say("hybrid", **check_step(rows, "fused_spec_crossbar", fs.launch,
+                               fs.plain, ka_calls,
+                               f"{tag}, Algorithm 1's plans", **kw24))
+    del ka_calls
+    ctx["jamba_k3"] = k3_step(
+        dataclasses.replace(cfg0, pim_mode="fast"),
+        dict(one, layers=one["layers"] + [plans["jamba-layer-fast"]]),
+        gen, rows, tag, "hybrid")[1]
+    ctx["jamba_k1"] = check_k1_search(
+        "hybrid", exact, [(f"{JAMBA_ARCH} search.{g}.{n}", leaf) for g, ls
+                          in plans["jamba-layer-exact-adaptive"].items()
+                          for n, leaf in ls.items()], rows, gen, timed=True)
+    for name, d in (("fused_spec_crossbar", ctx["jamba_k2"]),
+                    ("centered_int8_matmul", ctx["jamba_k3"]),
+                    ("fused_crossbar", ctx["jamba_k1"])):
+        say("hybrid", kernel=name, scope=f"{JAMBA_ARCH} layer {JAMBA_LAYER}"
+            + (", Algorithm 1's search shape" if name == "fused_crossbar"
+               else f", one decode step, B={N_SLOTS}"), **d)
+    del plans, bp, outs
+    torch.cuda.empty_cache()
+    say("hybrid", ok=True, arch=JAMBA_ARCH, layer=JAMBA_LAYER,
+        exact_equals_int8=True, exact_adaptive_equals_int8=True)
+
+
+def lockstep_exact(run: str, cfg, params, plans: dict, reqs,
+                   max_len: int):
+    """Each request alone through the lockstep engine in exact mode: its
+    tokens, with K2's launches checked against the plans' count (two
+    signed passes per projection per engine call; a prefill and 7 decode
+    steps per request). Returns (tokens, engine)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine
+    ops.reset_launch_counts()
+    lock = ServeEngine(cfg, params, max_len=max_len, plans=plans)
+    t0 = time.perf_counter()
+    tokens = [lock.generate(r.prompt[None], steps=r.max_new_tokens)
+              .tokens[0].tolist() for r in reqs]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    calls = sum(r.max_new_tokens for r in reqs)
+    want = 2 * len(step_calls(cfg, plans)) * calls
+    if launches["fused_spec_crossbar"] != want:
+        raise AssertionError(f"{run}: launches {launches}, want K2 {want}")
+    say("hybrid", mode=run, engine="ServeEngine", serve_s=round(serve_s, 3),
+        engine_calls=calls, launches=json.dumps(launches))
+    return tokens, lock
+
+
+def hybrid_jamba_reduced(rows: list) -> None:
+    """jamba-1.5-large-398b whole at ``reduced()`` widths (its 8-layer
+    pattern: mamba, attention and MoE layers; random bf16 weights from seed
+    0): every K2 call of one decode step held bit for bit against the
+    plain version at the shapes this model gives it (R = 64 and 128, one
+    partial segment; C down to x_proj's 20); then exact mode through the lockstep (each
+    request alone), continuous and paged engines (staged prefill on 5
+    blocks, evicting), tokens equal, launches counted from the plans; and
+    int8 mode through the continuous engine, tokens equal to exact's at
+    the 24b ADC."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import fused_spec_crossbar as fs
+    from repro_torch.launch.serve import calibration_tokens
+    from repro_torch.models import pim
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ContinuousServeEngine, PagedServeEngine
+    cfg0 = configs.get(JAMBA_ARCH).reduced()
+    params = T.init_params(cfg0, seed=0, device="cuda")
+    reqs = serve_requests(cfg0.vocab_size)
+    max_len = BLOCK * -(-(max(len(r.prompt) for r in reqs) + 8 + 1) // BLOCK)
+    calib = calibration_tokens(cfg0, 16)
+    cfg = dataclasses.replace(cfg0, pim_mode="exact")
+    t0 = time.perf_counter()
+    comp = pim.compile_pim_params(params, cfg, calib)
+    torch.cuda.synchronize()
+    say("hybrid", arch=cfg.name, layers=cfg.n_layers,
+        pattern="-".join(cfg.block_pattern), d_model=cfg.d_model,
+        n_experts=cfg.n_experts, sites=len(comp.sites),
+        compile_s=round(time.perf_counter() - t0, 3))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    say("hybrid", **check_step(
+        rows, "fused_spec_crossbar", fs.launch, fs.plain,
+        crossbar_step(cfg, comp.plans, SPEC, True, gen)[0],
+        f"{cfg.name} decode step", adc_lo=-(1 << 23), adc_hi=(1 << 23) - 1))
+    kw = dict(n_slots=N_SLOTS, max_len=max_len, prefill_chunk=64)
+    int8 = dataclasses.replace(cfg0, pim_mode="int8")
+    tokens = {}
+    for run, eng, per_call in (
+            ("reduced-jamba-exact",
+             ContinuousServeEngine(cfg, params, plans=comp.plans, **kw),
+             "exact"),
+            ("paged-reduced-jamba-exact",
+             PagedServeEngine(cfg, params, plans=comp.plans,
+                              block_size=BLOCK, n_blocks=5, **kw), "exact"),
+            ("reduced-jamba-int8",
+             ContinuousServeEngine(int8, params, plans=pim.compile_pim_params(
+                 params, int8, calib).plans, **kw), "int8")):
+        outs, serve_s, launches = drive(eng, reqs)
+        row = engine_row(run, eng, outs, serve_s, launches, PER_CALL[per_call],
+                         cfg.vocab_size)
+        tokens[run] = [o.tokens.tolist() for o in outs]
+        say("hybrid", **row)
+        if run.startswith("paged") and not (
+                eng.staged_prefill and eng.stats.evictions >= 1
+                and eng.stats.blocks_in_use == 0):
+            raise AssertionError(f"{run}: {eng.stats}")
+    lock_tokens, lock = lockstep_exact("lockstep-reduced-jamba-exact", cfg,
+                                       params, comp.plans, reqs, max_len)
+    if not (lock_tokens == tokens["reduced-jamba-exact"]
+            == tokens["paged-reduced-jamba-exact"]):
+        raise AssertionError(f"reduced jamba: lockstep {lock_tokens}, "
+                             f"engines {tokens}")
+    if tokens["reduced-jamba-exact"] != tokens["reduced-jamba-int8"]:
+        raise AssertionError(f"reduced jamba: exact tokens differ from int8 "
+                             f"at the 24b ADC: {tokens}")
+    say("hybrid", ok=True, arch=cfg.name,
+        lockstep_equals_continuous_equals_paged=True, exact_equals_int8=True,
+        first_tokens=json.dumps(lock_tokens[0]))
+    del params, comp, lock, eng
 
 
 def prefix_requests(vocab: int):
@@ -1188,18 +1646,18 @@ def check_sampling(cfg, params, plans, prompt) -> dict:
 
 def step_calls(cfg, plans: dict) -> list:
     """One engine call's weight-static projections, in the model's order:
-    (name, leaf, rows) per layer and projection — one per expert in a MoE
-    FFN, every expert, as the model runs them — then the LM head, with the
-    rows each gets in a decode step of N_SLOTS slots (an expert its
-    dispatch buffer's, ``layers.moe_dispatch_rows``)."""
+    (name, leaf, rows) per layer and projection (attention's q/k/v/o or
+    mamba's in/x/out, then the FFN's; none on an rwkv layer) — one per
+    expert in a MoE FFN, every expert, as the model runs them — then the
+    LM head if the plans have one, with the rows each gets in a decode step
+    of N_SLOTS slots (an expert its dispatch buffer's,
+    ``layers.moe_dispatch_rows``)."""
     from repro_torch.models import layers as L
     out = []
     for layer, lp in enumerate(plans["layers"]):
-        for g, names in (("core", ("wq", "wk", "wv", "wo")),
-                         ("ffn", ("w1", "w3", "w2"))):
+        for g, leaves in (lp or {}).items():
             expert = g == "ffn" and L.is_moe_layer(cfg, layer)
-            for n in names:
-                leaf = lp[g][n]
+            for n, leaf in leaves.items():
                 name = f"{layer}.{n}"
                 if expert:
                     rows = L.moe_dispatch_rows(cfg, N_SLOTS, 1)
@@ -1208,7 +1666,9 @@ def step_calls(cfg, plans: dict) -> list:
                             for e in range(cfg.n_experts)]
                 else:
                     out.append((name, leaf, N_SLOTS))
-    return out + [("head", plans["head"], N_SLOTS)]
+    if "head" in plans:
+        out.append(("head", plans["head"], N_SLOTS))
+    return out
 
 
 def check_step(rows: list, kernel: str, launch, plain, calls: list,
@@ -1266,41 +1726,65 @@ def crossbar_step(cfg, plans: dict, slicing: tuple, spec: bool, gen):
     return calls, n_bytes, n_ops
 
 
-def check_k1_experts(cfg, plans: dict, rows: list, gen) -> None:
-    """K1 as Algorithm 1 runs it on expert matrices: SEARCH_ROWS rows of
-    codes 0..127 in 1b input slices, at the 24b and the search ADC, on the
-    first expert instance of each slice count of layer 0's gate and down
-    projections (R = 6400 leaves a ragged last segment), padded planes
-    masked; bit for bit against the plain version, psum and saturations."""
+def check_k1_search(phase: str, cfg, leaves: list, rows: list, gen,
+                    timed: bool = False) -> dict | None:
+    """K1 as Algorithm 1 runs it, on each ``(tag, leaf)`` of compiled exact
+    plans (one instance each): SEARCH_ROWS rows of codes 0..127 in 1b
+    input slices on the leaf's planes (padded ones masked), at the 24b ADC
+    and at the search ADC, bit for bit against the plain version, psum and
+    saturations. With ``timed``, the 24b calls are timed beside their
+    bound, which is returned."""
     import torch
     from repro_torch.core import adc as adc_lib
     from repro_torch.kernels import fused_crossbar as fx
     from repro_torch.kernels import ops
     from repro_torch.models import pim_compile as pc
     search = adc_lib.ADCConfig(bits=cfg.pim_search_adc_bits, signed=True)
+    kw24 = dict(adc_lo=-(1 << 23), adc_hi=(1 << 23) - 1)
+    calls, n_bytes, n_ops = [], 0, 0
+    for tag, leaf in leaves:
+        R = leaf["w_q"].shape[0]
+        n_j, n_seg, rx, C = leaf["planes"].shape
+        x = torch.randint(0, 128, (pc.SEARCH_ROWS, R), generator=gen,
+                          device="cuda", dtype=torch.int32)
+        args = (x, *ops.crossbar_tables(
+            leaf["planes"], leaf["slice_shifts"], ONE_BIT,
+            leaf["slice_valid"]), leaf["enc_centers"].contiguous())
+        for kw in (kw24, dict(adc_lo=search.lo, adc_hi=search.hi)):
+            got = fx.launch(*args, **kw)
+            row = compare("fused_crossbar", got, fx.plain(*args, **kw),
+                          site=tag, B=pc.SEARCH_ROWS, R=R, C=C,
+                          n_j=int(leaf["slice_valid"].sum()),
+                          adc_bits=24 if kw is kw24 else search.bits,
+                          input_slicing="1x8", sats=int(got[1]))
+            rows.append(row)
+            say(phase, **row)
+        calls.append(args)
+        n_bytes += (4 * pc.SEARCH_ROWS * R + n_j * n_seg * rx * C
+                    + 4 * 8 * n_j + 4 * n_seg * C + 4 * pc.SEARCH_ROWS * C
+                    + 8)
+        n_ops += 2 * pc.SEARCH_ROWS * n_seg * rx * C * n_j * 8
+    if not timed:
+        return None
+    return dict(ms=cuda_ms(lambda: [fx.launch(*a, **kw24) for a in calls], 5),
+                plain_ms=cuda_ms(lambda: [fx.plain(*a, **kw24)
+                                          for a in calls], 1, warmup=0),
+                library_ms=None, calls=len(calls), **bound(n_bytes, n_ops))
+
+
+def expert_search_leaves(plans: dict) -> list:
+    """``(tag, leaf)`` of the first expert instance of each slice count of
+    layer 0's gate and down projections (R = 6400 leaves a ragged last
+    segment), for ``check_k1_search``."""
+    out = []
     for n in ("w1", "w2"):
         leaf = plans["layers"][0]["ffn"][n]
         n_valid = leaf["slice_valid"].sum(dim=-1).tolist()
         for n_j in sorted(set(n_valid)):
             e = n_valid.index(n_j)
-            R = leaf["w_q"].shape[1]
-            x = torch.randint(0, 128, (pc.SEARCH_ROWS, R), generator=gen,
-                              device="cuda", dtype=torch.int32)
-            args = (x, *ops.crossbar_tables(
-                leaf["planes"][e], leaf["slice_shifts"][e], ONE_BIT,
-                leaf["slice_valid"][e]), leaf["enc_centers"][e].contiguous())
-            for lo, hi in ((-(1 << 23), (1 << 23) - 1),
-                           (search.lo, search.hi)):
-                got = fx.launch(*args, adc_lo=lo, adc_hi=hi)
-                row = compare("fused_crossbar", got,
-                              fx.plain(*args, adc_lo=lo, adc_hi=hi),
-                              site=f"{MOE_ARCH} search.0.{n}[e{e}]",
-                              B=pc.SEARCH_ROWS, R=R, C=got[0].shape[-1],
-                              n_j=n_j, adc_bits=24 if hi > search.hi else
-                              search.bits, input_slicing="1x8",
-                              sats=int(got[1]))
-                rows.append(row)
-                say("moe", **row)
+            out.append((f"{MOE_ARCH} search.0.{n}[e{e}]",
+                        {k: v[e] for k, v in leaf.items()}))
+    return out
 
 
 def k1_batch_tiles(gen) -> dict:
@@ -1504,6 +1988,16 @@ def phase_timing(ctx: dict, rows: list) -> list:
 
     def err(kernel):
         return max(r["max_abs_err"] for r in rows if r["kernel"] == kernel)
+    hybrid = {"fused_spec_crossbar": ctx.get("jamba_k2"),
+              "centered_int8_matmul": ctx.get("jamba_k3"),
+              "fused_crossbar": ctx.get("jamba_k1")}
+    for name, d in hybrid.items():
+        if d is not None:
+            say("timing", kernel=name, scope=f"{JAMBA_ARCH} layer "
+                f"{JAMBA_LAYER}, published widths" + (
+                    ", Algorithm 1's search shape (16 rows, 6 matrices)"
+                    if name == "fused_crossbar"
+                    else f", one decode step, B={N_SLOTS}"), **d)
     moe_launches = {"fused_crossbar": ctx.get("moe_k1_launches"),
                     "fused_spec_crossbar": ctx.get("moe_k2_launches"),
                     "centered_int8_matmul": ctx.get("moe_k3_launches"),
@@ -1543,13 +2037,26 @@ def phase_timing(ctx: dict, rows: list) -> list:
                 moe_bound_ms=m.get("bound_ms"),
                 moe_bound_by=m.get("bound_by"),
                 moe_library_ms=m.get("library_ms"))
+        if "hybrid_launches" in ctx:  # the hybrid phase's own runs
+            h = hybrid.get(name) or {}
+            out[-1].update(
+                hybrid_launches=ctx["hybrid_launches"].get(name, 0),
+                hybrid_max_abs_err=max(
+                    (r["max_abs_err"] for r in rows if r["kernel"] == name
+                     and str(r.get("site", "")).startswith(
+                         (RWKV_ARCH, JAMBA_ARCH))), default=None),
+                hybrid_ms=h.get("ms"), hybrid_plain_ms=h.get("plain_ms"),
+                hybrid_bound_ms=h.get("bound_ms"),
+                hybrid_bound_by=h.get("bound_by"),
+                hybrid_library_ms=h.get("library_ms"))
     return out
 
 
 # ---------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="build,kernels,serve,moe,timing",
+    ap.add_argument("--phases",
+                    default="build,kernels,serve,moe,hybrid,timing",
                     help="comma list of phases to run (default: all)")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -1580,6 +2087,8 @@ def main() -> int:
         phase_serve(ctx)
     if "moe" in phases:
         phase_moe(ctx, rows)
+    if "hybrid" in phases:
+        phase_hybrid(ctx, rows)
     if "timing" in phases:
         kernels = phase_timing(ctx, rows)
     print(smi, flush=True)  # again, within the tail a log keeps

@@ -20,14 +20,21 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.transformer import _check_supported
 
 
+# leaves the reference initializes in float32 whatever ``cfg.dtype`` is
+FLOAT32_LEAVES = ("router", "A_log", "D", "decay_base", "bonus")
+
+
 def _unstack(np_blocks: list, cfg: ArchConfig, leaf_fn) -> list:
     """Reference ``blocks`` (one subtree per pattern position, leaves
     stacked over repeats; an expert leaf is ``(n_repeats, E, ...)``) ->
     one dict per layer, layer ``r * n_pat + i``; ``leaf_fn(name, leaf, r)``
-    takes repeat ``r`` of a leaf."""
+    takes repeat ``r`` of a leaf. A None subtree (an rwkv position of a
+    plan tree: no crossbar sites) gives None layers."""
     n_pat = len(cfg.block_pattern)
     layers = [None] * cfg.n_layers
     for i, stack in enumerate(np_blocks):
+        if stack is None:
+            continue
         for r in range(cfg.n_repeats):
             layers[r * n_pat + i] = {
                 group: {name: leaf_fn(name, leaf, r)
@@ -39,8 +46,9 @@ def _unstack(np_blocks: list, cfg: ArchConfig, leaf_fn) -> list:
 def params_from_reference(np_params: dict, cfg: ArchConfig,
                           device=None) -> dict:
     """Reference ``T.init_params`` pytree (numpy leaves) -> port params in
-    ``cfg.dtype`` on ``device``; a MoE router stays float32, as the
-    reference keeps it (a narrower router would route differently).
+    ``cfg.dtype`` on ``device``; the leaves the reference keeps in float32
+    stay float32 (``FLOAT32_LEAVES``: a MoE router — a narrower one would
+    route differently — and mamba's and rwkv's recurrence constants).
     bf16 leaves pass through float32, which holds them exactly. Expert
     weights keep their expert axis: ``(E, d_in, d_out)`` per layer."""
     _check_supported(cfg)
@@ -51,7 +59,7 @@ def params_from_reference(np_params: dict, cfg: ArchConfig,
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
 
     def layer_leaf(name, leaf, r):
-        return t(leaf[r], torch.float32 if name == "router" else dt)
+        return t(leaf[r], torch.float32 if name in FLOAT32_LEAVES else dt)
 
     return {"embed": {k: t(v) for k, v in np_params["embed"].items()},
             "layers": _unstack(np_params["blocks"], cfg, layer_leaf),
@@ -62,7 +70,8 @@ def plans_from_reference(np_plans: dict, cfg: ArchConfig,
                          device=None) -> dict:
     """Reference compiled plan tree (``{"embed": {"head": leaf}, "blocks":
     [{"core": ..., "ffn": ...}]}``, leaves stacked over repeats, numpy) ->
-    the port's ``{"layers": [...], "head": leaf}`` on ``device``. Every
+    the port's ``{"layers": [...], "head": leaf}`` on ``device`` (None for
+    an rwkv layer, which has no crossbar site). Every
     leaf keeps its dtype (int8 planes, int32 centers and shifts, bool
     masks, float32 scales) and an expert site's leaf its expert axis."""
     _check_supported(cfg)

@@ -2,8 +2,13 @@
 
 Port of ``repro.models.pim_compile``: one *projection site* per
 weight-static matmul and pattern position, with one instance per repeat
-— per (repeat, expert) on a MoE FFN — plus the LM head, compiled in three
-steps:
+— per (repeat, expert) on a MoE FFN — plus the LM head. An attention
+layer's sites are ``wq wk wv wo``, a mamba layer's ``in_proj x_proj
+out_proj``, each followed by its FFN's ``w1 w3 w2``; an rwkv layer has
+none (its time- and channel-mix stay float, as in the reference), so on an
+rwkv model only the head reaches the crossbar. Every token model the
+port runs compiles (embedding inputs are still refused). Sites compile in
+three steps:
 
 1. *capture* — an eager float forward over the calibration tokens with
    ``PimTap`` recorders standing in for plan leaves, so each site is
@@ -28,8 +33,9 @@ steps:
    instance's slice count.
 
 Everything runs on the params' device. Plans come out as ``{"layers":
-[{"core": {...}, "ffn": {...}}, ...], "head": leaf}``; leaf keys match the
-reference's, and an expert site's leaves carry a leading expert axis. The
+[{"core": {...}, "ffn": {...}}, ...], "head": leaf}``, None for an rwkv
+layer; leaf keys match the reference's, and an expert site's leaves carry
+a leading expert axis. The
 reference's energy report (``CompiledPim.report``) needs ``core.energy``
 and ``core.mapping``, which are not ported yet.
 """
@@ -49,7 +55,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.quant import quantize as q
 
-_PROJ = {"core": ("wq", "wk", "wv", "wo"), "ffn": ("w1", "w3", "w2")}
+_CORE_PROJ = {"attn": ("wq", "wk", "wv", "wo"),
+              "mamba": ("in_proj", "x_proj", "out_proj")}
+_FFN_PROJ = ("w1", "w3", "w2")
 
 SEARCH_ROWS = 16  # calibration rows fed to Algorithm 1 (paper: ~10 inputs)
 # most weights folded into one ``co.encode`` call (its int64 temporaries
@@ -97,6 +105,16 @@ class CompiledPim:
 
 
 # ------------------------------------------------------------------ capture
+def _block_projections(cfg: ArchConfig, i: int) -> dict | None:
+    """Weight-static projection names of pattern position ``i``, by param
+    group, or None for rwkv (its time- and channel-mix stay float, as in
+    the reference)."""
+    kind = cfg.block_pattern[i]
+    if kind not in _CORE_PROJ:
+        return None
+    return {"core": _CORE_PROJ[kind], "ffn": _FFN_PROJ}
+
+
 def _capture(params: dict, cfg: ArchConfig, calib_tokens: torch.Tensor,
              taps: dict) -> None:
     """Float forward that feeds every tap its projection inputs."""
@@ -231,6 +249,38 @@ def _compile_site(name: str, ws: list, xs: list, cfg: ArchConfig,
 
 
 # ------------------------------------------------------------------ compile
+def _taps(paths: dict) -> dict:
+    return {g: {n: L.PimTap() for n in names} for g, names in paths.items()}
+
+
+def _compile_position(bps: list, taps: list, cfg: ArchConfig,
+                      i: int) -> tuple[list, list[SitePlan]]:
+    """Compile pattern position ``i``'s sites over its layers ``bps`` (its
+    repeats, in order) from their filled ``taps``: one instance per layer,
+    per (layer, expert) on a MoE FFN. Returns one plan dict per layer."""
+    paths, E = _block_projections(cfg, i), cfg.n_experts
+    plans = [{g: {} for g in paths} for _ in bps]
+    sites: list[SitePlan] = []
+    for g, names in paths.items():
+        expert = g == "ffn" and L.is_moe_layer(cfg, i)
+        for name in names:
+            ws = [bp[g][name] for bp in bps]
+            xs = [t[g][name].x[0] for t in taps]
+            tags = [f"[r{r}]" for r in range(len(bps))]
+            if expert:  # (E, ...) per layer -> one per expert
+                ws = [w[e] for w in ws for e in range(E)]
+                xs = [x[e] for x in xs for e in range(E)]
+                tags = [f"[r{r},e{e}]" for r in range(len(bps))
+                        for e in range(E)]
+            leaf, leaf_sites = _compile_site(f"blocks[{i}].{g}.{name}", ws,
+                                             xs, cfg, tags=tags)
+            for r, plan in enumerate(plans):
+                at = slice(r * E, (r + 1) * E) if expert else r
+                plan[g][name] = {k: v[at] for k, v in leaf.items()}
+            sites.extend(leaf_sites)
+    return plans, sites
+
+
 def compile_pim_params(params: dict, cfg: ArchConfig,
                        calib_tokens) -> CompiledPim | None:
     """Compile ``params`` into per-site PIM plans for ``cfg.pim_mode``.
@@ -249,35 +299,25 @@ def compile_pim_params(params: dict, cfg: ArchConfig,
         raise ValueError(f"unknown pim_mode {cfg.pim_mode!r}")
     dev = params["embed"]["embed"].device
     tokens = torch.as_tensor(calib_tokens, dtype=torch.int64, device=dev)
+    n_pat = len(cfg.block_pattern)
+    paths = [_block_projections(cfg, layer % n_pat)
+             for layer in range(cfg.n_layers)]
     taps = {"head": L.PimTap(),
-            "layers": [{g: {n: L.PimTap() for n in names}
-                        for g, names in _PROJ.items()}
-                       for _ in range(cfg.n_layers)]}
-    n_pat, E = len(cfg.block_pattern), cfg.n_experts
+            "layers": [None if p is None else _taps(p) for p in paths]}
+    layer_plans = [None] * cfg.n_layers
+    sites: list[SitePlan] = []
     with torch.no_grad():
         _capture(params, cfg, tokens, taps)
-        sites: list[SitePlan] = []
-        layer_plans = [{g: {} for g in _PROJ} for _ in range(cfg.n_layers)]
         for i in range(n_pat):
+            if paths[i] is None:
+                continue
             layers = range(i, cfg.n_layers, n_pat)  # repeat r: r*n_pat + i
-            for g, names in _PROJ.items():
-                expert = g == "ffn" and L.is_moe_layer(cfg, i)
-                for name in names:
-                    ws = [params["layers"][l][g][name] for l in layers]
-                    xs = [taps["layers"][l][g][name].x[0] for l in layers]
-                    tags = [f"[r{r}]" for r in range(len(layers))]
-                    if expert:  # (E, ...) per layer -> one per expert
-                        ws = [w[e] for w in ws for e in range(E)]
-                        xs = [x[e] for x in xs for e in range(E)]
-                        tags = [f"[r{r},e{e}]" for r in range(len(layers))
-                                for e in range(E)]
-                    leaf, leaf_sites = _compile_site(
-                        f"blocks[{i}].{g}.{name}", ws, xs, cfg, tags=tags)
-                    for r, l in enumerate(layers):
-                        at = slice(r * E, (r + 1) * E) if expert else r
-                        layer_plans[l][g][name] = {k: v[at]
-                                                   for k, v in leaf.items()}
-                    sites.extend(leaf_sites)
+            plans, pos_sites = _compile_position(
+                [params["layers"][l] for l in layers],
+                [taps["layers"][l] for l in layers], cfg, i)
+            for l, plan in zip(layers, plans):
+                layer_plans[l] = plan
+            sites.extend(pos_sites)
         head, head_sites = _compile_site(
             "embed.head", [params["embed"]["head"]], [taps["head"].x[0]],
             cfg, last_layer=True)
@@ -285,3 +325,24 @@ def compile_pim_params(params: dict, cfg: ArchConfig,
     plans = {"layers": layer_plans,
              "head": {k: v[0] for k, v in head.items()}}
     return CompiledPim(plans=plans, sites=tuple(sites))
+
+
+def compile_layer(bp: dict, cfg: ArchConfig, layer: int,
+                  x_cal: torch.Tensor) -> CompiledPim | None:
+    """Plans of one layer alone, for a model that does not fit the card
+    whole: ``x_cal`` (B, S, d_model) stands for the layer's input
+    activations, ``apply_block`` feeds the taps, and each site compiles as
+    in ``compile_pim_params`` (one instance, named ``[r0]``; one per
+    expert on a MoE FFN). Returns the layer's plan dict as
+    ``CompiledPim.plans``, None for an rwkv layer or mode 'off'."""
+    paths = _block_projections(cfg, layer % len(cfg.block_pattern))
+    if cfg.pim_mode == "off" or paths is None:
+        return None
+    taps = _taps(paths)
+    B, S = x_cal.shape[0], x_cal.shape[1]
+    positions = torch.arange(S, device=x_cal.device).expand(B, S)
+    with torch.no_grad():
+        T.apply_block(bp, cfg, layer, x_cal, positions, plan=taps)
+        plans, sites = _compile_position(
+            [bp], [taps], cfg, layer % len(cfg.block_pattern))
+    return CompiledPim(plans=plans[0], sites=tuple(sites))

@@ -1,31 +1,40 @@
-"""Model assembly for attention transformers, plain PyTorch.
+"""Model assembly: attention, mamba and rwkv6 blocks, plain PyTorch.
 
-Port of the attention-only subset of ``repro.models.transformer``: dense
-and mixture-of-experts FFNs (layer ``l`` has pattern index ``l %
-len(block_pattern)``; ``cfg.moe_layer`` of it picks ``moe_block``). The
-reference stacks layers per pattern repeat under ``lax.scan``; the port
-keeps one parameter dict per layer in ``params["layers"]`` and walks them
-in a Python loop (``models.convert`` carries a reference pytree across).
+Port of ``repro.models.transformer`` for token models: attention layers
+with dense or mixture-of-experts FFNs, mamba layers (jamba) and rwkv6
+layers, whose channel-mix takes the FFN's place. Layer ``l`` has pattern
+index ``l % len(block_pattern)``, which picks its kind and, through
+``cfg.moe_layer``, a MoE FFN. The reference stacks layers per pattern
+repeat under ``lax.scan``; the port keeps one parameter dict per layer in
+``params["layers"]`` and walks them in a Python loop (``models.convert``
+carries a reference pytree across). Embedding inputs
+(``input_mode="embeddings"``) are still refused (``_check_supported``).
 
 Public surface:
   init_params(cfg, seed=, device=)           -> params
   forward(params, cfg, tokens, plans)        -> logits
   init_decode_state(cfg, B, L, ..., paged=)  -> state (contiguous or paged)
   prefill / prefill_chunk / decode_step / insert_request
+  init_layer / apply_block / run_layer       -> one layer (fresh / cached)
   PagedLayout / prefill_chunk_paged / insert_request_paged
 
-Decode states hold per-layer ``{"k", "v"}`` caches ``(B, max_len, K, hd)``
-and ``pos``: a Python int (lockstep; the host always knows it) or a
-``(B,)`` int64 tensor (per-slot, continuous batching). With
-``kv_cache_dtype="int8"`` the caches hold int8 codes plus float32
-``k_scale``/``v_scale`` leaves, one scale per (token, head). A paged state
-holds one block pool per layer, ``(n_blocks + 1, block_size, K, hd)``,
-shared by every slot and addressed through per-slot block tables.
+Decode states hold one cache dict per layer and ``pos``: a Python int
+(lockstep; the host always knows it) or a ``(B,)`` int64 tensor (per-slot,
+continuous batching). An attention layer's cache is ``{"k", "v"}``
+``(B, max_len, K, hd)``; with ``kv_cache_dtype="int8"`` it holds int8
+codes plus float32 ``k_scale``/``v_scale`` leaves, one scale per (token,
+head). A paged state holds one block pool per attention layer,
+``(n_blocks + 1, block_size, K, hd)``, shared by every slot and addressed
+through per-slot block tables. A recurrent layer's cache is its carry with
+a slot axis, paged or not: mamba ``{"h", "conv"}``, rwkv ``{"h", "x_prev",
+"cm_prev"}`` (``models.ssm``). Prefill and decode continue the carries
+from the state, so a zero state is a fresh sequence.
 
 Unlike the reference's immutable arrays, ``prefill_chunk``,
 ``prefill_chunk_paged``, ``decode_step`` and the ``insert_request`` pair
-write into the state's cache tensors in place — a decode step would
-otherwise copy the whole KV cache. In a paged pool, slots whose table
+update the state in place: attention caches are written in place (a
+decode step would otherwise copy the whole KV cache) and recurrent carries
+are replaced in their cache dicts. In a paged pool, slots whose table
 entry is the sentinel write into the scratch row, several of them in one
 ``index_put`` possibly at one index (CUDA then keeps an arbitrary one);
 every such position lies at or past its reader's ``kv_len``, so no live
@@ -42,76 +51,126 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if any(k != "attn" for k in cfg.block_pattern) \
-            or cfg.input_mode != "tokens":
+    if cfg.input_mode != "tokens":
         raise NotImplementedError(
-            f"{cfg.name}: the port serves attention-only token models, "
-            "dense or MoE (mamba, rwkv and embedding inputs are later "
-            "slices)")
+            f"{cfg.name}: the port serves token models (attention, mamba "
+            "and rwkv blocks, dense or MoE FFNs); embedding inputs are a "
+            "later slice")
+
+
+def block_kind(cfg: ArchConfig, layer: int) -> str:
+    """Layer ``layer``'s block kind: attn, mamba or rwkv."""
+    return cfg.block_pattern[layer % len(cfg.block_pattern)]
 
 
 def ffn_block(bp: dict, cfg: ArchConfig, layer: int, x: torch.Tensor,
               plan=None) -> torch.Tensor:
     """Layer ``layer``'s FFN: ``moe_block`` where the config puts a MoE
-    FFN, else the gated MLP."""
+    FFN, else the gated MLP (an rwkv layer's channel-mix: ``run_layer``)."""
     fn = L.moe_block if L.is_moe_layer(cfg, layer) else L.mlp_block
     return fn(bp["ffn"], cfg, x, plans=L.plan_leaf(plan, "ffn"))
 
 
+def _init_carry(cfg: ArchConfig, kind: str, batch: int, device) -> dict:
+    """A mamba or rwkv layer's zero carry for ``batch`` slots."""
+    init = S.init_mamba_state if kind == "mamba" else S.init_rwkv_state
+    return init(cfg, batch, device)
+
+
 # ------------------------------------------------------------------ init
-def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> dict:
-    """Random parameters with the reference's shapes, distributions and
-    scales (``T.init_params`` / ``L.init_attention`` / ``L.init_mlp`` /
-    ``L.init_moe`` / ``L.init_embedding``): normal weights scaled by
-    fan-in ** -0.5, zero QKV biases, unit norms, a float32 router and
-    ``(E, d_in, d_out)`` expert weights on MoE layers — drawn from a
-    ``torch.Generator`` on the target device (the values differ from
-    ``jax.random``'s)."""
-    _check_supported(cfg)
-    dev = resolve_device(device)
+def _draws(cfg: ArchConfig, device, seed: int):
+    """Weight drawers on ``device`` from one ``torch.Generator``:
+    ``normal(shape, scale)`` and ``uniform(shape)`` in ``cfg.dtype``, and
+    the generator for float32 draws."""
     dt = getattr(torch, cfg.dtype)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
-    h, kv = cfg.n_heads, cfg.n_kv_heads
+    gen = torch.Generator(device=device).manual_seed(seed)
 
     def normal(shape, scale):
-        return (torch.randn(shape, generator=gen, device=dev,
+        return (torch.randn(shape, generator=gen, device=device,
                             dtype=torch.float32) * scale).to(dt)
 
-    def ones(n):
-        return {"scale": torch.ones(n, dtype=dt, device=dev)}
+    def uniform(shape):
+        return torch.rand(shape, generator=gen, device=device,
+                          dtype=torch.float32).to(dt)
+    return gen, normal, uniform
 
-    layers = []
-    for layer in range(cfg.n_layers):
+
+def _init_layer(cfg: ArchConfig, layer: int, draws, dev) -> dict:
+    gen, normal, uniform = draws
+    dt = getattr(torch, cfg.dtype)
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    kind = block_kind(cfg, layer)
+    if kind == "attn":
         core = {"wq": normal((d, h * hd), d ** -0.5),
                 "wk": normal((d, kv * hd), d ** -0.5),
                 "wv": normal((d, kv * hd), d ** -0.5),
                 "wo": normal((h * hd, d), (h * hd) ** -0.5)}
         if cfg.qkv_bias:
-            for name, n in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
+            for name, n in (("bq", h * hd), ("bk", kv * hd),
+                            ("bv", kv * hd)):
                 core[name] = torch.zeros(n, dtype=dt, device=dev)
         if cfg.qk_norm:
             core["q_norm"] = torch.ones(hd, dtype=dt, device=dev)
             core["k_norm"] = torch.ones(hd, dtype=dt, device=dev)
-        if L.is_moe_layer(cfg, layer):
-            e = cfg.n_experts
-            ffn = {"router": (torch.randn((d, e), generator=gen, device=dev)
-                              * d ** -0.5),  # float32, as the reference's
-                   "w1": normal((e, d, f), d ** -0.5),
-                   "w3": normal((e, d, f), d ** -0.5),
-                   "w2": normal((e, f, d), f ** -0.5)}
-        else:
-            ffn = {"w1": normal((d, f), d ** -0.5),
-                   "w3": normal((d, f), d ** -0.5),
-                   "w2": normal((f, d), f ** -0.5)}
-        layers.append({"norm1": ones(d), "core": core, "norm2": ones(d),
-                       "ffn": ffn})
+    elif kind == "mamba":
+        core = S.init_mamba(cfg, normal, dev)
+    else:
+        core = S.init_rwkv(cfg, normal, uniform, dev)
+    if kind == "rwkv":
+        ffn = S.init_rwkv_channel_mix(cfg, normal, uniform)
+    elif L.is_moe_layer(cfg, layer):
+        e = cfg.n_experts
+        ffn = {"router": (torch.randn((d, e), generator=gen, device=dev)
+                          * d ** -0.5),  # float32, as the reference's
+               "w1": normal((e, d, f), d ** -0.5),
+               "w3": normal((e, d, f), d ** -0.5),
+               "w2": normal((e, f, d), f ** -0.5)}
+    else:
+        ffn = {"w1": normal((d, f), d ** -0.5),
+               "w3": normal((d, f), d ** -0.5),
+               "w2": normal((f, d), f ** -0.5)}
+
+    def ones(n):
+        return {"scale": torch.ones(n, dtype=dt, device=dev)}
+    return {"norm1": ones(d), "core": core, "norm2": ones(d), "ffn": ffn}
+
+
+def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> dict:
+    """Random parameters with the reference's shapes, distributions and
+    scales (``T.init_params`` / ``L.init_attention`` / ``L.init_mlp`` /
+    ``L.init_moe`` / ``L.init_embedding`` / ``ssm.init_mamba`` /
+    ``ssm.init_rwkv`` / ``ssm.init_rwkv_channel_mix``): normal weights
+    scaled by fan-in ** -0.5, zero QKV biases, unit norms, a float32 router
+    and ``(E, d_in, d_out)`` expert weights on MoE layers, float32
+    ``A_log``, ``D``, ``decay_base`` and ``bonus`` — drawn from a
+    ``torch.Generator`` on the target device (the values differ from
+    ``jax.random``'s)."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    draws = _draws(cfg, dev, seed)
+    layers = [_init_layer(cfg, layer, draws, dev)
+              for layer in range(cfg.n_layers)]
+    normal, d = draws[1], cfg.d_model
     embed = {"embed": normal((cfg.vocab_size, d), d ** -0.5),
              "head": normal((d, cfg.vocab_size), d ** -0.5)}
-    return {"embed": embed, "layers": layers, "final_norm": ones(d)}
+    return {"embed": embed, "layers": layers,
+            "final_norm": {"scale": torch.ones(
+                d, dtype=getattr(torch, cfg.dtype), device=dev)}}
+
+
+def init_layer(cfg: ArchConfig, layer: int, *, seed: int = 0,
+               device=None) -> dict:
+    """Layer ``layer``'s parameters alone, as ``init_params`` draws them
+    (from a generator of its own): a model too large for one card runs a
+    layer at a time through ``apply_block`` / ``run_layer``."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    return _init_layer(cfg, layer, _draws(cfg, dev, seed), dev)
 
 
 # ------------------------------------------------------------------ forward
@@ -125,11 +184,44 @@ def _head_plan(plans):
 
 def apply_block(bp: dict, cfg: ArchConfig, layer: int, x: torch.Tensor,
                 positions: torch.Tensor, plan=None) -> torch.Tensor:
+    """One layer over a fresh sequence (forward, calibration capture):
+    ``run_layer`` from a zero carry, attention over this call's K/V."""
+    kind = block_kind(cfg, layer)
+    cache = {} if kind == "attn" else _init_carry(cfg, kind, x.shape[0],
+                                                  x.device)
+
+    def attend(bp, cache, h, core_plan):
+        return L.attention_block(bp["core"], cfg, h, positions,
+                                 plans=core_plan)
+    return run_layer(bp, cfg, layer, x, cache, plan, attend)
+
+
+def run_layer(bp: dict, cfg: ArchConfig, layer: int, x: torch.Tensor,
+              cache: dict, plan, attend) -> torch.Tensor:
+    """One layer of a prefill chunk or a decode step, continuing from the
+    layer's cache and updating it in place. ``attend(bp, cache, h, plan)``
+    runs an attention layer's core on the normed input ``h``; the recurrent
+    kinds continue their carries, as the reference's ``_decode_block`` and
+    ``_prefill_repeat_body`` do, rwkv's channel-mix from ``cm_prev``."""
+    kind = block_kind(cfg, layer)
+    core_plan = L.plan_leaf(plan, "core")
     h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
-    x = x + L.attention_block(bp["core"], cfg, h, positions,
-                              plans=L.plan_leaf(plan, "core"))
+    if kind == "attn":
+        h = attend(bp, cache, h, core_plan)
+    elif kind == "mamba":
+        carry, h = S.mamba_scan(bp["core"], cfg, h, cache, plans=core_plan)
+        cache.update(carry)
+    else:
+        carry, h = S.rwkv_time_mix_scan(bp["core"], cfg, h, cache)
+        cache.update(carry)
+    x = x + h
     h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
-    return x + ffn_block(bp, cfg, layer, h, plan)
+    if kind != "rwkv":
+        return x + ffn_block(bp, cfg, layer, h, plan)
+    x_prev = torch.cat([cache["cm_prev"][:, None].to(h.dtype), h[:, :-1]],
+                       dim=1)
+    cache["cm_prev"] = h[:, -1]
+    return x + S.rwkv_channel_mix(bp["ffn"], cfg, h, x_prev)
 
 
 def embed_inputs(params: dict, cfg: ArchConfig,
@@ -189,13 +281,15 @@ class PagedLayout:
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
                       per_slot_pos: bool = False,
                       paged: PagedLayout | None = None, device=None) -> dict:
-    """Zeroed per-layer KV caches ``(batch, max_len, kv_heads, head_dim)``
-    — or, with ``paged``, block pools ``(n_blocks + 1, block_size,
-    kv_heads, head_dim)`` that ``decode_step`` addresses through per-slot
-    ``block_tables`` — and a position: int 0, or a ``(batch,)`` tensor with
-    ``per_slot_pos`` (the substrate for continuous batching). An int8 KV
-    cache adds float32 ``k_scale``/``v_scale`` leaves without the
-    ``head_dim`` axis."""
+    """Zeroed per-layer caches and a position: int 0, or a ``(batch,)``
+    tensor with ``per_slot_pos`` (the substrate for continuous batching).
+    An attention layer gets KV caches ``(batch, max_len, kv_heads,
+    head_dim)`` — or, with ``paged``, block pools ``(n_blocks + 1,
+    block_size, kv_heads, head_dim)`` that ``decode_step`` addresses
+    through per-slot ``block_tables``; an int8 KV cache adds float32
+    ``k_scale``/``v_scale`` leaves without the ``head_dim`` axis. A mamba
+    or rwkv layer gets its zero carry with a ``batch`` (slot) axis, paged
+    or not."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dt = getattr(torch, cfg.kv_cache_dtype)
@@ -203,7 +297,11 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
                                                    paged.block_size)
     shape = lead + (cfg.n_kv_heads, cfg.resolved_head_dim)
     caches = []
-    for _ in range(cfg.n_layers):
+    for layer in range(cfg.n_layers):
+        kind = block_kind(cfg, layer)
+        if kind != "attn":
+            caches.append(_init_carry(cfg, kind, batch, dev))
+            continue
         c = {"k": torch.zeros(shape, dtype=dt, device=dev),
              "v": torch.zeros(shape, dtype=dt, device=dev)}
         if dt == torch.int8:
@@ -327,7 +425,9 @@ def decode_step(params: dict, cfg: ArchConfig, state: dict,
                 paged: PagedLayout | None = None
                 ) -> tuple[torch.Tensor, dict]:
     """One decode step. tokens: (B, 1) ids. Every slot's position advances
-    by one; the caches are updated in place.
+    by one and every slot's recurrent carries take a step (the engines
+    overwrite an idle or mid-prefill slot's carries when they insert its
+    prefill); the caches are updated in place.
 
     With a paged state pass ``block_tables`` ((B, max_blocks) int64 pool
     rows on the state's device, ``paged.sentinel`` for unmapped entries)
@@ -342,14 +442,13 @@ def decode_step(params: dict, cfg: ArchConfig, state: dict,
         raise ValueError("paged decode needs per-slot positions "
                          "(init_decode_state(..., per_slot_pos=True))")
     x = embed_inputs(params, cfg, tokens)
+
+    def attend(bp, cache, h, core_plan):
+        return _attn_decode(bp, cfg, cache, h, pos, plans=core_plan,
+                            tables=block_tables, paged=paged)
     for layer, (bp, cache, plan) in enumerate(zip(
             params["layers"], state["caches"], _layer_plans(cfg, plans))):
-        h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
-        x = x + _attn_decode(bp, cfg, cache, h, pos,
-                             plans=L.plan_leaf(plan, "core"),
-                             tables=block_tables, paged=paged)
-        h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
-        x = x + ffn_block(bp, cfg, layer, h, plan)
+        x = run_layer(bp, cfg, layer, x, cache, plan, attend)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = L.lm_head(params["embed"], cfg, x, plan=_head_plan(plans))
     return logits, {"caches": state["caches"], "pos": pos + 1}
@@ -359,22 +458,24 @@ def decode_step(params: dict, cfg: ArchConfig, state: dict,
 def _prefill_layers(params: dict, cfg: ArchConfig, x: torch.Tensor,
                     caches: list, positions: torch.Tensor, plans, attend):
     """Run a prompt chunk at ``positions`` through every layer.
-    ``attend(cache, q, k, v)`` stores the chunk's K/V into the layer's
-    cache in place and returns the attention output (B, C, H, hd)."""
+    ``attend(cache, q, k, v)`` stores the chunk's K/V into an attention
+    layer's cache in place and returns the attention output (B, C, H,
+    hd); recurrent layers continue their carries."""
     B, C = x.shape[0], x.shape[1]
+
+    def attn_core(bp, cache, hn, core_plan):
+        q, k, v = L.qkv_project(bp["core"], cfg, hn, positions, core_plan)
+        o = attend(cache, q, k, v)
+        return L.pim_matmul(o.reshape(B, C, -1), bp["core"]["wo"],
+                            L.plan_leaf(core_plan, "wo"), cfg)
     with L.suspend_pim_stats():
         for layer, (bp, cache, plan) in enumerate(zip(
                 params["layers"], caches, _layer_plans(cfg, plans))):
-            core_plan = L.plan_leaf(plan, "core")
-            hn = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
-            q, k, v = L.qkv_project(bp["core"], cfg, hn, positions, core_plan)
-            o = attend(cache, q, k, v)
-            x = x + L.pim_matmul(o.reshape(B, C, -1), bp["core"]["wo"],
-                                 L.plan_leaf(core_plan, "wo"), cfg)
-            hn2 = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
-            x = x + ffn_block(bp, cfg, layer, hn2, plan)
+            x = run_layer(bp, cfg, layer, x, cache, plan, attn_core)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.lm_head(params["embed"], cfg, x[:, -1:], plan=_head_plan(plans))
+    # contiguous: the CPU BLAS may round a strided row differently
+    return L.lm_head(params["embed"], cfg, x[:, -1:].contiguous(),
+                     plan=_head_plan(plans))
 
 
 def _store_span(cache: dict, k: torch.Tensor, v: torch.Tensor,
@@ -411,9 +512,10 @@ def prefill_chunk(params: dict, cfg: ArchConfig, state: dict,
 
     ``state`` is a scalar-pos decode state whose caches hold positions
     ``[0, state["pos"])``; ``tokens`` (B, C) continue the prompt there and
-    attend over the cache, which holds the earlier chunks. Over a whole
-    prompt this reproduces ``prefill`` for float KV caches; an int8 cache
-    adds one quantize/dequantize round trip per chunk boundary.
+    attend over the cache, which holds the earlier chunks; recurrent
+    carries continue from the state. Over a whole prompt this reproduces
+    ``prefill`` for float KV caches; an int8 cache adds one
+    quantize/dequantize round trip per chunk boundary.
     """
     x = embed_inputs(params, cfg, tokens)
     B, C = x.shape[0], x.shape[1]
@@ -432,8 +534,8 @@ def prefill_chunk(params: dict, cfg: ArchConfig, state: dict,
 
 def insert_request(state: dict, one: dict, slot: int) -> dict:
     """Splice a batch-1 scalar-pos state into slot ``slot`` of a per-slot
-    state, in place: every cache row of the slot is replaced, scales
-    included."""
+    state, in place: every cache row of the slot is replaced, scales and
+    recurrent carries included."""
     for cache, c1 in zip(state["caches"], one["caches"]):
         for key in cache:
             cache[key][slot] = c1[key][0].to(cache[key].dtype)
@@ -495,13 +597,18 @@ def insert_request_paged(state: dict, one: dict, slot: int,
                          table_row: torch.Tensor,
                          paged: PagedLayout) -> dict:
     """Scatter a contiguous B=1 prefilled state into a slot's pool blocks,
-    in place: position ``p`` of every cache leaf goes to pool row
-    ``table_row[p // block_size]`` at offset ``p % block_size`` (sentinel
-    rows absorb the unused tail in scratch), and ``pos[slot]`` is set as
-    ``insert_request`` sets it. The staged-admission path of recurrent
-    archs; attention-only engines prefill in the pool instead."""
+    in place: position ``p`` of every attention cache leaf goes to pool
+    row ``table_row[p // block_size]`` at offset ``p % block_size``
+    (sentinel rows absorb the unused tail in scratch); recurrent carries
+    and ``pos[slot]`` are spliced as ``insert_request`` splices them. The
+    staged-admission path of recurrent archs; attention-only engines
+    prefill in the pool instead."""
     bs = paged.block_size
     for cache, c1 in zip(state["caches"], one["caches"]):
+        if "k" not in cache:  # a recurrent carry: per-slot batch axis
+            for key in cache:
+                cache[key][slot] = c1[key][0].to(cache[key].dtype)
+            continue
         p = torch.arange(c1["k"].shape[1], device=table_row.device)
         rows = table_row[(p // bs).clamp(0, table_row.shape[0] - 1)].clamp(
             0, paged.sentinel)

@@ -10,17 +10,23 @@ a block table:
 
 - **Admission** claims ``ceil(prompt_len / block_size)`` blocks, strictly
   FIFO: under memory pressure the head of the queue waits and nothing
-  overtakes it. The prompt streams straight into the claimed blocks
-  (``prefill_chunk_paged``).
+  overtakes it. An attention-only model streams the prompt straight into
+  the claimed blocks (``prefill_chunk_paged``). A model with mamba or rwkv
+  layers stages it (``staged_prefill``): their carries cannot be rebuilt
+  from paged context, so the slot prefills a B=1 contiguous state through
+  ``prefill_chunk`` and hands it over with ``insert_request_paged`` when
+  the prompt is done.
 - **Lazy growth, block-granular free.** Decode grows a slot one block at a
   time; a finished request returns its blocks the same iteration.
 - **Prefix sharing.** A fully written prompt block is registered under the
   prompt's tokens up to and including it; a later admission shares the
   longest common whole-block prefix by refcount. Off under an int8 KV
-  cache, whose codes depend on where the chunks fell.
+  cache, whose codes depend on where the chunks fell, and under staged
+  prefill, whose carries a shared block cannot restore.
 - **Eviction by recompute.** If decode needs a block and the pool is dry,
-  the youngest other request loses its blocks and is requeued at the
-  front. Greedy decoding and the per-request sampling stream (a fresh
+  the youngest other request loses its blocks (and a recurrent request its
+  carries) and is requeued at the front; readmitted, it prefills from
+  scratch. Greedy decoding and the per-request sampling stream (a fresh
   generator seeded with the request's seed, ``ContinuousServeEngine.
   _sample``) replay identically, so eviction never changes outputs.
 
@@ -156,9 +162,12 @@ class PagedServeEngine(ContinuousServeEngine):
         self.alloc = BlockAllocator(n_blocks, block_size)
         super().__init__(cfg, params, n_slots=n_slots, max_len=max_len,
                          prefill_chunk=prefill_chunk, plans=plans)
+        # recurrent carries cannot be rebuilt from paged context: such
+        # models prefill at B=1 and hand over through insert_request_paged
+        self.staged_prefill = any(k != "attn" for k in cfg.block_pattern)
         # int8 KV quantizes per chunk, so a shared block written under one
         # chunking is not bit-identical under another: no sharing there
-        self.prefix_sharing = (prefix_sharing
+        self.prefix_sharing = (prefix_sharing and not self.staged_prefill
                                and cfg.kv_cache_dtype != "int8")
         self._seq = 0
         # host-authoritative block tables (sentinel = unmapped)
@@ -207,7 +216,8 @@ class PagedServeEngine(ContinuousServeEngine):
         self.queue.popleft()
         blocks = [self.alloc.claim(b) for b in shared] + self.alloc.alloc(need)
         self.stats.prefix_block_hits += len(shared)
-        self.slots[i] = _PagedSlot(req=req, state1=None, blocks=blocks,
+        state1 = self._staged_state() if self.staged_prefill else None
+        self.slots[i] = _PagedSlot(req=req, state1=state1, blocks=blocks,
                                    n_shared=len(shared),
                                    n_prefilled=len(shared) * bs,
                                    seq=self._seq)
@@ -216,6 +226,12 @@ class PagedServeEngine(ContinuousServeEngine):
         self.tables[i, :len(blocks)] = blocks
         self._note_blocks()
         return True
+
+    def _insert(self, i: int, state1: Any) -> None:
+        """Hand a staged slot's finished B=1 state to the pool."""
+        T.insert_request_paged(self.state, state1, i,
+                               self._device_table(self.tables[i]),
+                               self.layout)
 
     def _free_slot(self, i: int, slot: _PagedSlot) -> None:
         for b in slot.blocks:
@@ -273,7 +289,8 @@ class PagedServeEngine(ContinuousServeEngine):
     @torch.no_grad()
     def step(self) -> list[RequestOutput]:
         """One iteration: admit (FIFO, queue until blocks free) -> one
-        prefill chunk per admitted slot that is not live -> one batched
+        prefill chunk per admitted slot that is not live (in the pool, or
+        staged at B=1 and inserted when its prompt is done) -> one batched
         paged decode of the live slots (lazy block growth, eviction under
         pressure). One host sync for the finished prefills' logits and one
         for the decode step's, as in the parent engine."""
@@ -293,10 +310,14 @@ class PagedServeEngine(ContinuousServeEngine):
             hi = min(lo + self.prefill_chunk, prompt.shape[0])
             toks = torch.as_tensor(prompt[None, lo:hi], dtype=torch.int64,
                                    device=self.device)
-            logits, self.state = T.prefill_chunk_paged(
-                self.params, self.cfg, self.state, toks, slot=i,
-                table_row=self._device_table(self.tables[i]), pos0=lo,
-                paged=self.layout, plans=self.plans)
+            if self.staged_prefill:
+                logits = self._prefill_staged(i, slot, toks,
+                                              last=hi == prompt.shape[0])
+            else:
+                logits, self.state = T.prefill_chunk_paged(
+                    self.params, self.cfg, self.state, toks, slot=i,
+                    table_row=self._device_table(self.tables[i]), pos0=lo,
+                    paged=self.layout, plans=self.plans)
             slot.n_prefilled = hi
             self.stats.prefill_chunks += 1
             if hi == prompt.shape[0]:

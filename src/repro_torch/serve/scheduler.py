@@ -3,8 +3,9 @@
 Port of ``repro.serve.scheduler.ContinuousServeEngine``, contiguous caches,
 no telemetry object yet:
 
-- the batched decode state holds ``n_slots`` KV-cache slots with per-slot
-  positions (``init_decode_state(..., per_slot_pos=True)``);
+- the batched decode state holds ``n_slots`` cache slots (KV caches and
+  recurrent carries) with per-slot positions
+  (``init_decode_state(..., per_slot_pos=True)``);
 - each iteration admits queued requests into free slots, advances every
   prefilling slot by at most one prefill chunk, then runs one batched
   ``decode_step`` for every slot that is mid-generation;
@@ -170,6 +171,27 @@ class ContinuousServeEngine:
             self.slots[idx] = None
             self.stats.completed += 1
 
+    def _staged_state(self) -> Any:
+        """A fresh B=1 decode state for a slot's prompt."""
+        return T.init_decode_state(self.cfg, 1, self.max_len,
+                                   device=self.device)
+
+    def _prefill_staged(self, i: int, slot: _Slot, toks: torch.Tensor,
+                        last: bool) -> torch.Tensor:
+        """Advance slot ``i``'s B=1 state by one prefill chunk; after the
+        prompt's ``last`` chunk, splice it into the batched state. Returns
+        the chunk's logits."""
+        logits, slot.state1 = T.prefill_chunk(
+            self.params, self.cfg, slot.state1, toks, plans=self.plans)
+        if last:
+            self._insert(i, slot.state1)
+            slot.state1 = None
+        return logits
+
+    def _insert(self, i: int, state1: Any) -> None:
+        """Splice a finished B=1 prefill state into slot ``i``."""
+        T.insert_request(self.state, state1, i)
+
     @torch.no_grad()
     def step(self) -> list[RequestOutput]:
         """One scheduler iteration: admit -> prefill one chunk -> decode.
@@ -177,9 +199,8 @@ class ContinuousServeEngine:
         finished: list[RequestOutput] = []
         for i in range(self.n_slots):
             if self.slots[i] is None and self.queue:
-                req = self.queue.popleft()
-                self.slots[i] = _Slot(req=req, state1=T.init_decode_state(
-                    self.cfg, 1, self.max_len, device=self.device))
+                self.slots[i] = _Slot(req=self.queue.popleft(),
+                                      state1=self._staged_state())
         done = []
         t0 = time.perf_counter()
         for i, slot in enumerate(self.slots):
@@ -190,13 +211,11 @@ class ContinuousServeEngine:
             hi = min(lo + self.prefill_chunk, prompt.shape[0])
             toks = torch.as_tensor(prompt[None, lo:hi], dtype=torch.int64,
                                    device=self.device)
-            logits, slot.state1 = T.prefill_chunk(
-                self.params, self.cfg, slot.state1, toks, plans=self.plans)
+            logits = self._prefill_staged(i, slot, toks,
+                                          last=hi == prompt.shape[0])
             slot.n_prefilled = hi
             self.stats.prefill_chunks += 1
             if hi == prompt.shape[0]:
-                T.insert_request(self.state, slot.state1, i)
-                slot.state1 = None
                 done.append((i, slot, logits[0, -1]))
         if done:
             rows = torch.stack([lg for _, _, lg in done]).cpu()
