@@ -7,8 +7,8 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
 
   build    compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
            (one ``nvcc`` per source, all started together) and print K3's,
-           K2's and K1's ``ptxas -v`` lines per instantiation (registers,
-           spills, the shared memory their tile plans ask for);
+           K2's, K1's and K4's ``ptxas -v`` lines per instantiation
+           (registers, spills, the shared memory their tile plans ask for);
   kernels  run each kernel at the main path's shapes and hold it against its
            plain PyTorch version bit for bit: K3 (timed beside its yardstick
            ``torch._int_mm`` on x padded to 17 rows; tail shapes, -128
@@ -19,9 +19,14 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            (8,) spec slicing and centers across the int32 range), K1 with
            1b input slices at B = 1, 4, 16, 64 (7b runs must saturate),
            with (4,2,2), (8,) slicings and a ragged plane mask, and at
-           K2's kind of tails (``K1_TAILS``); K1, K2, K1 launched back to
-           back on one stream, each with its own counters; K4 with 8
-           one-bit input slices and 3 planes;
+           K2's kind of tails (``K1_TAILS``); K4, K1, K4, K2, K1, K4
+           launched back to back on one stream, K1 and K2 each with its own
+           counters; K4 with 8 one-bit input slices and 3 planes at the
+           site shapes at B = 1, 4, 16 and 64 (timed at B = 4), and at
+           ``K4_TAILS`` (1, 3 and 8 slices and planes, R = 1 to 2816, C =
+           7 to 151936, int8 values -128..127 on both sides, mults that
+           wrap the int32 result), at 24b and 7b, where the clamps must
+           bite (the result differs from the 24b one);
   serve    build qwen1.5-0.5b at its published size (random weights from a
            seed, bf16), compile its PIM plans and serve 4 requests through
            ``ContinuousServeEngine`` in ``exact``, ``int8`` and ``fast``
@@ -85,7 +90,8 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            (distinct weights per layer, as the model has them) against the
            plain versions and, for K3, ``torch._int_mm`` (x padded with zero
            rows); K2 also on Algorithm 1's adaptive plans; K4 at the four
-           projection shapes; K1 at B = 16 with batch tiles of 1, 2 and 4
+           projection shapes at B = 4 and 64 on distinct weights per
+           repeat; K1 at B = 16 with batch tiles of 1, 2 and 4
            rows; the copies the paged engine adds to a decode step (block
            gathers, int8 dequantize), device and host time; the moe
            phase's K2 and K3 step times beside qwen's.
@@ -101,7 +107,9 @@ the hybrid phase's ``hybrid_launches`` (rwkv6-3b's runs: K2 in exact, K3
 in fast, K1 in exact-nospec), ``hybrid_max_abs_err`` (its comparisons)
 and ``hybrid_ms``, ``hybrid_plain_ms``, ``hybrid_bound_ms``,
 ``hybrid_bound_by`` and ``hybrid_library_ms`` for the jamba layer's
-decode step (K1: its search shape). The last line is ``{"ok": true,
+decode step (K1: its search shape); K4's entry is its B = 4 timing, with
+``b64_ms``, ``b64_plain_ms``, ``b64_bound_ms``, ``b64_bound_by`` and
+``b64_library_ms`` at B = 64. The last line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -205,15 +213,15 @@ def phase_build() -> None:
     secs = build.build(list(ops.KERNELS))
     say("build", ok=True, seconds=round(time.perf_counter() - t0, 3),
         per_kernel=json.dumps({k: round(v, 3) for k, v in secs.items()}))
-    # K3, K2 and K1 per instantiation (batch tile, load path): ptxas -v
-    # registers and spills, and the most dynamic shared memory their tile
-    # plans ask for
+    # K3, K2, K1 and K4 per instantiation (batch tile, load path): ptxas
+    # -v registers and spills, and the most dynamic shared memory their
+    # tile plans ask for
     from repro_torch.kernels import bitplane
     from repro_torch.kernels import int8_matmul as im
 
-    def bitplane_entry(m):
+    def bitplane_entry(m, x="codes"):
         return dict(bt=int(m[1]), cp_async=m[2] == "1",
-                    smem_bytes_max=max(bitplane.smem_bytes(int(m[1]), c)
+                    smem_bytes_max=max(bitplane.smem_bytes(int(m[1]), c, x)
                                        for c in range(
                                            1, bitplane.MAX_CLUSTER + 1)))
     entries = {
@@ -225,7 +233,9 @@ def phase_build() -> None:
         "fused_spec_crossbar": (r"spec_kernelILi(\d)ELb([01])E",
                                 bitplane_entry),
         "fused_crossbar": (r"crossbar_kernelILi(\d)ELb([01])E",
-                           bitplane_entry)}
+                           bitplane_entry),
+        "sliced_crossbar": (r"sliced_kernelILi(\d)ELb([01])E",
+                            lambda m: bitplane_entry(m, "slices"))}
     for name, (pattern, fields) in entries.items():
         entry = None
         for line in build.LOGS.get(name, "").splitlines():
@@ -557,19 +567,27 @@ def check_k1_tails(rows: list, gen) -> None:
 
 
 def check_interleaved(rows: list, gen) -> None:
-    """K1, K2, K1 launched back to back on one stream at the 7b ADC, read
-    only after all three: each kernel's counters equal its plain version's,
-    so neither adds into the other's counts buffer."""
+    """K4, K1, K4, K2, K1, K4 launched back to back on one stream at the
+    7b ADC, read only after all six: each kernel's result and K1's and K2's
+    counters equal the plain version's, so neither of those adds into the
+    other's counts buffer, and K4, which keeps no counters, leaves both
+    chains alone."""
     import torch
     from repro_torch.core import adc as adc_lib
     from repro_torch.kernels import fused_crossbar as fx
     from repro_torch.kernels import fused_spec_crossbar as fs
     from repro_torch.kernels import ops
+    from repro_torch.kernels import sliced_crossbar as sx
     R, C = SITE_SHAPES["qkvo"]
     adc = adc_lib.ADCConfig(bits=7)
     kw = dict(adc_lo=adc.lo, adc_hi=adc.hi)
     calls = []
-    for kernel in ("fused_crossbar", "fused_spec_crossbar", "fused_crossbar"):
+    for kernel in ("sliced_crossbar", "fused_crossbar", "sliced_crossbar",
+                   "fused_spec_crossbar", "fused_crossbar",
+                   "sliced_crossbar"):
+        if kernel == "sliced_crossbar":
+            calls.append((kernel, sx, k4_full_inputs(8, 3, 4, R, C, gen)))
+            continue
         xu, planes, shifts, valid, centers = tail_inputs(4, R, C, 3, False,
                                                          False, gen)
         if kernel == "fused_crossbar":
@@ -581,15 +599,32 @@ def check_interleaved(rows: list, gen) -> None:
     got = [mod.launch(*args, **kw) for _, mod, args in calls]
     torch.cuda.synchronize()
     for (kernel, mod, args), g in zip(calls, got):
+        counted = kernel != "sliced_crossbar"
+        counts = {} if not counted else dict(counts=json.dumps(
+            [int(t) for t in g[1:]] if kernel == "fused_crossbar"
+            else g[1].tolist() + [int(g[2])]))
         row = compare(kernel, g, mod.plain(*args, **kw), site="interleaved",
-                      B=4, R=R, C=C, adc_bits=7,
-                      counts=json.dumps([int(t) for t in g[1:]]
-                                        if kernel == "fused_crossbar"
-                                        else g[1].tolist() + [int(g[2])]))
-        if not int(g[1].sum()) > 0:
+                      B=4, R=R, C=C, adc_bits=7, **counts)
+        if counted and not int(g[1].sum()) > 0:
             raise AssertionError(f"interleaved {kernel} counted nothing")
         rows.append(row)
         say("kernels", **row)
+
+
+def k4_full_inputs(n_i: int, n_j: int, B: int, R: int, C: int, gen):
+    """int8 slices and planes over -128..127 (every 5th x row and every
+    7th plane row -128) and mults over +-2**20, which wrap the int32
+    result at the 24b ADC."""
+    import torch
+    xs = torch.randint(-128, 128, (n_i, B, R), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    xs[:, :, ::5] = -128
+    planes = torch.randint(-128, 128, (n_j, R, C), generator=gen,
+                           device="cuda", dtype=torch.int8)
+    planes[:, ::7] = -128
+    mults = torch.randint(-2**20, 2**20, (n_i, n_j), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    return xs, planes, mults
 
 
 def k4_inputs(B: int, R: int, C: int, gen):
@@ -607,29 +642,47 @@ def k4_inputs(B: int, R: int, C: int, gen):
     return xs.contiguous(), planes, mults
 
 
+# K4 tails (n_i, n_j, B, R, C), int8 values -128..127 on both sides: R =
+# 1, 7, 1001 or C = 7, 1000 take the word-load path, R = 1024 with C =
+# 1008 the cp.async path with a ragged column tile; R = 7, 1001 and 2816
+# end in a partial segment; one slice and one plane give a cluster of 1
+# rank, 8 planes clusters of 8; B = 1, 2 and 3 take batch tiles of 1, 2
+# and 4 rows; the head's shape at B = 4
+K4_TAILS = ((1, 1, 1, 1, 7), (3, 3, 3, 7, 1008), (8, 8, 17, 1024, 1008),
+            (3, 8, 4, 1001, 7), (8, 3, 64, 1024, 1024),
+            (1, 3, 2, 2816, 1000), (8, 1, 16, 1024, 2816),
+            (3, 1, 65, 1001, 1008), (8, 3, 4, 1024, 151936))
+
+
 def check_k4(rows: list, gen) -> None:
-    """K4 at the four site shapes, B = 4, at 24b and 7b."""
+    """K4 at the four site shapes (8 one-bit slices, 3 planes) at B = 1, 4,
+    16 and 64, timed at B = 4, and at ``K4_TAILS``; at 24b and 7b, where
+    the clamps must bite (the 7b result differs from the 24b one)."""
+    import torch
     from repro_torch.core import adc as adc_lib
     from repro_torch.kernels import sliced_crossbar as sx
-    for site, (R, C) in SITE_SHAPES.items():
-        xs, planes, mults = k4_inputs(4, R, C, gen)
+    cases = [(site, B, k4_inputs, (B, R, C))
+             for site, (R, C) in SITE_SHAPES.items() for B in K1_BATCHES]
+    cases += [("tail", case[2], k4_full_inputs, case) for case in K4_TAILS]
+    for site, B, make, shape in cases:
+        args = make(*shape, gen)
+        (n_i, _, R), (n_j, _, C) = args[0].shape, args[1].shape
+        outs = {}
         for bits in (24, 7):
             adc = adc_lib.ADCConfig(bits=bits)
             kw = dict(adc_lo=adc.lo, adc_hi=adc.hi)
-            row = compare("sliced_crossbar", sx.launch(xs, planes, mults,
-                                                       **kw),
-                          sx.plain(xs, planes, mults, **kw), site=site, B=4,
-                          R=R, C=C, adc_bits=bits, n_i=8, n_j=3)
-            if bits == 24:
-                row["kernel_ms"] = cuda_ms(
-                    lambda: sx.launch(xs, planes, mults, **kw), 5)
-                row["plain_ms"] = cuda_ms(
-                    lambda: sx.plain(xs, planes, mults, **kw), 1)
-                row["bytes"] = 8 * 4 * R + 3 * R * C + 4 * 24 + 4 * 4 * C
-                row["ops"] = 2 * 8 * 3 * 4 * R * C
+            outs[bits] = sx.launch(*args, **kw)
+            row = compare("sliced_crossbar", outs[bits],
+                          sx.plain(*args, **kw), site=site, B=B, R=R, C=C,
+                          adc_bits=bits, n_i=n_i, n_j=n_j)
+            if bits == 24 and site != "tail" and B == 4:
+                row["kernel_ms"] = cuda_ms(lambda: sx.launch(*args, **kw), 5)
+                row["plain_ms"] = cuda_ms(lambda: sx.plain(*args, **kw), 1)
+            elif bits == 7 and torch.equal(outs[7], outs[24]):
+                raise AssertionError(f"K4 {row} did not clamp at 7b")
             rows.append(row)
             say("kernels", **row)
-        del xs, planes, mults
+        del args, outs
 
 
 def serve_requests(vocab: int):
@@ -1897,11 +1950,43 @@ def k3_step(cfg, plans: dict, gen, rows: list, tag: str,
         **bound(n_bytes, n_ops))
 
 
+K4_SETS = 3  # distinct weight sets K4's timing cycles through
+
+
+def k4_timing(gen, B: int) -> dict:
+    """K4 at the four projection shapes (8 one-bit slices, 3 planes, 24b
+    ADC) at B rows, one call each, on ``K4_SETS`` distinct sets of weights
+    in turn (489 MB a set), so L2 holds none of a call's planes from the
+    repeat before; beside the plain version and the bound."""
+    import itertools
+    from repro_torch.kernels import sliced_crossbar as sx
+    kw = dict(adc_lo=-(1 << 23), adc_hi=(1 << 23) - 1)
+    sets = [[k4_inputs(B, R, C, gen) for R, C in SITE_SHAPES.values()]
+            for _ in range(K4_SETS)]
+    turn = itertools.cycle(sets)
+
+    def step(fn):
+        return [fn(*args, **kw) for args in next(turn)]
+    # x slices, planes and mults read once, psum written once; 8 x 3
+    # products of a multiply and an add per (b, r, c)
+    shapes = SITE_SHAPES.values()
+    n_bytes = sum(8 * B * R + 3 * R * C + 4 * 24 + 4 * B * C
+                  for R, C in shapes)
+    n_ops = sum(2 * 8 * 3 * B * R * C for R, C in shapes)
+    out = dict(ms=cuda_ms(lambda: step(sx.launch), 5),
+               plain_ms=cuda_ms(lambda: step(sx.plain), 1, warmup=0),
+               library_ms=None, calls=len(SITE_SHAPES),
+               **bound(n_bytes, n_ops))
+    del sets, turn
+    return out
+
+
 def phase_timing(ctx: dict, rows: list) -> list:
     """Time one decode step's worth of each kernel's calls (B = 4 slots)
     on the compiled plans: distinct weights per layer, as the model has
     them, so the 50 MB L2 holds none of them between calls. K4, which no
-    path calls, is timed at the four projection shapes."""
+    path calls, is timed at the four projection shapes at B = 4 and 64,
+    its weights distinct per repeat."""
     import torch
     from repro_torch.kernels import fused_crossbar as fx
     from repro_torch.kernels import fused_spec_crossbar as fs
@@ -1951,20 +2036,21 @@ def phase_timing(ctx: dict, rows: list) -> list:
     # share of the step that no kernel design removes
     z = torch.empty(1, device="cuda")
     k3["launch_floor_ms"] = cuda_ms(lambda: [z.zero_() for _ in k3_calls], 5)
-    # K4: the kernels phase's four 24b site rows
-    k4_rows = [r for r in rows if r["kernel"] == "sliced_crossbar"
-               and "kernel_ms" in r]
-    k4 = dict(ms=sum(r["kernel_ms"] for r in k4_rows),
-              plain_ms=sum(r["plain_ms"] for r in k4_rows),
-              library_ms=None, calls=len(k4_rows),
-              **bound(sum(r["bytes"] for r in k4_rows),
-                      sum(r["ops"] for r in k4_rows)))
+    # K4: the four projection shapes, cold weights; beside it the kernels
+    # phase's per-shape times (each shape repeated on one set of weights,
+    # the way earlier runs timed it)
+    k4 = k4_timing(gen, 4)
+    k4["kernels_phase_ms"] = sum(
+        r["kernel_ms"] for r in rows
+        if r["kernel"] == "sliced_crossbar" and "kernel_ms" in r)
+    k4_64 = k4_timing(gen, 64)
     table = (("fused_crossbar", k1, "one decode step, B=4, speculation off"),
              ("fused_spec_crossbar", k2, "one decode step, B=4"),
              ("fused_spec_crossbar", k2a,
               "one decode step, B=4, Algorithm 1's plans"),
              ("centered_int8_matmul", k3, "one decode step, B=4"),
-             ("sliced_crossbar", k4, "the four projection shapes, B=4"))
+             ("sliced_crossbar", k4, "the four projection shapes, B=4"),
+             ("sliced_crossbar", k4_64, "the four projection shapes, B=64"))
     for name, d, scope in table:
         say("timing", kernel=name, scope=scope, **d)
     moe = {"fused_spec_crossbar": ctx.get("moe_k2"),
@@ -2015,7 +2101,7 @@ def phase_timing(ctx: dict, rows: list) -> list:
                             0)}
     out = []
     for name, d, _ in table:
-        if d is k2a:  # the kernels line keeps the main path's K2 step
+        if d is k2a or d is k4_64:  # the kernels line keeps one row each
             continue
         src, rep, launches = meta[name]
         out.append(dict(
@@ -2025,6 +2111,9 @@ def phase_timing(ctx: dict, rows: list) -> list:
             max_abs_err=err(name), ms=d["ms"], plain_ms=d["plain_ms"],
             bound_ms=d["bound_ms"], bound_by=d["bound_by"],
             library_ms=d["library_ms"]))
+        if d is k4:  # and K4 at B = 64, where operations bound it
+            out[-1].update({f"b64_{k}": k4_64[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         if moe_launches[name] is not None:  # the MoE path's own run
             m = moe.get(name) or {}
             out[-1].update(

@@ -1,10 +1,12 @@
-"""The launch plan of the bit-plane int8 GEMM that K1 and K2 share.
+"""The launch plan of the int8 GEMM that K1, K2 and K4 share.
 
 Python mirror of ``csrc/bitplane_gemm.cuh``: its constants, the shared
-memory a block asks for, the tile plan (batch tile, cluster, pairs per
-rank, grid) and the counts buffers that each launch zeroes for the next
-launch of the same kernel. Plain Python, so the CPU tests reach it; the C
-launchers refuse a plan whose constants differ from the header's.
+memory a block asks for under each x operand (``X_ROW_BYTES``: K1's and
+K2's int32 codes, K4's int8 slices), the tile plan (batch tile, cluster,
+pairs per rank, grid) and the counts buffers that each launch zeroes for
+the next launch of the same kernel. Plain Python, so the CPU tests reach
+it; the C launchers refuse a plan whose constants differ from the
+header's.
 """
 
 from __future__ import annotations
@@ -18,9 +20,12 @@ from repro_torch.kernels import build
 ROWS_PER_XBAR = 512  # the segment length the kernels are compiled for
 MAX_SLICES = 8       # input (or spec) slices and planes per launch
 BN, BK, STAGES = 64, 128, 4
-BITS = 8                    # input code bits: the bit planes of the GEMM
+BITS = 8                    # B fragment columns: bit planes or slices
 BATCH_TILES = (1, 2, 4)     # batch rows per block: one n8 tile each
-X_STRIDE = 4 * BK + 16      # staged x row stride in bytes (int32 codes)
+SLICE_STRIDE = BK + 16      # staged bytes a slice of a batch row (K4)
+# staged x bytes a batch row per x operand (bitplane::CodesX, SlicesX):
+# int32 codes with 16 bytes of padding, or 8 padded int8 slices
+X_ROW_BYTES = {"codes": 4 * BK + 16, "slices": MAX_SLICES * SLICE_STRIDE}
 SLAB_STRIDE = BN + 1        # int32 per (row, bit plane) of the slab
 XSUM_BYTES = 32             # two parities of 4 x row sums
 MAX_CLUSTER = 8             # portable thread-block cluster size
@@ -40,24 +45,26 @@ class TilePlan(NamedTuple):
     grid: tuple[int, int]  # (batch tiles * cluster, column tiles)
 
 
-def smem_bytes(bt: int, cluster: int) -> int:
-    """The ring of stages (plane tile + padded int32 x rows); the slab the
-    warps reduce into (bt x 8 rows of ``SLAB_STRIDE`` int32) and the x row
-    sums; in a cluster of 2 or more the reduction's inbox (cluster slots of
-    ceil(bt * BN / cluster) uint32); mults and the block's counters; each
-    part rounded up to 16 bytes."""
+def smem_bytes(bt: int, cluster: int, x: str = "codes") -> int:
+    """The ring of stages (plane tile + the x operand's padded rows,
+    ``X_ROW_BYTES[x]`` a batch row); the slab the warps reduce into (bt x
+    8 rows of ``SLAB_STRIDE`` int32) and the x row sums; in a cluster of 2
+    or more the reduction's inbox (cluster slots of ceil(bt * BN /
+    cluster) uint32); mults and the block's counters; each part rounded up
+    to 16 bytes."""
     def r16(n):
         return -(-n // 16) * 16
-    ring = STAGES * (BK * BN + bt * X_STRIDE)
+    ring = STAGES * (BK * BN + bt * X_ROW_BYTES[x])
     slab = r16(bt * BITS * SLAB_STRIDE * 4)
     inbox = cluster * -(-bt * BN // cluster) * 4 if cluster > 1 else 0
     return ring + slab + XSUM_BYTES + r16(inbox) + TABLE_BYTES
 
 
 def tile_plan(B: int, R: int, C: int, n_j: int, n_seg: int | None = None,
-              bt: int | None = None) -> TilePlan:
-    """Launch plan for x (B, R) and planes (n_j, n_seg * 512, C)
-    (``n_seg`` defaults to the fewest segments that hold R).
+              bt: int | None = None, x: str = "codes") -> TilePlan:
+    """Launch plan for B batch rows of R rows against planes (n_j, n_seg *
+    512, C) (``n_seg`` defaults to the fewest segments that hold R), x
+    being the operand ``x`` ("codes" or "slices", which sizes its stage).
 
     The batch tile is the fewest rows of 1, 2 or 4 (one n8 tile per row)
     that hold B, at most 4 (``bt`` forces one of them instead, for
@@ -86,7 +93,7 @@ def tile_plan(B: int, R: int, C: int, n_j: int, n_seg: int | None = None,
     ppr = -(-n_pairs // want)
     cluster = -(-n_pairs // ppr)
     return TilePlan(bt, BN, BK, STAGES, cluster, ppr,
-                    smem_bytes(bt, cluster),
+                    smem_bytes(bt, cluster, x),
                     (batch_tiles * cluster, col_tiles))
 
 

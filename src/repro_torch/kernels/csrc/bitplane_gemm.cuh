@@ -1,10 +1,13 @@
-// The int8 bit-plane GEMM over 512-row crossbar segments that K1
-// (fused_crossbar.cu) and K2 (fused_spec_crossbar.cu) share: staging,
-// tensor-core fragments, the per-segment reduction, the cluster reduction
-// and the launch. Each kernel adds its own epilogue, which turns the 8
-// bit-plane sums of one (b, c) and one (segment, plane) into a uint32
-// contribution and counts its ADC events. Python mirror of the constants
-// and the launch plan: repro_torch/kernels/bitplane.py.
+// The int8 GEMM over 512-row crossbar segments that K1
+// (fused_crossbar.cu), K2 (fused_spec_crossbar.cu) and K4
+// (sliced_crossbar.cu) share: staging, tensor-core fragments, the
+// per-segment reduction, the cluster reduction and the launch. Each kernel
+// adds its own epilogue, which turns the 8 column sums of one (b, c) and
+// one (segment, plane) into a uint32 contribution and counts its ADC
+// events, and names its x operand (CodesX or SlicesX below), which says
+// how x is staged and what the 8 columns of the B fragment are. Python
+// mirror of the constants and the launch plan:
+// repro_torch/kernels/bitplane.py.
 //
 // The identity it rests on: every input-slice, speculative and recovery
 // column sum is a linear combination of the 8 bit-plane dots d[p] =
@@ -74,9 +77,23 @@
 //   ahead, per kernel and stream), so no extra kernel and no grid-wide
 //   ordering is needed.
 //
+// K4's x operand (SlicesX). K4's inputs arrive pre-sliced, (n_i, B, R)
+// int8 of any value, against planes (n_j, R, C) at stride R. Its n8 tile
+// of batch row n has input slice g as column g (n_i <= 8; columns past n_i
+// hold stale bytes whose sums no epilogue reads), so B register q of lane
+// (g, t) is one 32-bit word of x_slices[g, b, r:r+4] as it lies in
+// memory, with no shift or mask: the first n_i of the 8 accumulators of
+// one (b, c) per pair are the slice column sums themselves. The stage
+// holds [batch row][slice][row] bytes, each slice's 128 rows padded to
+// BK + 16 bytes so the lanes' words fall in 32 distinct banks. It has no
+// row sums, center term or counters, and its planes' rows at or past R,
+// like its x rows, are zero-filled by the copies' src-size, so no call
+// pads the planes. It takes the word-load path unless R and C are
+// multiples of 16.
+//
 // Integer arithmetic wraps modulo 2^32 like the reference's int32: the
-// s32 accumulators cannot overflow (|d| <= 512 * 128), and contributions,
-// row sums and the center term add in uint32.
+// s32 accumulators cannot overflow (|d| <= 512 * 128 * 128), and
+// contributions, row sums and the center term add in uint32.
 
 #pragma once
 
@@ -90,7 +107,7 @@ namespace bitplane {
 namespace cg = cooperative_groups;
 
 constexpr int ROWS = 512;        // rows per crossbar segment (ADC span)
-constexpr int BITS = 8;          // input code bits = bit planes = n8
+constexpr int BITS = 8;          // B columns (n8): bit planes or slices
 constexpr int MAX_I = 8;         // input (or spec) slices
 constexpr int MAX_J = 8;         // weight planes
 constexpr int BN = 64;           // output columns per block: 4 m16 tiles
@@ -100,7 +117,6 @@ constexpr int STAGES = 4;        // cp.async ring depth
 constexpr int WARPS = 4;         // warps per block, one k32 step of a stage
 constexpr int THREADS = 32 * WARPS;
 constexpr int MAX_CLUSTER = 8;   // portable cluster size
-constexpr int XS = 4 * BK + 16;  // staged x row stride in bytes (int32 codes)
 constexpr int W_STAGE = BK * BN;
 constexpr int MAX_BT = 4;        // batch rows per block (n8 tiles)
 constexpr int XSUM_BYTES = 2 * MAX_BT * 4;
@@ -109,11 +125,33 @@ constexpr int TABLE_BYTES =  // mults, then the block's counters
     16 * ((4 * MAX_I * MAX_J + 8 * MAX_SLOTS + 15) / 16);
 constexpr int SLAB_S = BN + 1;   // slab row stride in int32 (spreads banks)
 
+// The x operand of K1 and K2: (B, R) int32 codes 0..255 against planes
+// (n_j, n_seg * 512, C) that hold every row of the last segment. Column g
+// of a batch row's n8 tile is bit plane g of its codes; the segment's code
+// sums give the center term at plane 0.
+struct CodesX {
+  using T = int32_t;
+  static constexpr bool ROW_SUMS = true;  // x row sums and the center term
+  static constexpr bool PADDED = true;    // planes hold n_seg * 512 rows
+  static constexpr int ROW_BYTES = 4 * BK + 16;  // staged bytes a batch row
+};
+// The x operand of K4: (n_i, B, R) int8 slices against planes (n_j, R, C),
+// rows at or past R zero-filled on both sides. Column g of a batch row's n8
+// tile is input slice g (stale past n_i). No row sums, no center term.
+struct SlicesX {
+  using T = int8_t;
+  static constexpr bool ROW_SUMS = false;
+  static constexpr bool PADDED = false;
+  static constexpr int SLICE_BYTES = BK + 16;  // a slice's rows, padded
+  static constexpr int ROW_BYTES = MAX_I * SLICE_BYTES;
+};
+
+template <class X>
 __host__ __device__ constexpr int stage_bytes(int bt) {
-  return W_STAGE + bt * XS;
+  return W_STAGE + bt * X::ROW_BYTES;
 }
-// Shared memory: the ring; the slab the warps reduce into ([bt][8 bit
-// planes] rows of SLAB_S int32, one per column); two parities of x row
+// Shared memory: the ring; the slab the warps reduce into ([bt][8 columns]
+// rows of SLAB_S int32, one per output column); two parities of x row
 // sums (2 x MAX_BT uint32); in a cluster of 2 or more the reduction's inbox
 // (cluster slots of ceil(bt * BN / cluster) uint32); mults and the block's
 // counters. Each part starts 16-byte aligned.
@@ -126,14 +164,16 @@ __host__ __device__ constexpr int per_rank(int bt, int cluster) {
 __host__ __device__ constexpr int inbox_bytes(int bt, int cluster) {
   return cluster > 1 ? cluster * per_rank(bt, cluster) * 4 : 0;
 }
+template <class X>
 __host__ __device__ constexpr int smem_bytes(int bt, int cluster) {
-  return STAGES * stage_bytes(bt) + slab_bytes(bt) + XSUM_BYTES +
+  return STAGES * stage_bytes<X>(bt) + slab_bytes(bt) + XSUM_BYTES +
          16 * ((inbox_bytes(bt, cluster) + 15) / 16) + TABLE_BYTES;
 }
+template <class X>
 __host__ __device__ constexpr int smem_bytes_max(int bt) {
   int m = 0;
   for (int c = 1; c <= MAX_CLUSTER; ++c)
-    m = smem_bytes(bt, c) > m ? smem_bytes(bt, c) : m;
+    m = smem_bytes<X>(bt, c) > m ? smem_bytes<X>(bt, c) : m;
   return m;
 }
 
@@ -141,6 +181,7 @@ __host__ __device__ constexpr int smem_bytes_max(int bt) {
 // constants: bn, bk, stages and smem must equal them; bt is the batch tile
 // (1, 2 or 4 rows), cluster the ranks (1..8) and ppr the (segment, plane)
 // pairs per rank, with no rank empty.
+template <class X>
 inline bool plan_ok(int B, int R, int C, int n_seg, int n_j, int bn, int bk,
                     int stages, int bt, int cluster, int ppr, int smem) {
   const int n_pairs = n_seg * n_j;
@@ -149,8 +190,8 @@ inline bool plan_ok(int B, int R, int C, int n_seg, int n_j, int bn, int bk,
          (bt == 1 || bt == 2 || bt == 4) && stages == STAGES &&
          cluster >= 1 && cluster <= MAX_CLUSTER && ppr >= 1 &&
          (long long)cluster * ppr >= n_pairs &&
-         (cluster - 1) * ppr < n_pairs && smem == smem_bytes(bt, cluster) &&
-         (C + BN - 1) / BN <= 65535;
+         (cluster - 1) * ppr < n_pairs &&
+         smem == smem_bytes<X>(bt, cluster) && (C + BN - 1) / BN <= 65535;
 }
 
 // Per input slice i and input bit p, the slice's weight of the bit: 1 << (p
@@ -171,8 +212,9 @@ inline bool slice_weights(int n_i, const int* li, const int* mask,
 }
 
 // Operands whose rows all start 16-byte aligned take the cp.async path.
+template <class X>
 inline bool vec_ok(const void* x, const void* w, int R, int C) {
-  return R % 4 == 0 && C % 16 == 0 &&
+  return R * sizeof(typename X::T) % 16 == 0 && C % 16 == 0 &&
          reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(w) % 16 == 0;
 }
@@ -209,15 +251,18 @@ __device__ __forceinline__ int w_off_in_stage(int r, int c) {
 }
 
 // Stage this warp's 32 rows of a stage -- stage rows 32*warp .. +31, the
-// rows its k32 step reads -- of one plane (global row w_row0 = j * Rp + k0
-// is the stage's first) for columns [col0, col0 + BN), and the matching x
-// codes of batch rows [b0, b0 + BT); columns past C, batch rows past B and
-// x rows past R read as zero (the planes hold every row below Rp).
-template <int BT, bool VEC>
+// rows its k32 step reads -- of one plane (global row w_row0 = j * plane
+// rows + k0 is the stage's first) for columns [col0, col0 + BN), and the
+// matching x of batch rows [b0, b0 + BT): X's codes, or its n_i slices at
+// [batch row][slice][row] (the slots of slices past n_i are left stale:
+// their column sums are never read). Columns past C, batch rows past B
+// and x rows past R read as zero, and so do plane rows past R where the
+// planes are not padded.
+template <int BT, bool VEC, class X>
 __device__ __forceinline__ void load_rows(
-    uint8_t* st, const int32_t* __restrict__ x, const int8_t* __restrict__ w,
-    int B, int R, int C, int b0, int col0, int k0, size_t w_row0, int warp,
-    int lane) {
+    uint8_t* st, const typename X::T* __restrict__ x,
+    const int8_t* __restrict__ w, int B, int R, int C, int n_i, int b0,
+    int col0, int k0, size_t w_row0, int warp, int lane) {
   uint8_t* xs = st + W_STAGE;
   const int rw = 32 * warp;  // the warp's first stage row
   if constexpr (VEC) {
@@ -225,30 +270,65 @@ __device__ __forceinline__ void load_rows(
     const bool ok = col < C;
     const int8_t* src = w + (w_row0 + r) * (size_t)C + col;
 #pragma unroll
-    for (int q = 0; q < 4; ++q)  // rows r + 8q
+    for (int q = 0; q < 4; ++q) {  // rows r + 8q
+      const bool okq = ok && (X::PADDED || k0 + r + 8 * q < R);
       cp16(st + w_off_in_stage(r + 8 * q, c),
-           ok ? src + (size_t)(8 * q) * C : w, ok ? 16 : 0);
-    for (int e = lane; e < BT * 8; e += 32) {
-      const int b = e >> 3, kr = rw + 4 * (e & 7), k = k0 + kr, row = b0 + b;
-      const bool okx = row < B && k < R;  // R is a multiple of 4
-      cp16(xs + b * XS + 4 * kr, okx ? x + (size_t)row * R + k : x,
-           okx ? 16 : 0);
+           okq ? src + (size_t)(8 * q) * C : w, okq ? 16 : 0);
+    }
+    if constexpr (X::ROW_SUMS) {
+      for (int e = lane; e < BT * 8; e += 32) {
+        const int b = e >> 3, kr = rw + 4 * (e & 7), k = k0 + kr;
+        const int row = b0 + b;
+        const bool okx = row < B && k < R;  // R is a multiple of 4
+        cp16(xs + b * X::ROW_BYTES + 4 * kr,
+             okx ? x + (size_t)row * R + k : x, okx ? 16 : 0);
+      }
+    } else {
+      // two 16-byte chunks of the warp's 32 rows per (batch row, slice)
+      for (int e = lane; e < BT * MAX_I * 2; e += 32) {
+        const int b = e >> 4, i = (e >> 1) & (MAX_I - 1);
+        const int kr = rw + 16 * (e & 1), k = k0 + kr, row = b0 + b;
+        if (i >= n_i) continue;
+        const bool okx = row < B && k < R;  // R is a multiple of 16
+        cp16(xs + b * X::ROW_BYTES + i * X::SLICE_BYTES + kr,
+             okx ? x + ((size_t)i * B + row) * R + k : x, okx ? 16 : 0);
+      }
     }
   } else {
     for (int e = lane; e < 32 * (BN / 4); e += 32) {
       const int r = rw + (e >> 4), wd = e & 15, col = col0 + 4 * wd;
+      const bool rok = X::PADDED || k0 + r < R;
       const int8_t* src = w + (w_row0 + r) * (size_t)C;
       uint32_t v = 0u;
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        if (col + q < C) v |= (uint32_t)(uint8_t)src[col + q] << (8 * q);
+        if (rok && col + q < C)
+          v |= (uint32_t)(uint8_t)src[col + q] << (8 * q);
       *reinterpret_cast<uint32_t*>(st + w_off_in_stage(r, wd >> 2) +
                                    4 * (wd & 3)) = v;
     }
-    for (int e = lane; e < BT * 32; e += 32) {
-      const int b = e >> 5, kr = rw + (e & 31), k = k0 + kr, row = b0 + b;
-      reinterpret_cast<int32_t*>(xs + b * XS)[kr] =
-          (row < B && k < R) ? x[(size_t)row * R + k] : 0;
+    if constexpr (X::ROW_SUMS) {
+      for (int e = lane; e < BT * 32; e += 32) {
+        const int b = e >> 5, kr = rw + (e & 31), k = k0 + kr, row = b0 + b;
+        reinterpret_cast<int32_t*>(xs + b * X::ROW_BYTES)[kr] =
+            (row < B && k < R) ? x[(size_t)row * R + k] : 0;
+      }
+    } else {
+      // one word (4 rows) per lane and step: 8 per (batch row, slice)
+      for (int e = lane; e < BT * MAX_I * 8; e += 32) {
+        const int b = e >> 6, i = (e >> 3) & (MAX_I - 1);
+        const int kr = rw + 4 * (e & 7), row = b0 + b;
+        if (i >= n_i) continue;
+        uint32_t v = 0u;
+        if (row < B) {
+          const int8_t* src = x + ((size_t)i * B + row) * R + k0 + kr;
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (k0 + kr + q < R) v |= (uint32_t)(uint8_t)src[q] << (8 * q);
+        }
+        *reinterpret_cast<uint32_t*>(xs + b * X::ROW_BYTES +
+                                     i * X::SLICE_BYTES + kr) = v;
+      }
     }
   }
 }
@@ -271,23 +351,28 @@ __device__ __forceinline__ uint32_t pack_bytes(int4 v) {
 // The body of a kernel on the grid (batch tiles * cluster, column tiles)
 // with clusters of (cluster, 1, 1): cluster rank r owns the (segment,
 // plane) pairs [r*ppr, (r+1)*ppr), pair p being segment p / n_j and plane
-// p % n_j. `epi` is the kernel's epilogue:
+// p % n_j. X is the x operand (CodesX, SlicesX). `epi` is the kernel's
+// epilogue:
 //   uint32_t epi(const int (&d)[BITS], bool ok, const int32_t* mj)
 //     one (b, c)'s contribution for one (segment, plane) from its 8
-//     bit-plane sums d; mj[i * MAX_J] is mults(i, j) of the pair's plane;
-//     counters only where ok (inside the true (B, C) extent);
-//   epi.count(add) calls add(v, slot) for each counter held in registers;
-//   epi.slots() counters of the call, Epi::SLOTS those its buffer holds.
-// mults is (n_i, n_j) int32; counts (epi.slots(),) the call's counters,
-// zero before the launch; next_counts (Epi::SLOTS,), zeroed here.
-template <int BT, bool VEC, class Epi>
+//     column sums d (bit planes or slices); mj[i * MAX_J] is mults(i, j)
+//     of the pair's plane; counters only where ok (inside the true (B, C)
+//     extent);
+//   Epi::SLOTS counters its buffer holds; where that is not 0,
+//   epi.count(add) calls add(v, slot) for each counter held in registers
+//   and epi.slots() is the call's number of counters.
+// mults is (n_i, n_j) int32; centers (n_seg, C) int32 where X has row
+// sums; counts (epi.slots(),) the call's counters, zero before the launch;
+// next_counts (Epi::SLOTS,), zeroed here. An epilogue with no slots and an
+// operand with no row sums leave those pointers untouched (null).
+template <int BT, bool VEC, class X, class Epi>
 __device__ __forceinline__ void gemm(
-    const int32_t* __restrict__ x, const int8_t* __restrict__ w,
+    const typename X::T* __restrict__ x, const int8_t* __restrict__ w,
     const int32_t* __restrict__ mults, const int32_t* __restrict__ centers,
     int32_t* __restrict__ out, unsigned long long* __restrict__ counts,
     unsigned long long* __restrict__ next_counts, int B, int R, int C,
     int n_seg, int n_j, int ppr, int n_i, Epi& epi) {
-  constexpr int SB = stage_bytes(BT);
+  constexpr int SB = stage_bytes<X>(BT);
   constexpr int TILE = BT * BN;                     // (b, c) elements
   constexpr int EL = (TILE + THREADS - 1) / THREADS;  // per thread
   extern __shared__ __align__(16) uint8_t smem[];
@@ -299,7 +384,8 @@ __device__ __forceinline__ void gemm(
   const int n_pairs = n_seg * n_j;
   const int p_lo = min(n_pairs, rank * ppr);
   const int nk = (min(n_pairs, p_lo + ppr) - p_lo) * SUBS;
-  const size_t Rp = (size_t)n_seg * ROWS;
+  // rows per plane in memory: padded to whole segments, or R
+  const size_t Rp = X::PADDED ? (size_t)n_seg * ROWS : (size_t)R;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 
@@ -327,8 +413,8 @@ __device__ __forceinline__ void gemm(
       int k0;
       size_t w_row0;
       stage_rows(st, k0, w_row0);
-      load_rows<BT, VEC>(smem + st * SB, x, w, B, R, C, b0, col0, k0, w_row0,
-                         warp, lane);
+      load_rows<BT, VEC, X>(smem + st * SB, x, w, B, R, C, n_i, b0, col0, k0,
+                            w_row0, warp, lane);
     }
     cp_commit();
   }
@@ -338,9 +424,11 @@ __device__ __forceinline__ void gemm(
   }
   for (int e = threadIdx.x; e < BT * BITS * SLAB_S; e += THREADS) slab[e] = 0;
   if (threadIdx.x < 2 * MAX_BT) xsum_s[threadIdx.x] = 0u;
-  if (threadIdx.x < MAX_SLOTS) red[threadIdx.x] = 0ull;
-  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x < Epi::SLOTS)
-    next_counts[threadIdx.x] = 0ull;  // the next launch's counts
+  if constexpr (Epi::SLOTS > 0) {
+    if (threadIdx.x < MAX_SLOTS) red[threadIdx.x] = 0ull;
+    if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x < Epi::SLOTS)
+      next_counts[threadIdx.x] = 0ull;  // the next launch's counts
+  }
   __syncthreads();
 
   int acc[4][BT][4];
@@ -366,13 +454,14 @@ __device__ __forceinline__ void gemm(
       int k0;
       size_t w_row0;
       stage_rows(nx, k0, w_row0);
-      load_rows<BT, VEC>(smem + (nx % STAGES) * SB, x, w, B, R, C, b0, col0,
-                         k0, w_row0, warp, lane);
+      load_rows<BT, VEC, X>(smem + (nx % STAGES) * SB, x, w, B, R, C, n_i,
+                            b0, col0, k0, w_row0, warp, lane);
     }
     cp_commit();
     const uint8_t* ws = smem + (it % STAGES) * SB;
     const uint8_t* xsb = ws + W_STAGE;
-    const bool plane0 = (p_lo + it / SUBS) % n_j == 0;  // row sums needed
+    // row sums needed
+    const bool plane0 = X::ROW_SUMS && (p_lo + it / SUBS) % n_j == 0;
     if (plane0 && it % SUBS == 0) {
       // the segment's centers of this thread's columns, read now and used
       // at the pair's end
@@ -405,19 +494,32 @@ __device__ __forceinline__ void gemm(
       a[2][reg] = __byte_perm(t1, t3, 0x5410);
       a[3][reg] = __byte_perm(t1, t3, 0x7632);
     }
-    // B: n8 tile n is batch row n, its column g bit plane g; register q
-    // holds rows 32*warp + 16q + 4t .. +3, one bit per byte
+    // B: n8 tile n is batch row n; register q holds rows 32*warp + 16q +
+    // 4t .. +3 of its column g, one byte per row: bit plane g of the codes
+    // (one bit per byte), or input slice g's values as staged
 #pragma unroll
     for (int n = 0; n < BT; ++n) {
-      const int4* xr = reinterpret_cast<const int4*>(
-          xsb + n * XS + 4 * (warp * 32 + 4 * t));
-      const int4 v0 = xr[0], v1 = xr[4];
-      if (plane0)
-        xs_acc[n] += (uint32_t)v0.x + (uint32_t)v0.y + (uint32_t)v0.z +
-                     (uint32_t)v0.w + (uint32_t)v1.x + (uint32_t)v1.y +
-                     (uint32_t)v1.z + (uint32_t)v1.w;
-      const uint32_t bx0 = (pack_bytes(v0) >> g) & 0x01010101u;
-      const uint32_t bx1 = (pack_bytes(v1) >> g) & 0x01010101u;
+      uint32_t bx0, bx1;
+      if constexpr (X::ROW_SUMS) {
+        const int4* xr = reinterpret_cast<const int4*>(
+            xsb + n * X::ROW_BYTES + 4 * (warp * 32 + 4 * t));
+        const int4 v0 = xr[0], v1 = xr[4];
+        if (plane0)
+          xs_acc[n] += (uint32_t)v0.x + (uint32_t)v0.y + (uint32_t)v0.z +
+                       (uint32_t)v0.w + (uint32_t)v1.x + (uint32_t)v1.y +
+                       (uint32_t)v1.z + (uint32_t)v1.w;
+        bx0 = (pack_bytes(v0) >> g) & 0x01010101u;
+        bx1 = (pack_bytes(v1) >> g) & 0x01010101u;
+      } else {
+        // lane (g, t) reads word g * SLICE_BYTES / 4 + t (+ 4q): banks
+        // 4g + t, all 32 distinct. Columns g >= n_i read stale bytes: D's
+        // column g depends on B's column g alone, and no epilogue reads
+        // those sums.
+        const uint8_t* xr = xsb + n * X::ROW_BYTES + g * X::SLICE_BYTES +
+                            warp * 32 + 4 * t;
+        bx0 = *reinterpret_cast<const uint32_t*>(xr);
+        bx1 = *reinterpret_cast<const uint32_t*>(xr + 16);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) mma_s8(acc[i][n], a[i], bx0, bx1);
     }
@@ -467,7 +569,7 @@ __device__ __forceinline__ void gemm(
       }
       const bool ok = b0 + b < B && col < C;
       contrib[k] += epi(d, ok, mults_s + j);
-      if (j == 0) contrib[k] += xsum_s[q * MAX_BT + b] * cen[k];
+      if (X::ROW_SUMS && j == 0) contrib[k] += xsum_s[q * MAX_BT + b] * cen[k];
     }
     __syncthreads();  // the slab is read before any warp adds the next pair
   }
@@ -475,15 +577,18 @@ __device__ __forceinline__ void gemm(
 
   // counters: warp, then block, then one global atomic per non-zero
   // counter into the counts the previous launch zeroed
-  epi.count([&](unsigned v, int slot) {
-    if (!__any_sync(0xffffffffu, v != 0u)) return;  // nothing to add
+  if constexpr (Epi::SLOTS > 0) {
+    epi.count([&](unsigned v, int slot) {
+      if (!__any_sync(0xffffffffu, v != 0u)) return;  // nothing to add
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (lane == 0) atomicAdd(&red[slot], (unsigned long long)v);
-  });
-  __syncthreads();
-  if (threadIdx.x < epi.slots() && red[threadIdx.x])
-    atomicAdd(&counts[threadIdx.x], red[threadIdx.x]);
+      for (int o = 16; o > 0; o >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) atomicAdd(&red[slot], (unsigned long long)v);
+    });
+    __syncthreads();
+    if (threadIdx.x < epi.slots() && red[threadIdx.x])
+      atomicAdd(&counts[threadIdx.x], red[threadIdx.x]);
+  }
 
   // Rank r owns tile elements [r*per, (r+1)*per), element e = b*BN + c.
   // Every rank pushes its contributions for those elements into slot
@@ -521,23 +626,24 @@ __device__ __forceinline__ void gemm(
 }
 
 // Launch `kern` (one batch-tile instantiation BT of a kernel built on
-// gemm) on the grid (batch tiles * cluster, column tiles) with a cluster of
-// `cluster` blocks. `attr_set` is the instantiation's own flag: the first
-// launch lifts its dynamic shared memory limit to what any cluster size
-// needs.
-template <int BT, class... KArgs, class... Args>
+// gemm with x operand X) on the grid (batch tiles * cluster, column tiles)
+// with a cluster of `cluster` blocks. `attr_set` is the instantiation's own
+// flag: the first launch lifts its dynamic shared memory limit to what any
+// cluster size needs.
+template <int BT, class X, class... KArgs, class... Args>
 cudaError_t launch(void (*kern)(KArgs...), bool& attr_set, int B, int C,
                    int cluster, cudaStream_t stream, Args&&... args) {
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes_max(BT));
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes_max<X>(BT));
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((B + BT - 1) / BT * cluster, (C + BN - 1) / BN, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem_bytes(BT, cluster);
+  cfg.dynamicSmemBytes = smem_bytes<X>(BT, cluster);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;

@@ -88,8 +88,8 @@ __global__ void __launch_bounds__(THREADS) crossbar_kernel(
     int n_seg, int n_j, int ppr, int lo, int hi,
     const __grid_constant__ Tables tab) {
   CrossbarEpilogue epi(tab, lo, hi);
-  gemm<BT, VEC>(x, w, mults, centers, out, counts, next_counts, B, R, C,
-                n_seg, n_j, ppr, tab.n_i, epi);
+  gemm<BT, VEC, CodesX>(x, w, mults, centers, out, counts, next_counts, B,
+                        R, C, n_seg, n_j, ppr, tab.n_i, epi);
 }
 
 template <bool VEC>
@@ -101,9 +101,9 @@ cudaError_t launch_bt(const int32_t* x, const int8_t* w, const int32_t* m,
                       cudaStream_t st) {
   static bool attr[3] = {};  // one attribute call per instantiation
   switch (bt) {
-    case 1: return launch<1>(crossbar_kernel<1, VEC>, attr[0], B, C, cluster, st, x, w, m, c, out, counts, next, B, R, C, n_seg, n_j, ppr, lo, hi, tab);
-    case 2: return launch<2>(crossbar_kernel<2, VEC>, attr[1], B, C, cluster, st, x, w, m, c, out, counts, next, B, R, C, n_seg, n_j, ppr, lo, hi, tab);
-    case 4: return launch<4>(crossbar_kernel<4, VEC>, attr[2], B, C, cluster, st, x, w, m, c, out, counts, next, B, R, C, n_seg, n_j, ppr, lo, hi, tab);
+    case 1: return launch<1, CodesX>(crossbar_kernel<1, VEC>, attr[0], B, C, cluster, st, x, w, m, c, out, counts, next, B, R, C, n_seg, n_j, ppr, lo, hi, tab);
+    case 2: return launch<2, CodesX>(crossbar_kernel<2, VEC>, attr[1], B, C, cluster, st, x, w, m, c, out, counts, next, B, R, C, n_seg, n_j, ppr, lo, hi, tab);
+    case 4: return launch<4, CodesX>(crossbar_kernel<4, VEC>, attr[2], B, C, cluster, st, x, w, m, c, out, counts, next, B, R, C, n_seg, n_j, ppr, lo, hi, tab);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -128,7 +128,8 @@ extern "C" int fused_crossbar_launch(
     int adc_hi, int bn, int bk, int stages, int bt, int cluster, int ppr,
     int smem, void* stream) {
   if (n_i < 1 || n_i > MAX_I ||
-      !plan_ok(B, R, C, n_seg, n_j, bn, bk, stages, bt, cluster, ppr, smem))
+      !plan_ok<CodesX>(B, R, C, n_seg, n_j, bn, bk, stages, bt, cluster, ppr,
+                       smem))
     return (int)cudaErrorInvalidValue;
   Tables tab{};
   tab.n_i = n_i;
@@ -141,7 +142,7 @@ extern "C" int fused_crossbar_launch(
   auto* kp = static_cast<unsigned long long*>(counts);
   auto* nk = static_cast<unsigned long long*>(next_counts);
   auto st = static_cast<cudaStream_t>(stream);
-  return (int)(vec_ok(x, w, R, C)
+  return (int)(vec_ok<CodesX>(x, w, R, C)
                    ? launch_bt<true>(xp, wp, mp, cp, op, kp, nk, B, R, C,
                                      n_seg, n_j, adc_lo, adc_hi, tab, bt,
                                      cluster, ppr, st)

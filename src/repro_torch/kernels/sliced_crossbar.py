@@ -3,10 +3,12 @@
 Replaces the Pallas TPU kernel ``repro/kernels/sliced_crossbar.py``
 (``sliced_crossbar_matmul``): K1's per-segment clamp and shift+add on inputs
 that arrive already sliced, without the center term or counters. The CUDA
-source is ``csrc/sliced_crossbar.cu``; ``plain``
-(``ref.sliced_crossbar_matmul``) is its plain PyTorch version. ``forward``
-takes ``plain`` for CPU tensors only; on CUDA tensors it launches the
-kernel or raises.
+source is ``csrc/sliced_crossbar.cu``: the int8 GEMM that K1 and K2 share
+(``csrc/bitplane_gemm.cuh``) with the slice operand in place of the bit
+planes and K4's own epilogue. ``plain`` (``ref.sliced_crossbar_matmul``)
+is its plain PyTorch version. ``forward`` takes ``plain`` for CPU tensors
+only; on CUDA tensors it launches the kernel or raises. ``tile_plan``
+sizes the launch in plain Python, so the CPU tests reach it.
 """
 
 from __future__ import annotations
@@ -15,22 +17,22 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
-from repro_torch.kernels.bitplane import MAX_SLICES
+from repro_torch.kernels import bitplane, build, ref
+from repro_torch.kernels.bitplane import MAX_SLICES, ROWS_PER_XBAR, TilePlan
 
 plain = ref.sliced_crossbar_matmul
-ROWS_PER_XBAR = 512  # the segment length the kernel is compiled for
-MAX_BM = 8           # batch rows per block
 
 _c = ctypes.c_int
 _p = ctypes.c_void_p
 KERNEL = build.CudaKernel(
-    "sliced_crossbar", [_p, _p, _p, _p, _c, _c, _c, _c, _c, _c, _c, _c, _p])
+    "sliced_crossbar", [_p, _p, _p, _p, *[_c] * 15, _p])
 
 
-def batch_tile(B: int) -> int:
-    """Batch rows per block: the next power of two of B, at most 8."""
-    return min(MAX_BM, 1 << (B - 1).bit_length())
+def tile_plan(B: int, R: int, C: int, n_j: int) -> TilePlan:
+    """Launch plan of K4 for x slices (n_i, B, R) and planes (n_j, R, C):
+    the shared GEMM's (``bitplane.tile_plan``) with the slice operand's
+    stage."""
+    return bitplane.tile_plan(B, R, C, n_j, x="slices")
 
 
 def launch(x_slices: torch.Tensor, w_planes: torch.Tensor,
@@ -56,10 +58,13 @@ def launch(x_slices: torch.Tensor, w_planes: torch.Tensor,
                          f"{tuple(w_planes.shape)}, mults "
                          f"{tuple(mults.shape)} do not chain (1..{MAX_SLICES} "
                          "slices, non-empty)")
-    out = torch.zeros((B, C), dtype=torch.int32, device=dev)
+    n_seg = -(-R // ROWS_PER_XBAR)
+    plan = tile_plan(B, R, C, n_j)
+    out = torch.empty((B, C), dtype=torch.int32, device=dev)
     KERNEL.launch(build.ptr(x_slices), build.ptr(w_planes), build.ptr(mults),
-                  build.ptr(out), n_i, B, R, C, n_j, adc_lo, adc_hi,
-                  batch_tile(B))
+                  build.ptr(out), B, R, C, n_seg, n_j, n_i, adc_lo, adc_hi,
+                  plan.bn, plan.bk, plan.stages, plan.bt, plan.cluster,
+                  plan.pairs_per_rank, plan.smem_bytes)
     return out
 
 

@@ -404,20 +404,78 @@ def k2_tables(spec_li, spec_mask, rmults):
     return sw, rmb
 
 
-def bitplane_walk(x, planes, mults, centers, plan, epilogue, n_counts):
-    """numpy walk of the bit-plane GEMM that K1 and K2 share
+def code_operand(x, bt, Rp):
+    """K1's and K2's x operand (``bitplane::CodesX``): B register q of lane
+    (g, t) is bit g of 4 staged codes, one bit per byte, and each lane's
+    code sums feed the center term. Returns (B, frags), frags(b0, k0) the
+    stage's B matrices (n, w, 32, 8) and code sums (w, n, lane)."""
+    B, R = x.shape
+    xp = np.zeros((-(-B // bt) * bt, Rp), np.int64)
+    xp[:B, :R] = x
+    rows = np.arange(4)[:, None] * 32 + 4 * T  # (w, lane)
+
+    def bits(v):
+        packed = sum((v[q] & 255) << (8 * q) for q in range(4))
+        return (packed >> G) & 0x01010101
+
+    def frags(b0, k0):
+        xt = xp[b0:b0 + bt, k0:k0 + 128]
+        v0 = np.stack([xt[:, rows + q] for q in range(4)])
+        v1 = np.stack([xt[:, rows + 16 + q] for q in range(4)])  # (q,n,w,l)
+        return (mma_b_matrix(bits(v0), bits(v1)),
+                (v0.sum(0) + v1.sum(0)).transpose(1, 0, 2))
+    return B, frags
+
+
+def slice_operand(xs, bt, rng):
+    """K4's x operand (``bitplane::SlicesX``): each stage's slices staged
+    by the loads' formula at [batch row][slice][row], ``SLICE_STRIDE``
+    bytes a slice, rows past R and batch rows past B zero, the slots of
+    slices past n_i stale (random bytes); B register q of lane (g, t) the
+    word at row 32w + 16q + 4t of slice g (stale past n_i: those columns'
+    sums reach no epilogue), its 32 lanes on 32 distinct banks. No code
+    sums. Returns (B, frags) as ``code_operand``."""
+    n_i, B, R = xs.shape
+    S, XB = bp.SLICE_STRIDE, bp.X_ROW_BYTES["slices"]
+    off = (np.arange(bt)[:, None, None] * XB + G * S
+           + 32 * np.arange(4)[None, :, None] + 4 * T)  # (n, w, lane)
+    for q in range(2):
+        banks = (off + 16 * q) // 4 % 32
+        assert all(len(set(banks[n, w])) == 32
+                   for n in range(bt) for w in range(4))
+
+    def frags(b0, k0):
+        st = rng.integers(0, 256, bt * XB).astype(np.uint8)
+        rows = np.arange(k0, min(k0 + 128, R))
+        for b in range(bt):
+            for i in range(n_i):
+                o = b * XB + i * S
+                st[o:o + 128] = 0
+                if b0 + b < B:
+                    st[o:o + len(rows)] = xs[i, b0 + b, rows].astype(np.uint8)
+        words = st.view("<u4").astype(np.int64)
+        regs = [words[(off + 16 * q) // 4] for q in range(2)]
+        return mma_b_matrix(*regs), None
+    return B, frags
+
+
+def bitplane_walk(operand, planes, mults, centers, plan, epilogue,
+                  n_counts):
+    """numpy walk of the int8 GEMM that K1, K2 and K4 share
     (``csrc/bitplane_gemm.cuh``): per (column tile, batch tile) and
     cluster rank, its (segment, plane) pairs in 128-row stages zero-filled
     past the operands; warp w's k32 step of each stage with its A fragments
-    from the swizzled stage and its B fragments one bit plane per n8
-    column, as m16n8k32 products by the PTX fragment layouts; at a pair's
-    end every warp's C fragments added into the slab by the kernel's index
-    formula and read back per thread element; the kernel's ``epilogue``
-    (d (elements, 8), ok (elements,), plane j, counts) -> contributions
-    mod 2^32, adding its counters (masked to (B, C)) into ``counts``; the
-    center term in uint32; contributions pushed to the owning rank's inbox
-    and summed there. Returns (psum int32, counts)."""
-    B, R = x.shape
+    from the swizzled stage and its B fragments from ``operand``
+    (``code_operand``: one bit plane per n8 column; ``slice_operand``: one
+    input slice), as m16n8k32 products by the PTX fragment layouts; at a
+    pair's end every warp's C fragments added into the slab by the kernel's
+    index formula and read back per thread element; the kernel's
+    ``epilogue`` (d (elements, 8), ok (elements,), plane j, counts) ->
+    contributions mod 2^32, adding its counters (masked to (B, C)) into
+    ``counts``; the center term in uint32 (none where ``centers`` is
+    None); contributions pushed to the owning rank's inbox and summed
+    there. Returns (psum int32, counts)."""
+    B, frags = operand
     n_j, Rp, C = planes.shape
     n_seg = Rp // 512
     bt, cs, ppr = plan.bt, plan.cluster, plan.pairs_per_rank
@@ -426,8 +484,6 @@ def bitplane_walk(x, planes, mults, centers, plan, epilogue, n_counts):
     M = 2**32
     out = np.full((B, C), -1, np.int64)
     counts = np.zeros(n_counts, np.int64)
-    xp = np.zeros((-(-B // bt) * bt, Rp), np.int64)
-    xp[:B, :R] = x
     for ct in range(plan.grid[1]):
         col0 = ct * 64
         wcols = np.zeros((n_j, Rp, 64), np.int64)
@@ -447,18 +503,9 @@ def bitplane_walk(x, planes, mults, centers, plan, epilogue, n_counts):
                         # warp w runs k32 step w of the stage
                         A = mma_a_matrix(k2_a_fragments(k2_stage_planes(
                             wcols[j, k0:k0 + 128])))       # (w, i, 16, 32)
-                        xt = xp[b0:b0 + bt, k0:k0 + 128]
-                        rows = np.arange(4)[:, None] * 32 + 4 * T  # (w, lane)
-                        v0 = np.stack([xt[:, rows + q] for q in range(4)])
-                        v1 = np.stack([xt[:, rows + 16 + q]
-                                       for q in range(4)])  # (q, n, w, lane)
-                        xs_acc += (v0.sum(0) + v1.sum(0)).transpose(1, 0, 2)
-
-                        def bits(v):
-                            packed = sum((v[q] & 255) << (8 * q)
-                                         for q in range(4))
-                            return (packed >> G) & 0x01010101
-                        Bm = mma_b_matrix(bits(v0), bits(v1))  # (n, w, 32, 8)
+                        Bm, sums = frags(b0, k0)           # (n, w, 32, 8)
+                        if sums is not None:
+                            xs_acc += sums
                         D += np.einsum("wimc,nwcp->winmp", A, Bm)
                     # C register r of lane (g, t): D[g + 8*(r//2), 2t + r%2]
                     frag = np.stack([D[..., G + 8 * (r >> 1), 2 * T + (r & 1)]
@@ -485,7 +532,7 @@ def bitplane_walk(x, planes, mults, centers, plan, epilogue, n_counts):
                         col = col0 + c
                         ok = (b0 + b < B) & (col < C)
                         contrib[k, :len(e)] += epilogue(d, ok, j, counts)
-                        if j == 0:
+                        if j == 0 and centers is not None:
                             cen = np.where(col < C, centers[s, np.minimum(
                                 col, C - 1)], 0)
                             contrib[k, :len(e)] += xsum[b] * cen % M
@@ -532,7 +579,8 @@ def k2_walk(x, planes, spec_li, spec_mask, mults, rmults, centers, lo, hi,
             val = np.where(sat, rec, cs_) % M
             out += val * int(mults[i, j]) % M
         return out
-    psum, counts = bitplane_walk(x, planes, mults, centers, plan, epilogue,
+    psum, counts = bitplane_walk(code_operand(x, plan.bt, planes.shape[1]),
+                                 planes, mults, centers, plan, epilogue,
                                  n_i + 1)
     return psum, counts[:n_i], int(counts[n_i])
 
@@ -551,7 +599,8 @@ def k1_walk(x, planes, in_li, in_mask, mults, centers, lo, hi, plan):
             counts[0] += (ok & ((cs_ == lo) | (cs_ == hi))).sum()
             out += cs_ % M * int(mults[i, j]) % M
         return out
-    psum, counts = bitplane_walk(x, planes, mults, centers, plan, epilogue, 1)
+    psum, counts = bitplane_walk(code_operand(x, plan.bt, planes.shape[1]),
+                                 planes, mults, centers, plan, epilogue, 1)
     return psum, int(counts[0])
 
 
@@ -686,3 +735,105 @@ def test_k1_tile_plan_within_limits(RC, B):
         assert sorted(set(owners)) == list(range(p.cluster))  # none empty
         assert (p.bn, p.bk, p.stages) == (bp.BN, bp.BK, bp.STAGES)
         assert p.smem_bytes == bp.smem_bytes(p.bt, p.cluster)
+
+
+# ---------------------------------------------------------------- K4
+def k4_walk(xs, planes, mults, lo, hi, plan, rng):
+    """``bitplane_walk`` with K4's slice operand and epilogue: per input
+    slice its column sum, the clamp and the multiply by mults in uint32; no
+    center term, no counters. The planes' rows past R are zero, as the
+    kernel's copies fill them. Returns psum."""
+    n_i = xs.shape[0]
+    n_j, R, C = planes.shape
+    wp = np.zeros((n_j, -(-R // 512) * 512, C), np.int64)
+    wp[:, :R] = planes
+    M = 2**32
+
+    def epilogue(d, ok, j, counts):
+        out = np.zeros(len(d), np.uint64)
+        for i in range(n_i):
+            cs_ = (np.clip(d[:, i], lo, hi) % M).astype(np.uint64)
+            out += cs_ * np.uint64(int(mults[i, j]) % M) % np.uint64(M)
+        return (out % np.uint64(M)).astype(np.int64)
+    psum, _ = bitplane_walk(slice_operand(xs, plan.bt, rng), wp, mults,
+                            None, plan, epilogue, 0)
+    return psum
+
+
+# (n_i, n_j, B, R, C): the sites' 8 slices x 3 planes (a cluster of 6);
+# one slice and one plane (nearly empty n8 tiles, a cluster of 1 rank,
+# batch tile of 1 row, a partial segment); five batch tiles of 4 rows over
+# 8 planes (a cluster of 8) at R = 1001 (the word-load path, a partial
+# segment); 3 of 4 rows over 16 column tiles at C = 1008; four batch tiles
+# under one narrow column tile (C = 7)
+K4_WALKS = [(8, 3, 4, 1024, 72), (1, 1, 1, 300, 7), (3, 8, 17, 1001, 72),
+            (8, 1, 3, 1000, 1008), (3, 3, 16, 1024, 7)]
+
+
+@pytest.mark.parametrize("bits", [7, 24])
+@pytest.mark.parametrize("case", K4_WALKS)
+def test_k4_tile_walk_matches_plain(case, bits):
+    """The K4 kernel: the shared GEMM's plan, A fragments and cluster
+    reduction with the slice operand (staged slices, one per n8 column)
+    and K4's epilogue, equal ``ref.sliced_crossbar_matmul`` exactly on
+    int8 values -128..127 on both sides and mults that wrap the int32
+    result; at the 7b ADC the clamps bite (the result differs from the
+    24b one)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sliced_crossbar as sx
+    n_i, n_j, B, R, C = case
+    rng = np.random.default_rng(n_i * 1000 + n_j * 100 + B + R + C)
+    xs = rng.integers(-128, 128, (n_i, B, R)).astype(np.int8)
+    planes = rng.integers(-128, 128, (n_j, R, C)).astype(np.int8)
+    xs[:, :, ::5] = -128
+    planes[:, ::7] = -128
+    mults = rng.integers(-2**20, 2**20, (n_i, n_j)).astype(np.int32)
+    adc = adc_lib.ADCConfig(bits=bits)
+    args = (torch.from_numpy(xs), torch.from_numpy(planes),
+            torch.from_numpy(mults))
+    want = ref.sliced_crossbar_matmul(*args, adc_lo=adc.lo, adc_hi=adc.hi)
+    got = k4_walk(xs, planes, mults, adc.lo, adc.hi,
+                  sx.tile_plan(B, R, C, n_j), rng)
+    np.testing.assert_array_equal(got, want.numpy())
+    if bits == 7:
+        full = adc_lib.ADCConfig(bits=24)
+        assert not torch.equal(want, ref.sliced_crossbar_matmul(
+            *args, adc_lo=full.lo, adc_hi=full.hi))
+
+
+@pytest.mark.parametrize("B", [1, 3, 4, 16, 17, 64, 65])
+@pytest.mark.parametrize("RC", SITE_SHAPES + [(1000, 1008), (1001, 7),
+                                              (1, 7)])
+def test_k4_tile_plan_within_limits(RC, B):
+    """K4's launch plan fits the card at 1, 3 and 8 planes: shared memory
+    within 227 KB with the slice operand's stage, a portable cluster of
+    1..8 ranks that divides the grid with every (segment, plane) pair owned
+    by one rank and none empty, the grid limits; its batch tile holds B (or
+    4 rows); the C launcher's constants."""
+    from repro_torch.kernels import sliced_crossbar as sx
+    R, C = RC
+    for n_j in (1, 3, 8):
+        p = sx.tile_plan(B, R, C, n_j)
+        n_pairs = -(-R // 512) * n_j
+        assert p.smem_bytes <= SMEM_LIMIT
+        assert 1 <= p.cluster <= 8 and p.grid[0] % p.cluster == 0
+        assert p.grid[0] < 2**31 and p.grid[1] <= 65535
+        assert p.bt in (1, 2, 4) and p.bt >= min(B, 4)
+        assert p.grid == (-(-B // p.bt) * p.cluster, -(-C // p.bn))
+        owners = [pr // p.pairs_per_rank for pr in range(n_pairs)]
+        assert sorted(set(owners)) == list(range(p.cluster))  # none empty
+        assert (p.bn, p.bk, p.stages) == (bp.BN, bp.BK, bp.STAGES)
+        assert p.smem_bytes == bp.smem_bytes(p.bt, p.cluster, "slices")
+        assert p.smem_bytes > bp.smem_bytes(p.bt, p.cluster)  # 8 slices
+
+
+def test_k4_launch_refuses_cpu_tensors():
+    """The CUDA wrapper takes CUDA tensors only; ``forward`` sends CPU
+    tensors to the plain version."""
+    from repro_torch.kernels import sliced_crossbar as sx
+    xs = torch.zeros((1, 2, 8), dtype=torch.int8)
+    wp = torch.zeros((1, 8, 4), dtype=torch.int8)
+    m = torch.ones((1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        sx.launch(xs, wp, m)
+    assert torch.equal(sx.forward(xs, wp, m), sx.plain(xs, wp, m))
