@@ -86,6 +86,22 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            for bit against the plain version at the narrow shapes it
            gives; exact mode's lockstep == continuous == paged (staged,
            evicting) tokens, equal to int8 mode's;
+  encoder  the encoder-only models whole at their published sizes (random
+           bf16 weights from a seed): raella-bert-large (24 layers, the
+           paper's own transformer) on token ids and hubert-xlarge (48
+           layers) on frame embeddings, 4 sequences of 384 positions, so
+           every projection gets 1,536 rows. ``transformer.forward`` in
+           ``off``, ``exact`` (K2), ``int8``, ``fast`` (K3), ``exact`` with
+           speculation off (K1) and ``exact`` on Algorithm 1's plans (K1 at
+           compile time, then K2): launches counted from the plans, exact,
+           exact-nospec and adaptive logits equal to int8's; one call of
+           each distinct shape the forward gives K2 (pinned and Algorithm
+           1's plans), K1 and K3, and K1 at the 16-row search shape, held
+           bit for bit against the plain versions; each kernel's calls of
+           one forward timed beside their bound (K3 also beside
+           ``torch._int_mm``); ``lm_loss`` of each model; and for bert an
+           exact forward at the paper's 7b ADC with every layer's work
+           stats (converts per position, speculation-failure share);
   timing   one decode step's worth of kernel calls on the compiled plans
            (distinct weights per layer, as the model has them) against the
            plain versions and, for K3, ``torch._int_mm`` (x padded with zero
@@ -109,7 +125,13 @@ and ``hybrid_ms``, ``hybrid_plain_ms``, ``hybrid_bound_ms``,
 ``hybrid_bound_by`` and ``hybrid_library_ms`` for the jamba layer's
 decode step (K1: its search shape); K4's entry is its B = 4 timing, with
 ``b64_ms``, ``b64_plain_ms``, ``b64_bound_ms``, ``b64_bound_by`` and
-``b64_library_ms`` at B = 64. The last line is ``{"ok": true,
+``b64_library_ms`` at B = 64. With the encoder phase, K1's, K2's and
+K3's entries add ``encoder_launches`` (each kernel's launches in one
+forward of each encoder model: K2 in exact, K1 in exact-nospec, K3 in
+fast), ``encoder_max_abs_err`` (the phase's comparisons) and
+``encoder_ms``, ``encoder_bound_ms``, ``encoder_bound_by`` and
+``encoder_library_ms`` for those forwards' calls at 1,536 rows, summed
+over the two models (K4's: 0 launches, null). The last line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -117,6 +139,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import subprocess
 import sys
@@ -153,6 +176,11 @@ JAMBA_ARCH = "jamba-1.5-large-398b"
 # bf16), does not fit the card, so this layer runs alone
 JAMBA_LAYER = 1
 JAMBA_DECODES = 7
+ENCODER_ARCHS = ("raella-bert-large", "hubert-xlarge")
+# the paper's BERT-Large sequence length (its analytic model's
+# bert_large_ffn(seq=384)); for hubert, 7.7 s of audio at 50 frames/s
+ENCODER_BATCH, ENCODER_SEQ = 4, 384
+ENCODER_ROWS = ENCODER_BATCH * ENCODER_SEQ  # rows every projection gets
 
 
 def say(phase: str, **fields) -> None:
@@ -289,9 +317,9 @@ def phase_kernels(rows: list) -> None:
                           im.plain(x, w, cen), site=site, B=B, R=R, C=C)
             row["kernel_ms"] = cuda_ms(lambda: im.launch(x, w, cen), 5)
             row["plain_ms"] = cuda_ms(lambda: im.plain(x, w, cen), 2)
-            xp = int_mm_operand(x)
-            row["library_rows"] = xp.shape[0]
-            row["library_ms"] = cuda_ms(lambda: torch._int_mm(xp, w), 5)
+            lib = int_mm_args(x, w)
+            row["library_rows"] = lib[0].shape[0]
+            row["library_ms"] = cuda_ms(lambda: torch._int_mm(*lib), 5)
             rows.append(row)
             say("kernels", **row)
             # K2 at the lossless and the paper's ADC
@@ -359,17 +387,18 @@ def compare(kernel: str, got, want, **fields) -> dict:
 INT_MM_MIN_ROWS = 17  # torch._int_mm on CUDA needs more than 16 rows
 
 
-def int_mm_operand(x):
-    """x padded with zero rows to the fewest rows ``torch._int_mm`` takes:
-    the library yardstick of K3. It computes x @ w without the center term,
-    a lower bound for the library; the port never calls it."""
+def int_mm_args(x, w) -> tuple:
+    """``torch._int_mm``'s operands for x @ w, the library yardstick of K3:
+    x padded with zero rows to the fewest rows it takes, w with zero
+    columns up to a multiple of 8 (the bert head's 30522). It computes
+    x @ w without the center term, a lower bound for the library; the port
+    never calls it."""
     import torch
     B, K = x.shape
-    if B >= INT_MM_MIN_ROWS:
-        return x
-    xp = torch.zeros((INT_MM_MIN_ROWS, K), dtype=torch.int8, device=x.device)
-    xp[:B] = x
-    return xp
+    if B < INT_MM_MIN_ROWS:
+        x = torch.cat([x, x.new_zeros((INT_MM_MIN_ROWS - B, K))])
+    pad = -w.shape[1] % 8
+    return x, torch.nn.functional.pad(w, (0, pad)) if pad else w
 
 
 def check_k3_tails(rows: list, gen) -> None:
@@ -816,9 +845,11 @@ def empty_experts(cfg, plans: dict) -> int:
                if L.is_moe_layer(cfg, layer) for leaf in lp["ffn"].values())
 
 
-def peak_gb() -> float:
+def peak_gb(base: int = 0) -> float:
+    """Peak allocated GiB since the last reset, less ``base`` bytes (what
+    earlier phases keep resident)."""
     import torch
-    return round(torch.cuda.max_memory_allocated() / 2**30, 3)
+    return round((torch.cuda.max_memory_allocated() - base) / 2**30, 3)
 
 
 def n_params_of(tree) -> int:
@@ -916,8 +947,8 @@ def phase_moe(ctx: dict, rows: list) -> None:
     say("moe", **row, **info)
     ctx["moe_rows"] = L.moe_dispatch_rows(exact, N_SLOTS, 1)
     step = f"{MOE_ARCH} decode step"
-    k2_calls, k2_bytes, k2_ops = crossbar_step(exact, compiled.plans, SPEC,
-                                               True, gen)
+    k2_calls, k2_bytes, k2_ops = kernel_calls(
+        "fused_spec_crossbar", exact, compiled.plans, gen)[:3]
     kw24 = dict(adc_lo=-(1 << 23), adc_hi=(1 << 23) - 1)
     say("moe", **check_step(rows, "fused_spec_crossbar", fs.launch, fs.plain,
                             k2_calls, step, **kw24))
@@ -1001,7 +1032,8 @@ def phase_moe(ctx: dict, rows: list) -> None:
         mean_site_error=sum(errs) / len(errs), max_site_error=max(errs))
     if search <= 0:
         raise AssertionError("Algorithm 1's compile launched no K1")
-    ka_calls = crossbar_step(adaptive, compiled.plans, SPEC, True, gen)[0]
+    ka_calls = kernel_calls("fused_spec_crossbar", adaptive,
+                            compiled.plans, gen)[0]
     say("moe", **check_step(rows, "fused_spec_crossbar", fs.launch, fs.plain,
                             ka_calls, f"{step}, Algorithm 1's plans", **kw24))
     del ka_calls
@@ -1151,10 +1183,11 @@ def hybrid_rwkv(ctx: dict, rows: list) -> None:
     gen = torch.Generator(device="cuda").manual_seed(4)
     tag = f"{RWKV_ARCH} decode step"
     kw24 = dict(adc_lo=-(1 << 23), adc_hi=(1 << 23) - 1)
-    k2_calls = crossbar_step(exact, plans, SPEC, True, gen)[0]
+    k2_calls = kernel_calls("fused_spec_crossbar", exact, plans, gen)[0]
     say("hybrid", **check_step(rows, "fused_spec_crossbar", fs.launch,
                                fs.plain, k2_calls, tag, **kw24))
-    k1_calls = crossbar_step(exact, plans, ONE_BIT, False, gen)[0]
+    k1_calls = kernel_calls("fused_crossbar", exact, plans, gen,
+                            slicing=ONE_BIT)[0]
     say("hybrid", **check_step(rows, "fused_crossbar", fx.launch, fx.plain,
                                k1_calls, f"{tag}, speculation off", **kw24))
     k3_step(dataclasses.replace(cfg0, pim_mode="fast"),
@@ -1296,9 +1329,10 @@ def hybrid_jamba_layer(ctx: dict, rows: list) -> None:
     tag = f"{JAMBA_ARCH} layer {JAMBA_LAYER} decode step"
     kw24 = dict(adc_lo=-(1 << 23), adc_hi=(1 << 23) - 1)
     exact = dataclasses.replace(cfg0, pim_mode="exact")
-    k2_calls, k2_bytes, k2_ops = crossbar_step(
-        exact, dict(one, layers=one["layers"] + [plans["jamba-layer-exact"]]),
-        SPEC, True, gen)
+    k2_calls, k2_bytes, k2_ops = kernel_calls(
+        "fused_spec_crossbar", exact,
+        dict(one, layers=one["layers"] + [plans["jamba-layer-exact"]]),
+        gen)[:3]
     say("hybrid", **check_step(rows, "fused_spec_crossbar", fs.launch,
                                fs.plain, k2_calls, tag, **kw24))
     ctx["jamba_k2"] = dict(
@@ -1307,10 +1341,10 @@ def hybrid_jamba_layer(ctx: dict, rows: list) -> None:
                                   for _, a in k2_calls], 1, warmup=0),
         library_ms=None, calls=len(k2_calls), **bound(k2_bytes, k2_ops))
     del k2_calls
-    ka_calls = crossbar_step(
-        exact, dict(one, layers=one["layers"]
-                    + [plans["jamba-layer-exact-adaptive"]]),
-        SPEC, True, gen)[0]
+    ka_calls = kernel_calls(
+        "fused_spec_crossbar", exact,
+        dict(one, layers=one["layers"]
+             + [plans["jamba-layer-exact-adaptive"]]), gen)[0]
     say("hybrid", **check_step(rows, "fused_spec_crossbar", fs.launch,
                                fs.plain, ka_calls,
                                f"{tag}, Algorithm 1's plans", **kw24))
@@ -1395,7 +1429,7 @@ def hybrid_jamba_reduced(rows: list) -> None:
     gen = torch.Generator(device="cuda").manual_seed(6)
     say("hybrid", **check_step(
         rows, "fused_spec_crossbar", fs.launch, fs.plain,
-        crossbar_step(cfg, comp.plans, SPEC, True, gen)[0],
+        kernel_calls("fused_spec_crossbar", cfg, comp.plans, gen)[0],
         f"{cfg.name} decode step", adc_lo=-(1 << 23), adc_hi=(1 << 23) - 1))
     kw = dict(n_slots=N_SLOTS, max_len=max_len, prefill_chunk=64)
     int8 = dataclasses.replace(cfg0, pim_mode="int8")
@@ -1432,6 +1466,358 @@ def hybrid_jamba_reduced(rows: list) -> None:
         lockstep_equals_continuous_equals_paged=True, exact_equals_int8=True,
         first_tokens=json.dumps(lock_tokens[0]))
     del params, comp, lock, eng
+
+
+def encoder_inputs(cfg, B: int, S: int, gen):
+    """(B, S) token ids, or (B, S, d_model) float32 frame embeddings for an
+    embeddings-mode config, from ``gen`` on the card."""
+    import torch
+    if cfg.input_mode == "tokens":
+        return torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                             device="cuda")
+    return torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+
+
+def encoder_forward(params, cfg, x, plans) -> tuple:
+    """One ``transformer.forward`` with every launch count zeroed just
+    before and read just after: (logits, seconds, launches)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = T.forward(params, cfg, x, plans)
+    torch.cuda.synchronize()
+    return logits, time.perf_counter() - t0, ops.launch_counts()
+
+
+def kernel_calls(kernel: str, cfg, plans: dict, gen, rows: int | None = None,
+                 slicing: tuple = SPEC) -> tuple:
+    """The calls one engine call makes to ``kernel`` on compiled plans, in
+    the model's order: a decode step (``rows`` None: N_SLOTS rows a
+    projection, an expert its dispatch rows, as ``step_calls`` gives them)
+    or a forward of ``rows`` rows a projection. K2
+    (``fused_spec_crossbar``, spec ``slicing``) and K1
+    (``fused_crossbar``, input ``slicing``) run twice a projection, one
+    signed pass each on codes 0..127; K3 (``centered_int8_matmul``) once,
+    on int8 codes. Each call reads its own layer's (and expert's) weights
+    and a fresh random input, as a forward feeds each layer a new
+    activation. Returns the ``(name, args)`` calls, the bytes and int8
+    operations they need (operations over the true R rows: the compiler's
+    zero padding to whole segments is read but computes nothing), and the
+    first call of each distinct operand shape."""
+    import torch
+    from repro_torch.kernels import ops
+
+    def x_for(B, R, dtype, lo):
+        return torch.randint(lo, 128, (B, R), generator=gen, device="cuda",
+                             dtype=dtype)
+    calls, first, n_bytes, n_ops = [], {}, 0, 0
+    for name, leaf, B in step_calls(cfg, plans):
+        B = B if rows is None else rows
+        if kernel == "centered_int8_matmul":
+            R, C = leaf["w_off"].shape
+            args = (x_for(B, R, torch.int8, -127), leaf["w_off"],
+                    leaf["centers"])
+            calls.append((name, args))
+            first.setdefault((B, R, C), (name, args))
+            n_bytes += B * R + R * C + 4 * C + 4 * B * C
+            n_ops += 2 * B * R * C
+            continue
+        spec = kernel == "fused_spec_crossbar"
+        n_i = len(slicing)
+        n_j, n_seg, rx, C = leaf["planes"].shape
+        R = leaf["w_q"].shape[0]
+        tables = (ops.spec_tables if spec else ops.crossbar_tables)(
+            leaf["planes"], leaf["slice_shifts"], slicing)
+        for sign in "+-":
+            args = (x_for(B, R, torch.int32, 0), *tables,
+                    leaf["enc_centers"].contiguous())
+            calls.append((f"{name}{sign}", args))
+            first.setdefault((B, R, C, n_j), (f"{name}{sign}", args))
+            n_bytes += (4 * B * R + n_j * n_seg * rx * C + 4 * n_i * n_j
+                        + 4 * n_seg * C + 4 * B * C
+                        + 8 * (n_i + 1 if spec else 1))  # int64 counters
+            n_ops += 2 * B * R * C * n_j * n_i
+    return calls, n_bytes, n_ops, list(first.values())
+
+
+def encoder_kernel(kernel: str, cfg, plans: dict, gen, rows: list,
+                   tag: str) -> dict:
+    """One forward's calls of ``kernel`` at ENCODER_ROWS rows: the first
+    call of each distinct operand shape held bit for bit against the plain
+    version (psum and counters; rows in ``rows``), each such call timed
+    against it; then every call of the forward timed back to back beside
+    its bound and, for K3, ``torch._int_mm`` on the same x and weights."""
+    import torch
+    from repro_torch.kernels import fused_crossbar as fx
+    from repro_torch.kernels import fused_spec_crossbar as fs
+    from repro_torch.kernels import int8_matmul as im
+    mod = {"fused_spec_crossbar": fs, "fused_crossbar": fx,
+           "centered_int8_matmul": im}[kernel]
+    kw = {} if mod is im else dict(adc_lo=-(1 << 23), adc_hi=(1 << 23) - 1)
+    calls, n_bytes, n_ops, first = kernel_calls(
+        kernel, cfg, plans, gen, ENCODER_ROWS,
+        ONE_BIT if mod is fx else SPEC)
+    check_step(rows, kernel, mod.launch, mod.plain, first, tag, **kw)
+    for (_, args), row in zip(first, rows[-len(first):]):
+        row["kernel_ms"] = cuda_ms(lambda: mod.launch(*args, **kw), 3)
+        row["plain_ms"] = cuda_ms(lambda: mod.plain(*args, **kw), 1,
+                                  warmup=0)
+        say("encoder", **row)
+    out = dict(ms=cuda_ms(lambda: [mod.launch(*a, **kw) for _, a in calls],
+                          2),
+               library_ms=None, calls=len(calls), shapes=len(first),
+               **bound(n_bytes, n_ops))
+    if mod is im:
+        lib = [int_mm_args(*a[:2]) for _, a in calls]
+        out["library_ms"] = cuda_ms(
+            lambda: [torch._int_mm(*a) for a in lib], 2)
+        del lib
+    del calls, first
+    return out
+
+
+def first_leaf_per_shape(cfg, plans: dict, tag: str) -> list:
+    """``(tag.name, leaf)`` of the first site instance of each distinct
+    (R, C) of compiled exact plans, for ``check_k1_search``."""
+    seen, out = set(), []
+    for name, leaf, _ in step_calls(cfg, plans):
+        shape = (leaf["w_q"].shape[0], leaf["planes"].shape[-1])
+        if shape not in seen:
+            seen.add(shape)
+            out.append((f"{tag} search.{name}", leaf))
+    return out
+
+
+def phase_encoder(ctx: dict, rows: list) -> None:
+    """The encoder-only models whole at their published sizes (random bf16
+    weights from seed 0): raella-bert-large on token ids and hubert-xlarge
+    on frame embeddings, ENCODER_BATCH sequences of ENCODER_SEQ positions
+    each."""
+    for arch in ENCODER_ARCHS:
+        encoder_model(ctx, rows, arch)
+    say("encoder", ok=True, archs=json.dumps(ENCODER_ARCHS),
+        kernel_checks=len([r for r in rows if str(r.get("site", ""))
+                           .startswith(ENCODER_ARCHS)]))
+
+
+def encoder_model(ctx: dict, rows: list, arch: str) -> None:
+    """One encoder through ``transformer.forward`` in every mode: off,
+    exact (pinned (4,2,2): K2), int8, fast (K3), exact with speculation
+    off (K1) and exact on Algorithm 1's plans (K1 in the compile, then
+    K2), each forward's launches counted from the plans; exact, exact
+    without speculation and adaptive logits equal int8's at the 24b ADC.
+    The K1, K2 and K3 calls of one forward at ENCODER_ROWS rows, one per
+    distinct shape, and K1 at Algorithm 1's search shape held bit for bit
+    against the plain versions; each kernel's calls of one forward timed
+    beside their bound. ``lm_loss`` on the card; for bert, an exact
+    forward at the paper's 7b ADC with every layer's work stats."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import calibration_tokens
+    from repro_torch.models import pim
+    from repro_torch.models import transformer as T
+    cfg0 = configs.get(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # the serve phase's plans, if run
+    t0 = time.perf_counter()
+    params = T.init_params(cfg0, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = encoder_inputs(cfg0, ENCODER_BATCH, ENCODER_SEQ, gen)
+    if cfg0.input_mode == "tokens":
+        calib = calibration_tokens(cfg0, 16)
+    else:  # calibration_tokens' (2, 16), as frame embeddings
+        calib = encoder_inputs(cfg0, 2, 16, gen)
+    say("encoder", arch=arch, layers=cfg0.n_layers, d_model=cfg0.d_model,
+        n_heads=cfg0.n_heads, d_ff=cfg0.d_ff, vocab=cfg0.vocab_size,
+        causal=cfg0.causal, activation=cfg0.activation,
+        input_mode=cfg0.input_mode, inputs=json.dumps(list(x.shape)),
+        dtype=cfg0.dtype, params=n_params_of(params),
+        init_s=round(time.perf_counter() - t0, 3), peak_gb=peak_gb(base),
+        resident_before_gb=round(base / 2**30, 3))
+    encoder_forward(params, cfg0, x, None)  # warm-up: cuBLAS, allocator
+    positions = ENCODER_BATCH * ENCODER_SEQ
+    runs = (("off", dict(pim_mode="off"), {}),
+            ("exact", dict(pim_mode="exact"), PER_CALL["exact"]),
+            ("int8", dict(pim_mode="int8"), PER_CALL["int8"]),
+            ("fast", dict(pim_mode="fast"), PER_CALL["fast"]),
+            ("exact-nospec", dict(pim_mode="exact", pim_speculation=False),
+             PER_CALL["exact-nospec"]),
+            ("exact-adaptive", dict(pim_mode="exact",
+                                    pim_weight_slicing="adaptive"),
+             PER_CALL["exact-adaptive"]))
+    logits, plans, launches = {}, {}, {}
+    for run, over, per_call in runs:
+        cfg = dataclasses.replace(cfg0, **over)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        compile_launches = None
+        if run == "exact-nospec":  # the pinned exact plans
+            comp = plans["exact"]
+        elif run != "off":
+            ops.reset_launch_counts()
+            comp = pim.compile_pim_params(params, cfg, calib)
+            torch.cuda.synchronize()
+            compile_launches = ops.launch_counts()
+        compile_s = time.perf_counter() - t0
+        p = None if run == "off" else comp.plans
+        out, fwd_s, launches[run] = encoder_forward(params, cfg, x, p)
+        n_proj = 0 if p is None else len(step_calls(cfg, p))
+        want = {k: per_call.get(k, 0) * n_proj for k in launches[run]}
+        if launches[run] != want:
+            raise AssertionError(f"{arch} {run}: launches {launches[run]}, "
+                                 f"want {want}")
+        if not (out.shape == (ENCODER_BATCH, ENCODER_SEQ, cfg0.vocab_size)
+                and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"{arch} {run}: logits {tuple(out.shape)} "
+                                 "not finite or of the wrong shape")
+        row = dict(mode=f"{arch} {run}", forward_s=round(fwd_s, 4),
+                   positions_per_s=round(positions / fwd_s, 1),
+                   launches=json.dumps(launches[run]),
+                   projections=n_proj, peak_gb=peak_gb(base))
+        if run not in ("off", "exact-nospec"):
+            row.update(compile_s=round(compile_s, 3), sites=len(comp.sites),
+                       compile_launches=json.dumps(compile_launches))
+        if run == "exact-adaptive":
+            if compile_launches["fused_crossbar"] <= 0:
+                raise AssertionError("Algorithm 1's compile launched no K1")
+            errs = [sp.error for sp in comp.sites]
+            row.update(slice_histogram=json.dumps(comp.slice_histogram()),
+                       mean_site_error=sum(errs) / len(errs),
+                       max_site_error=max(errs))
+        logits[run] = out
+        if run not in ("off", "exact-nospec"):
+            plans[run] = comp
+        say("encoder", **row)
+        del out
+    for run in ("exact", "exact-nospec", "exact-adaptive"):
+        if not torch.equal(logits[run], logits["int8"]):
+            raise AssertionError(f"{arch} {run} logits differ from int8's "
+                                 "at the 24b ADC")
+    ref = logits["off"].float()
+    for run in ("int8", "fast"):
+        got = logits[run].float()
+        say("encoder", mode=f"{arch} {run} against off",
+            max_abs_diff=float((got - ref).abs().max()),
+            rel_l2=float((got - ref).norm() / ref.norm()),
+            argmax_agreement=float((got.argmax(-1) == ref.argmax(-1))
+                                   .float().mean()))
+    del logits, ref, got
+    # one forward's kernel calls at ENCODER_ROWS rows
+    tag = f"{arch} forward"
+    exact = dataclasses.replace(cfg0, pim_mode="exact")
+    ek = ctx.setdefault("encoder_kernels", {})
+    k2 = encoder_kernel("fused_spec_crossbar", exact, plans["exact"].plans,
+                        gen, rows, tag)
+    k2a = encoder_kernel("fused_spec_crossbar", exact,
+                         plans["exact-adaptive"].plans, gen, rows,
+                         f"{tag}, Algorithm 1's plans")
+    k1 = encoder_kernel("fused_crossbar", exact, plans["exact"].plans, gen,
+                        rows, f"{tag}, speculation off")
+    k3 = encoder_kernel("centered_int8_matmul",
+                        dataclasses.replace(cfg0, pim_mode="fast"),
+                        plans["fast"].plans, gen, rows, tag)
+    search = check_k1_search(
+        "encoder", dataclasses.replace(exact, pim_weight_slicing="adaptive"),
+        first_leaf_per_shape(exact, plans["exact-adaptive"].plans, arch),
+        rows,
+        gen, timed=True)
+    for name, d, scope, n in (
+            ("fused_spec_crossbar", k2, "one forward", launches["exact"]),
+            ("fused_spec_crossbar", k2a, "one forward, Algorithm 1's plans",
+             launches["exact-adaptive"]),
+            ("fused_crossbar", k1, "one forward, speculation off",
+             launches["exact-nospec"]),
+            ("centered_int8_matmul", k3, "one forward", launches["fast"]),
+            ("fused_crossbar", search, "Algorithm 1's search shape, one "
+             "instance per distinct (R, C)", None)):
+        say("encoder", kernel=name, scope=f"{arch}, {scope}, "
+            f"{ENCODER_ROWS} rows" if n is not None else f"{arch}, {scope}",
+            **d)
+        if n is not None and d is not k2a:
+            e = ek.setdefault(name, dict(launches=0, ms=0.0, bytes=0, ops=0,
+                                         library_ms=None))
+            e["launches"] += n[name]
+            e["ms"] += d["ms"]
+            e["bytes"] += d["bytes"]
+            e["ops"] += d["ops"]
+            if d["library_ms"] is not None:
+                e["library_ms"] = (e["library_ms"] or 0.0) + d["library_ms"]
+    del plans["fast"], plans["int8"], plans["exact-adaptive"]
+    # lm_loss on the card: float in every pim_mode, chunked over positions
+    labels = torch.randint(0, cfg0.vocab_size,
+                           (ENCODER_BATCH, ENCODER_SEQ), generator=gen,
+                           device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss = float(T.lm_loss(params, cfg0, {"inputs": x, "labels": labels}))
+    loss_s = time.perf_counter() - t0
+    if not math.isfinite(loss):
+        raise AssertionError(f"{arch} lm_loss {loss} is not finite")
+    say("encoder", mode=f"{arch} lm_loss", loss=loss, loss_s=round(loss_s, 4),
+        log_vocab=round(math.log(cfg0.vocab_size), 4),
+        loss_chunk=T.LOSS_CHUNK)
+    if arch == ENCODER_ARCHS[0]:
+        encoder_adc7(params, exact, x, plans["exact"].plans)
+    del params, plans, x
+    torch.cuda.empty_cache()
+    say("encoder", ok=True, arch=arch, exact_equals_int8=True,
+        nospec_equals_int8=True, adaptive_equals_int8=True)
+
+
+def encoder_adc7(params, exact, x, plans: dict) -> None:
+    """One exact forward at the paper's 7b ADC on the pinned plans, every
+    layer's work stats collected: converts per position, the
+    speculation-failure share and how far the logits moved from the 24b
+    ones. No contract. No entry point collects stats over a full-sequence
+    forward (``transformer.forward`` suspends collection over its layers,
+    as the reference does, and the serve engines, which collect, refuse
+    encoders), so the layers run here one by one through ``apply_block``;
+    the logits must equal ``forward``'s."""
+    import dataclasses
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(exact, pim_adc_bits=7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), L.collect_pim_stats() as sink:
+        h = T.embed_inputs(params, cfg, x)
+        B, S = h.shape[0], h.shape[1]
+        pos = torch.arange(S, device=h.device).expand(B, S)
+        for layer, (bp, plan) in enumerate(zip(params["layers"],
+                                               plans["layers"])):
+            h = T.apply_block(bp, cfg, layer, h, pos, plan)
+        h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+        logits = L.lm_head(params["embed"], cfg, h, plan=plans["head"])
+        tot = L.pim_stats_totals(sink)
+    fwd_s = time.perf_counter() - t0
+    with torch.no_grad():
+        if not torch.equal(logits, T.forward(params, cfg, x, plans)):
+            raise AssertionError("the 7b layer-by-layer forward differs "
+                                 "from transformer.forward")
+        at24 = T.forward(params, exact, x, plans).float()
+    got, n = logits.float(), B * S
+    say("encoder", mode=f"{cfg.name} exact at the 7b ADC", adc_bits=7,
+        forward_s=round(fwd_s, 4),
+        adc_converts_per_position=tot["adc_converts"] / n,
+        no_spec_converts_per_position=tot["no_spec_converts"] / n,
+        spec_failures=tot["spec_failures"],
+        spec_attempts=tot["spec_attempts"],
+        spec_failure_share=tot["spec_failures"] / tot["spec_attempts"],
+        recovery_saturations=tot["recovery_saturations"],
+        max_abs_diff_from_24b=float((got - at24).abs().max()),
+        argmax_agreement_with_24b=float(
+            (got.argmax(-1) == at24.argmax(-1)).float().mean()))
 
 
 def prefix_requests(vocab: int):
@@ -1753,32 +2139,6 @@ def bound(n_bytes: int, n_ops: int) -> dict:
                 bytes=n_bytes, ops=n_ops)
 
 
-def crossbar_step(cfg, plans: dict, slicing: tuple, spec: bool, gen):
-    """One decode step's crossbar calls (N_SLOTS rows, an expert its
-    dispatch rows, two signed passes per projection, codes 0..127) on
-    compiled exact plans, ``(name, args)`` each: K2's operands (``spec``)
-    or K1's, with the bytes and int8 operations they need."""
-    import torch
-    from repro_torch.kernels import ops
-    n_i = len(slicing)
-    tables_fn = ops.spec_tables if spec else ops.crossbar_tables
-    n_counts = n_i + 1 if spec else 1  # int64 counters out
-    calls, n_bytes, n_ops = [], 0, 0
-    for name, leaf, B in step_calls(cfg, plans):
-        n_j, n_seg, rx, C = leaf["planes"].shape
-        R = leaf["w_q"].shape[0]
-        tables = tables_fn(leaf["planes"], leaf["slice_shifts"], slicing)
-        for sign in "+-":
-            x = torch.randint(0, 128, (B, R), generator=gen, device="cuda",
-                              dtype=torch.int32)
-            calls.append((f"{name}{sign}", (
-                x, *tables, leaf["enc_centers"].contiguous())))
-            n_bytes += (4 * B * R + n_j * n_seg * rx * C + 4 * n_i * n_j
-                        + 4 * n_seg * C + 4 * B * C + 8 * n_counts)
-            n_ops += 2 * B * n_seg * rx * C * n_j * n_i
-    return calls, n_bytes, n_ops
-
-
 def check_k1_search(phase: str, cfg, leaves: list, rows: list, gen,
                     timed: bool = False) -> dict | None:
     """K1 as Algorithm 1 runs it, on each ``(tag, leaf)`` of compiled exact
@@ -1816,7 +2176,7 @@ def check_k1_search(phase: str, cfg, leaves: list, rows: list, gen,
         n_bytes += (4 * pc.SEARCH_ROWS * R + n_j * n_seg * rx * C
                     + 4 * 8 * n_j + 4 * n_seg * C + 4 * pc.SEARCH_ROWS * C
                     + 8)
-        n_ops += 2 * pc.SEARCH_ROWS * n_seg * rx * C * n_j * 8
+        n_ops += 2 * pc.SEARCH_ROWS * R * C * n_j * 8
     if not timed:
         return None
     return dict(ms=cuda_ms(lambda: [fx.launch(*a, **kw24) for a in calls], 5),
@@ -1931,17 +2291,11 @@ def k3_step(cfg, plans: dict, gen, rows: list, tag: str,
     with the bytes and operations they need."""
     import torch
     from repro_torch.kernels import int8_matmul as im
-    calls, n_bytes, n_ops = [], 0, 0
-    for name, leaf, B in step_calls(cfg, plans):
-        R, C = leaf["w_off"].shape
-        x = torch.randint(-127, 128, (B, R), generator=gen, device="cuda",
-                          dtype=torch.int8)
-        calls.append((name, (x, leaf["w_off"], leaf["centers"])))
-        n_bytes += B * R + R * C + 4 * C + 4 * B * C
-        n_ops += 2 * B * R * C
+    calls, n_bytes, n_ops, _ = kernel_calls("centered_int8_matmul", cfg,
+                                            plans, gen)
     say(phase, **check_step(rows, "centered_int8_matmul", im.launch,
                             im.plain, calls, tag))
-    lib_calls = [(int_mm_operand(x), w) for _, (x, w, _) in calls]
+    lib_calls = [int_mm_args(x, w) for _, (x, w, _) in calls]
     return calls, dict(
         ms=cuda_ms(lambda: [im.launch(*a) for _, a in calls], 5),
         plain_ms=cuda_ms(lambda: [im.plain(*a) for _, a in calls], 2),
@@ -1996,8 +2350,8 @@ def phase_timing(ctx: dict, rows: list) -> list:
     exact_plans = ctx["exact_compiled"].plans
     kw = dict(adc_lo=-(1 << 23), adc_hi=(1 << 23) - 1)  # the 24b ADC
     # K2: the spec-on exact plans
-    k2_calls, k2_bytes, k2_ops = crossbar_step(cfg, exact_plans, SPEC, True,
-                                               gen)
+    k2_calls, k2_bytes, k2_ops = kernel_calls("fused_spec_crossbar", cfg,
+                                              exact_plans, gen)[:3]
 
     def k2_step(fn):
         return [fn(*a, **kw) for _, a in k2_calls]
@@ -2009,8 +2363,8 @@ def phase_timing(ctx: dict, rows: list) -> list:
               **bound(k2_bytes, k2_ops))
     del k2_calls
     # K2 on Algorithm 1's plans: 3 planes per layer site, 8 on the head
-    ka_calls, ka_bytes, ka_ops = crossbar_step(cfg, ctx["adaptive_plans"],
-                                               SPEC, True, gen)
+    ka_calls, ka_bytes, ka_ops = kernel_calls(
+        "fused_spec_crossbar", cfg, ctx["adaptive_plans"], gen)[:3]
     k2a = dict(ms=cuda_ms(lambda: [fs.launch(*a, **kw)
                                    for _, a in ka_calls], 5),
                plain_ms=cuda_ms(lambda: [fs.plain(*a, **kw)
@@ -2020,8 +2374,8 @@ def phase_timing(ctx: dict, rows: list) -> list:
                **bound(ka_bytes, ka_ops))
     del ka_calls
     # K1: the same plans, speculation off (1b input slices)
-    k1_calls, k1_bytes, k1_ops = crossbar_step(cfg, exact_plans, ONE_BIT,
-                                               False, gen)
+    k1_calls, k1_bytes, k1_ops = kernel_calls(
+        "fused_crossbar", cfg, exact_plans, gen, slicing=ONE_BIT)[:3]
 
     def k1_step(fn):
         return [fn(*a, **kw) for _, a in k1_calls]
@@ -2138,6 +2492,19 @@ def phase_timing(ctx: dict, rows: list) -> list:
                 hybrid_bound_ms=h.get("bound_ms"),
                 hybrid_bound_by=h.get("bound_by"),
                 hybrid_library_ms=h.get("library_ms"))
+        if "encoder_kernels" in ctx:  # the encoder phase's forwards
+            e = ctx["encoder_kernels"].get(name)
+            b = e and bound(e["bytes"], e["ops"])
+            out[-1].update(
+                encoder_launches=e["launches"] if e else 0,
+                encoder_max_abs_err=max(
+                    (r["max_abs_err"] for r in rows if r["kernel"] == name
+                     and str(r.get("site", "")).startswith(ENCODER_ARCHS)),
+                    default=None),
+                encoder_ms=e and e["ms"],
+                encoder_bound_ms=b and b["bound_ms"],
+                encoder_bound_by=b and b["bound_by"],
+                encoder_library_ms=e and e["library_ms"])
     return out
 
 
@@ -2145,7 +2512,7 @@ def phase_timing(ctx: dict, rows: list) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,serve,moe,hybrid,timing",
+                    default="build,kernels,serve,moe,hybrid,encoder,timing",
                     help="comma list of phases to run (default: all)")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -2178,6 +2545,8 @@ def main() -> int:
         phase_moe(ctx, rows)
     if "hybrid" in phases:
         phase_hybrid(ctx, rows)
+    if "encoder" in phases:
+        phase_encoder(ctx, rows)
     if "timing" in phases:
         kernels = phase_timing(ctx, rows)
     print(smi, flush=True)  # again, within the tail a log keeps

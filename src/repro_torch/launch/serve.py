@@ -16,7 +16,9 @@ through the static-slicing crossbar kernel and prints the per-site table)
 and routes every weight-static projection through the
 centered int8 kernel (fast), the speculation/recovery crossbar kernel
 (exact) or the ideal 8b-quantized reference (int8). Weights are random,
-from seed 0.
+from seed 0. The encoder-only archs (raella-bert-large, hubert-xlarge)
+have no decode step: the launcher refuses them before building anything,
+with the engines' error.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from repro_torch.serve import (
     Request,
     ServeEngine,
 )
+from repro_torch.serve.engine import check_decoder
 
 
 def build_trace(n: int, *, prompt_len: int, steps: int, vocab: int,
@@ -96,6 +99,7 @@ def main(argv=None) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     cfg = configs.get(args.arch)
+    check_decoder(cfg)  # before any weights are drawn or compiled
     if args.reduced:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, pim_mode=args.pim)

@@ -17,7 +17,6 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.transformer import _check_supported
 
 
 # leaves the reference initializes in float32 whatever ``cfg.dtype`` is
@@ -50,8 +49,9 @@ def params_from_reference(np_params: dict, cfg: ArchConfig,
     stay float32 (``FLOAT32_LEAVES``: a MoE router — a narrower one would
     route differently — and mamba's and rwkv's recurrence constants).
     bf16 leaves pass through float32, which holds them exactly. Expert
-    weights keep their expert axis: ``(E, d_in, d_out)`` per layer."""
-    _check_supported(cfg)
+    weights keep their expert axis: ``(E, d_in, d_out)`` per layer. An
+    embeddings-mode model's unused ``embed.embed`` table comes across with
+    its head, as the reference keeps it."""
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
 
@@ -74,7 +74,6 @@ def plans_from_reference(np_plans: dict, cfg: ArchConfig,
     an rwkv layer, which has no crossbar site). Every
     leaf keeps its dtype (int8 planes, int32 centers and shifts, bool
     masks, float32 scales) and an expert site's leaf its expert axis."""
-    _check_supported(cfg)
     dev = resolve_device(device)
 
     def leaf(d: dict, r=None) -> dict:

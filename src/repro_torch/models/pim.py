@@ -23,6 +23,8 @@ __all__ = ["CompiledPim", "SitePlan", "compile_pim_params",
 
 
 def prepare_pim_params(params: dict, cfg: ArchConfig, calib_tokens):
-    """Compile ``params`` into a PIM plan tree for ``cfg.pim_mode``."""
+    """Compile ``params`` into a PIM plan tree for ``cfg.pim_mode``,
+    calibrated on ``calib_tokens`` (token ids, or frame embeddings for an
+    embeddings-mode config)."""
     compiled = compile_pim_params(params, cfg, calib_tokens)
     return None if compiled is None else compiled.plans

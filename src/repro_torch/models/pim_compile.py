@@ -6,11 +6,11 @@ weight-static matmul and pattern position, with one instance per repeat
 layer's sites are ``wq wk wv wo``, a mamba layer's ``in_proj x_proj
 out_proj``, each followed by its FFN's ``w1 w3 w2``; an rwkv layer has
 none (its time- and channel-mix stay float, as in the reference), so on an
-rwkv model only the head reaches the crossbar. Every token model the
-port runs compiles (embedding inputs are still refused). Sites compile in
-three steps:
+rwkv model only the head reaches the crossbar. Every model the port runs
+compiles, an embeddings-mode one (hubert) from calibration embeddings.
+Sites compile in three steps:
 
-1. *capture* — an eager float forward over the calibration tokens with
+1. *capture* — an eager float forward over the calibration inputs with
    ``PimTap`` recorders standing in for plan leaves, so each site is
    calibrated on exactly the activations the real forward feeds it (an
    expert on its dispatch buffer, zero rows included);
@@ -115,10 +115,10 @@ def _block_projections(cfg: ArchConfig, i: int) -> dict | None:
     return {"core": _CORE_PROJ[kind], "ffn": _FFN_PROJ}
 
 
-def _capture(params: dict, cfg: ArchConfig, calib_tokens: torch.Tensor,
+def _capture(params: dict, cfg: ArchConfig, calib: torch.Tensor,
              taps: dict) -> None:
     """Float forward that feeds every tap its projection inputs."""
-    x = T.embed_inputs(params, cfg, calib_tokens)
+    x = T.embed_inputs(params, cfg, calib)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
     for layer, (bp, tap) in enumerate(zip(params["layers"], taps["layers"])):
@@ -285,8 +285,10 @@ def compile_pim_params(params: dict, cfg: ArchConfig,
                        calib_tokens) -> CompiledPim | None:
     """Compile ``params`` into per-site PIM plans for ``cfg.pim_mode``.
 
-    calib_tokens: (B, S) token ids (numpy or tensor) for the activation
-    calibration. Mode 'off' returns None — the float path needs no compile.
+    calib_tokens: (B, S) token ids, or (B, S, D) frame embeddings for an
+    embeddings-mode config (numpy or tensor), for the activation
+    calibration and Algorithm 1's search rows. Mode 'off' returns None —
+    the float path needs no compile.
     Sites are per pattern position ``i``, as in the reference: a dense
     site has one instance per repeat (``blocks[i].core.wq[r1]``), an
     expert site one per (repeat, expert) (``blocks[i].ffn.w1[r1,e3]``),
@@ -298,7 +300,9 @@ def compile_pim_params(params: dict, cfg: ArchConfig,
     if cfg.pim_mode not in ("fast", "exact", "int8"):
         raise ValueError(f"unknown pim_mode {cfg.pim_mode!r}")
     dev = params["embed"]["embed"].device
-    tokens = torch.as_tensor(calib_tokens, dtype=torch.int64, device=dev)
+    calib = torch.as_tensor(calib_tokens, device=dev)
+    if cfg.input_mode == "tokens":
+        calib = calib.to(torch.int64)
     n_pat = len(cfg.block_pattern)
     paths = [_block_projections(cfg, layer % n_pat)
              for layer in range(cfg.n_layers)]
@@ -307,7 +311,7 @@ def compile_pim_params(params: dict, cfg: ArchConfig,
     layer_plans = [None] * cfg.n_layers
     sites: list[SitePlan] = []
     with torch.no_grad():
-        _capture(params, cfg, tokens, taps)
+        _capture(params, cfg, calib, taps)
         for i in range(n_pat):
             if paths[i] is None:
                 continue

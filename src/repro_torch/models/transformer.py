@@ -1,18 +1,21 @@
 """Model assembly: attention, mamba and rwkv6 blocks, plain PyTorch.
 
-Port of ``repro.models.transformer`` for token models: attention layers
-with dense or mixture-of-experts FFNs, mamba layers (jamba) and rwkv6
-layers, whose channel-mix takes the FFN's place. Layer ``l`` has pattern
-index ``l % len(block_pattern)``, which picks its kind and, through
-``cfg.moe_layer``, a MoE FFN. The reference stacks layers per pattern
-repeat under ``lax.scan``; the port keeps one parameter dict per layer in
-``params["layers"]`` and walks them in a Python loop (``models.convert``
-carries a reference pytree across). Embedding inputs
-(``input_mode="embeddings"``) are still refused (``_check_supported``).
+Port of ``repro.models.transformer``: attention layers with dense or
+mixture-of-experts FFNs, causal or not (the encoder-only configs), mamba
+layers (jamba) and rwkv6 layers, whose channel-mix takes the FFN's place.
+Layer ``l`` has pattern index ``l % len(block_pattern)``, which picks its
+kind and, through ``cfg.moe_layer``, a MoE FFN. The reference stacks
+layers per pattern repeat under ``lax.scan``; the port keeps one parameter
+dict per layer in ``params["layers"]`` and walks them in a Python loop
+(``models.convert`` carries a reference pytree across). Inputs are token
+ids ``(B, S)``, or with ``input_mode="embeddings"`` (hubert) frame
+embeddings ``(B, S, D)`` cast to ``cfg.dtype`` (``embed_inputs``); such a
+model keeps its unused ``embed.embed`` table, as the reference's does.
 
 Public surface:
   init_params(cfg, seed=, device=)           -> params
-  forward(params, cfg, tokens, plans)        -> logits
+  forward(params, cfg, inputs, plans)        -> logits
+  lm_loss(params, cfg, batch)                -> scalar (forward only)
   init_decode_state(cfg, B, L, ..., paged=)  -> state (contiguous or paged)
   prefill / prefill_chunk / decode_step / insert_request
   init_layer / apply_block / run_layer       -> one layer (fresh / cached)
@@ -52,14 +55,6 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
-
-
-def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves token models (attention, mamba "
-            "and rwkv blocks, dense or MoE FFNs); embedding inputs are a "
-            "later slice")
 
 
 def block_kind(cfg: ArchConfig, layer: int) -> str:
@@ -150,7 +145,6 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> dict:
     ``A_log``, ``D``, ``decay_base`` and ``bonus`` — drawn from a
     ``torch.Generator`` on the target device (the values differ from
     ``jax.random``'s)."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     draws = _draws(cfg, dev, seed)
     layers = [_init_layer(cfg, layer, draws, dev)
@@ -168,7 +162,6 @@ def init_layer(cfg: ArchConfig, layer: int, *, seed: int = 0,
     """Layer ``layer``'s parameters alone, as ``init_params`` draws them
     (from a generator of its own): a model too large for one card runs a
     layer at a time through ``apply_block`` / ``run_layer``."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     return _init_layer(cfg, layer, _draws(cfg, dev, seed), dev)
 
@@ -225,15 +218,18 @@ def run_layer(bp: dict, cfg: ArchConfig, layer: int, x: torch.Tensor,
 
 
 def embed_inputs(params: dict, cfg: ArchConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    _check_supported(cfg)
-    return L.embed(params["embed"], tokens)
+                 inputs: torch.Tensor) -> torch.Tensor:
+    """Token ids (B, S) through the embedding table, or (embeddings mode)
+    frame embeddings (B, S, D) cast to ``cfg.dtype``."""
+    if cfg.input_mode == "tokens":
+        return L.embed(params["embed"], inputs)
+    return inputs.to(getattr(torch, cfg.dtype))
 
 
-def forward_hidden(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+def forward_hidden(params: dict, cfg: ArchConfig, inputs: torch.Tensor,
                    plans=None) -> torch.Tensor:
     """Full-sequence forward to final hidden states (B, S, D)."""
-    x = embed_inputs(params, cfg, tokens)
+    x = embed_inputs(params, cfg, inputs)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
     with L.suspend_pim_stats():
@@ -243,12 +239,59 @@ def forward_hidden(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
-def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor,
             plans=None) -> torch.Tensor:
-    """Full-sequence forward to logits. tokens: (B, S) ids."""
+    """Full-sequence forward to logits. inputs: tokens (B, S) or
+    embeddings (B, S, D)."""
     return L.lm_head(params["embed"], cfg,
-                     forward_hidden(params, cfg, tokens, plans),
+                     forward_hidden(params, cfg, inputs, plans),
                      plan=_head_plan(plans))
+
+
+# ------------------------------------------------------------------ losses
+LOSS_CHUNK = 512  # sequence positions per logits chunk
+
+
+def lm_loss(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """Mean cross-entropy, forward only: the causal LM loss (causal token
+    models: position t predicts ``labels[t + 1]``, the last position
+    masked), or every position against its own label (non-causal token
+    models and embeddings mode, hubert's masked-unit proxy).
+
+    ``batch``: ``inputs`` (tokens or embeddings), ``labels`` (B, S) ids
+    and an optional ``mask`` broadcastable to (B, S). As in the reference,
+    the hidden states come from ``forward_hidden`` without plans and the
+    head is a plain product cast to float32, so the loss is float in every
+    ``pim_mode``; the sequence is padded to whole ``LOSS_CHUNK`` chunks
+    and each chunk's logits are reduced before the next, so the (B, S,
+    vocab) logits never exist at once. Returns a float32 scalar."""
+    x = forward_hidden(params, cfg, batch["inputs"])  # (B, S, D)
+    labels = torch.as_tensor(batch["labels"], device=x.device).long()
+    mask = batch.get("mask")
+    B, S = x.shape[:2]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    mask = torch.ones((B, S), **f32) if mask is None else torch.as_tensor(
+        mask, **f32).expand(B, S)
+    if cfg.input_mode == "tokens" and cfg.causal:
+        labels = torch.cat([labels[:, 1:], labels.new_zeros((B, 1))], dim=1)
+        mask = mask * (torch.arange(S, device=x.device) < S - 1).to(
+            torch.float32)[None, :]
+    C = min(LOSS_CHUNK, S)
+    pad = -(-S // C) * C - S
+    xp = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    lp = torch.nn.functional.pad(labels, (0, pad))
+    mp = torch.nn.functional.pad(mask, (0, pad))
+    head = params["embed"]["head"]
+    tot = torch.zeros((), **f32)
+    cnt = torch.zeros((), **f32)
+    for c0 in range(0, S + pad, C):
+        logits = torch.einsum("bsd,dv->bsv", xp[:, c0:c0 + C],
+                              head).to(torch.float32)
+        picked = logits.gather(-1, lp[:, c0:c0 + C, None])[..., 0]
+        nll = (torch.logsumexp(logits, dim=-1) - picked) * mp[:, c0:c0 + C]
+        tot = tot + nll.sum()
+        cnt = cnt + mp[:, c0:c0 + C].sum()
+    return tot / cnt.clamp_min(1.0)
 
 
 # ------------------------------------------------------------------ decode
@@ -290,7 +333,6 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
     ``k_scale``/``v_scale`` leaves without the ``head_dim`` axis. A mamba
     or rwkv layer gets its zero carry with a ``batch`` (slot) axis, paged
     or not."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     dt = getattr(torch, cfg.kv_cache_dtype)
     lead = (batch, max_len) if paged is None else (paged.pool_rows,
@@ -484,14 +526,14 @@ def _store_span(cache: dict, k: torch.Tensor, v: torch.Tensor,
         cache[name][:, pos0:pos0 + val.shape[1]] = val
 
 
-def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+def prefill(params: dict, cfg: ArchConfig, inputs: torch.Tensor,
             max_len: int | None = None,
             plans=None) -> tuple[torch.Tensor, dict]:
-    """Process a prompt, returning last-position logits and a filled
-    decode state (caches sized to ``max_len``, default the prompt).
-    Attention reads this call's raw K/V; an int8 cache stores their
-    codes."""
-    x = embed_inputs(params, cfg, tokens)
+    """Process a prompt (tokens (B, S) or embeddings (B, S, D)), returning
+    last-position logits and a filled decode state (caches sized to
+    ``max_len``, default the prompt). Attention reads this call's raw
+    K/V; an int8 cache stores their codes."""
+    x = embed_inputs(params, cfg, inputs)
     B, S = x.shape[0], x.shape[1]
     state = init_decode_state(cfg, B, max_len or S, device=x.device)
     positions = torch.arange(S, device=x.device).expand(B, S)

@@ -37,9 +37,15 @@ class GenerationResult:
     steps: int
 
 
-def check_plans(cfg: ArchConfig, plans: Any) -> None:
+def check_decoder(cfg: ArchConfig) -> None:
+    """Refuse an encoder-only config (``causal=False``): it has no decode
+    step, as in the reference's engines."""
     if not cfg.causal:
         raise ValueError(f"{cfg.name} is encoder-only; no decode")
+
+
+def check_plans(cfg: ArchConfig, plans: Any) -> None:
+    check_decoder(cfg)
     if cfg.pim_mode != "off" and plans is None:
         raise ValueError(
             f"pim_mode={cfg.pim_mode!r} needs compiled plans — call "

@@ -165,10 +165,24 @@ def test_configs_compare_equal(arch):
 
 
 def test_only_embedding_inputs_are_refused():
-    cfg = dataclasses.replace(configs.get(RWKV).reduced(),
+    """Embedding inputs, once refused, now run: an embeddings-mode rwkv6
+    config initializes (its unused embedding table kept), and ``forward``
+    and ``prefill`` take (B, S, D) frame embeddings, cast to
+    ``cfg.dtype``; prefill's last logits equal the forward's."""
+    cfg = dataclasses.replace(configs.get(RWKV).reduced(dtype="float32"),
                               input_mode="embeddings")
-    with pytest.raises(NotImplementedError, match="embedding inputs"):
-        T.init_params(cfg, device="cpu")
+    params = T.init_params(cfg, device="cpu")
+    assert params["embed"]["embed"].shape == (cfg.vocab_size, cfg.d_model)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 6, cfg.d_model))).to(torch.float64)
+    with torch.no_grad():
+        logits = T.forward(params, cfg, x)
+        last, state = T.prefill(params, cfg, x, max_len=8)
+    assert logits.shape == (2, 6, cfg.vocab_size)
+    assert logits.dtype == torch.float32 and bool(logits.isfinite().all())
+    np.testing.assert_allclose(last[:, 0].numpy(), logits[:, -1].numpy(),
+                               atol=P.ATOL["off"], rtol=0)
+    assert state["pos"] == 6
 
 
 # ------------------------------------------------------ forward / decode
