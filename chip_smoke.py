@@ -102,6 +102,23 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            ``torch._int_mm``); ``lm_loss`` of each model; and for bert an
            exact forward at the paper's 7b ADC with every layer's work
            stats (converts per position, speculation-failure share);
+  decoders the last three dense decoders at their published widths, depth
+           cut to fit the card (``DECODERS``; random bf16 weights from a
+           seed): chameleon-34b (qk-norm), 4 of 48 layers, qwen2.5-32b, 4 of
+           64, and qwen1.5-110b, 2 of 80 (QKV bias). Each serves the same 4
+           requests through ``ContinuousServeEngine`` in ``exact`` (K2),
+           ``int8`` and ``fast`` (K3), chameleon also ``exact`` on
+           Algorithm 1's plans (K1 in the compile, then K2): launches per
+           engine call from the plans, exact == int8 tokens (== adaptive),
+           peaks, converts per token and each exact compile's energy
+           report (``CompiledPim.report``); every K2 call of one decode
+           step (pinned, and chameleon's Algorithm 1 plans) and every K3
+           call held bit for bit against the plain versions, the head
+           included, timed beside their bound (K3 also beside
+           ``torch._int_mm``); K2 at the 7b ADC on the down projection
+           (up to 96 segments), counters included; K1 at Algorithm 1's
+           search shape on chameleon's distinct (R, C) (timed) and on the
+           others' down projections;
   timing   one decode step's worth of kernel calls on the compiled plans
            (distinct weights per layer, as the model has them) against the
            plain versions and, for K3, ``torch._int_mm`` (x padded with zero
@@ -131,8 +148,13 @@ forward of each encoder model: K2 in exact, K1 in exact-nospec, K3 in
 fast), ``encoder_max_abs_err`` (the phase's comparisons) and
 ``encoder_ms``, ``encoder_bound_ms``, ``encoder_bound_by`` and
 ``encoder_library_ms`` for those forwards' calls at 1,536 rows, summed
-over the two models (K4's: 0 launches, null). The last line is ``{"ok": true,
-"device": {...}}``.
+over the two models (K4's: 0 launches, null). With the decoders phase
+they add ``decoders_launches`` (K2 in the three exact runs, K3 in the
+three fast runs, K1 in chameleon's Algorithm 1 compile),
+``decoders_max_abs_err`` and ``decoders_ms``, ``decoders_bound_ms``,
+``decoders_bound_by`` and ``decoders_library_ms`` for one decode step of
+each model (K1: chameleon's search shape), summed over the models. The
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -181,6 +203,11 @@ ENCODER_ARCHS = ("raella-bert-large", "hubert-xlarge")
 # bert_large_ffn(seq=384)); for hubert, 7.7 s of audio at 50 frames/s
 ENCODER_BATCH, ENCODER_SEQ = 4, 384
 ENCODER_ROWS = ENCODER_BATCH * ENCODER_SEQ  # rows every projection gets
+# (arch, layers run, Algorithm 1 too): published widths, depth cut so that
+# params, plans and the compile's temporaries fit the card (whole, they
+# are 68.6, 65.5 and 222.4 GB in bf16)
+DECODERS = (("chameleon-34b", 4, True), ("qwen2.5-32b", 4, False),
+            ("qwen1.5-110b", 2, False))
 
 
 def say(phase: str, **fields) -> None:
@@ -1544,13 +1571,18 @@ def kernel_calls(kernel: str, cfg, plans: dict, gen, rows: int | None = None,
     return calls, n_bytes, n_ops, list(first.values())
 
 
-def encoder_kernel(kernel: str, cfg, plans: dict, gen, rows: list,
-                   tag: str) -> dict:
-    """One forward's calls of ``kernel`` at ENCODER_ROWS rows: the first
-    call of each distinct operand shape held bit for bit against the plain
-    version (psum and counters; rows in ``rows``), each such call timed
-    against it; then every call of the forward timed back to back beside
-    its bound and, for K3, ``torch._int_mm`` on the same x and weights."""
+def engine_call_kernel(kernel: str, cfg, plans: dict, gen, rows: list,
+                       tag: str, phase: str, n_rows: int | None = None
+                       ) -> dict:
+    """One engine call's calls of ``kernel`` on compiled plans, as
+    ``kernel_calls`` gives them: a decode step (``n_rows`` None) or a
+    forward of ``n_rows`` rows a projection. Held bit for bit against the
+    plain version (psum and counters; rows in ``rows``): every call of a
+    decode step, the first call of each distinct operand shape of a
+    forward. Each distinct shape's first call is timed beside the plain
+    version (whose float64 products take up to 10 GB at a wide head, so
+    it runs once a shape), then every call back to back beside the bound
+    and, for K3, ``torch._int_mm`` on the same x and weights."""
     import torch
     from repro_torch.kernels import fused_crossbar as fx
     from repro_torch.kernels import fused_spec_crossbar as fs
@@ -1559,17 +1591,21 @@ def encoder_kernel(kernel: str, cfg, plans: dict, gen, rows: list,
            "centered_int8_matmul": im}[kernel]
     kw = {} if mod is im else dict(adc_lo=-(1 << 23), adc_hi=(1 << 23) - 1)
     calls, n_bytes, n_ops, first = kernel_calls(
-        kernel, cfg, plans, gen, ENCODER_ROWS,
-        ONE_BIT if mod is fx else SPEC)
-    check_step(rows, kernel, mod.launch, mod.plain, first, tag, **kw)
-    for (_, args), row in zip(first, rows[-len(first):]):
+        kernel, cfg, plans, gen, n_rows, ONE_BIT if mod is fx else SPEC)
+    checked = calls if n_rows is None else first
+    summary = check_step(rows, kernel, mod.launch, mod.plain, checked, tag,
+                         **kw)
+    row_of = dict(zip((name for name, _ in checked), rows[-len(checked):]))
+    for name, args in first:
+        row = row_of[name]
         row["kernel_ms"] = cuda_ms(lambda: mod.launch(*args, **kw), 3)
         row["plain_ms"] = cuda_ms(lambda: mod.plain(*args, **kw), 1,
                                   warmup=0)
-        say("encoder", **row)
+        say(phase, **row)
     out = dict(ms=cuda_ms(lambda: [mod.launch(*a, **kw) for _, a in calls],
                           2),
                library_ms=None, calls=len(calls), shapes=len(first),
+               checks=summary["checks"], max_abs_err=summary["max_abs_err"],
                **bound(n_bytes, n_ops))
     if mod is im:
         lib = [int_mm_args(*a[:2]) for _, a in calls]
@@ -1578,6 +1614,21 @@ def encoder_kernel(kernel: str, cfg, plans: dict, gen, rows: list,
         del lib
     del calls, first
     return out
+
+
+def tally(ctx: dict, phase: str, kernel: str, d: dict,
+          launches: int) -> None:
+    """Add one model's kernel time, bytes, operations and launches to the
+    phase's sums (``ctx[phase + "_kernels"]``), which the kernels JSON
+    line reports under the phase's keys."""
+    e = ctx.setdefault(f"{phase}_kernels", {}).setdefault(
+        kernel, dict(launches=0, ms=0.0, bytes=0, ops=0, library_ms=None))
+    e["launches"] += launches
+    e["ms"] += d["ms"]
+    e["bytes"] += d["bytes"]
+    e["ops"] += d["ops"]
+    if d["library_ms"] is not None:
+        e["library_ms"] = (e["library_ms"] or 0.0) + d["library_ms"]
 
 
 def first_leaf_per_shape(cfg, plans: dict, tag: str) -> list:
@@ -1714,17 +1765,17 @@ def encoder_model(ctx: dict, rows: list, arch: str) -> None:
     # one forward's kernel calls at ENCODER_ROWS rows
     tag = f"{arch} forward"
     exact = dataclasses.replace(cfg0, pim_mode="exact")
-    ek = ctx.setdefault("encoder_kernels", {})
-    k2 = encoder_kernel("fused_spec_crossbar", exact, plans["exact"].plans,
-                        gen, rows, tag)
-    k2a = encoder_kernel("fused_spec_crossbar", exact,
-                         plans["exact-adaptive"].plans, gen, rows,
-                         f"{tag}, Algorithm 1's plans")
-    k1 = encoder_kernel("fused_crossbar", exact, plans["exact"].plans, gen,
-                        rows, f"{tag}, speculation off")
-    k3 = encoder_kernel("centered_int8_matmul",
-                        dataclasses.replace(cfg0, pim_mode="fast"),
-                        plans["fast"].plans, gen, rows, tag)
+    kw = dict(phase="encoder", n_rows=ENCODER_ROWS)
+    k2 = engine_call_kernel("fused_spec_crossbar", exact,
+                            plans["exact"].plans, gen, rows, tag, **kw)
+    k2a = engine_call_kernel("fused_spec_crossbar", exact,
+                             plans["exact-adaptive"].plans, gen, rows,
+                             f"{tag}, Algorithm 1's plans", **kw)
+    k1 = engine_call_kernel("fused_crossbar", exact, plans["exact"].plans,
+                            gen, rows, f"{tag}, speculation off", **kw)
+    k3 = engine_call_kernel("centered_int8_matmul",
+                            dataclasses.replace(cfg0, pim_mode="fast"),
+                            plans["fast"].plans, gen, rows, tag, **kw)
     search = check_k1_search(
         "encoder", dataclasses.replace(exact, pim_weight_slicing="adaptive"),
         first_leaf_per_shape(exact, plans["exact-adaptive"].plans, arch),
@@ -1743,14 +1794,7 @@ def encoder_model(ctx: dict, rows: list, arch: str) -> None:
             f"{ENCODER_ROWS} rows" if n is not None else f"{arch}, {scope}",
             **d)
         if n is not None and d is not k2a:
-            e = ek.setdefault(name, dict(launches=0, ms=0.0, bytes=0, ops=0,
-                                         library_ms=None))
-            e["launches"] += n[name]
-            e["ms"] += d["ms"]
-            e["bytes"] += d["bytes"]
-            e["ops"] += d["ops"]
-            if d["library_ms"] is not None:
-                e["library_ms"] = (e["library_ms"] or 0.0) + d["library_ms"]
+            tally(ctx, "encoder", name, d, n[name])
     del plans["fast"], plans["int8"], plans["exact-adaptive"]
     # lm_loss on the card: float in every pim_mode, chunked over positions
     labels = torch.randint(0, cfg0.vocab_size,
@@ -1818,6 +1862,202 @@ def encoder_adc7(params, exact, x, plans: dict) -> None:
         max_abs_diff_from_24b=float((got - at24).abs().max()),
         argmax_agreement_with_24b=float(
             (got.argmax(-1) == at24.argmax(-1)).float().mean()))
+
+
+def check_k2_adc7(cfg, plans: dict, gen, rows: list, tag: str,
+                  site: str) -> dict:
+    """K2 at the paper's 7b ADC on the first call of ``site`` in one
+    decode step, against the plain version bit for bit: psum, failures
+    per spec slice and recovery saturations, which the clamps must make
+    non-zero (a 7b window on 8b codes over 512 rows)."""
+    from repro_torch.kernels import fused_spec_crossbar as fs
+    calls = kernel_calls("fused_spec_crossbar", cfg, plans, gen)[0]
+    name, args = next(c for c in calls if c[0] == f"{site}+")
+    del calls
+    kw = dict(adc_lo=-64, adc_hi=63)
+    got = fs.launch(*args, **kw)
+    row = compare("fused_spec_crossbar", got, fs.plain(*args, **kw),
+                  site=f"{tag}.{name}", B=args[0].shape[0],
+                  R=args[0].shape[1], C=got[0].shape[-1], adc_bits=7,
+                  n_seg=args[1].shape[1] // 512,
+                  failures=json.dumps(got[1].tolist()),
+                  recovery_sats=int(got[2]))
+    if not (int(got[1].sum()) > 0 and int(got[2]) > 0):
+        raise AssertionError(f"{tag}.{name}: no failure or recovery "
+                             "saturation at the 7b ADC")
+    rows.append(row)
+    return row
+
+
+def report_summary(compiled) -> dict:
+    """``CompiledPim.report()``'s whole-model numbers (4096 tokens)."""
+    rep = compiled.report()
+    return {f"report_{k}": (json.dumps(rep[k]) if isinstance(rep[k], dict)
+                            else rep[k])
+            for k in ("converts_per_mac", "adc_energy_share", "energy_uj",
+                      "slice_histogram", "n_sites")}
+
+
+def phase_decoders(ctx: dict, rows: list) -> None:
+    """The last three dense decoders at their published widths, depth cut
+    to fit the card (``DECODERS``)."""
+    for arch, n_layers, adaptive in DECODERS:
+        decoder_model(ctx, rows, arch, n_layers, adaptive)
+    say("decoders", ok=True, archs=json.dumps([d[0] for d in DECODERS]),
+        kernel_checks=len([r for r in rows if str(r.get("site", ""))
+                           .startswith(tuple(d[0] for d in DECODERS))]))
+
+
+def decoder_model(ctx: dict, rows: list, arch: str, n_layers: int,
+                  adaptive: bool) -> None:
+    """Serve one decoder (published widths, ``n_layers`` layers, random
+    bf16 weights from seed 0) through ``ContinuousServeEngine`` in exact
+    (pinned (4,2,2): K2), int8 and fast (K3) mode, and with ``adaptive``
+    exact on Algorithm 1's per-site plans (K1 in the compile, then K2):
+    launches per engine call from the plans, exact == int8 (== adaptive)
+    tokens, each exact compile's energy report. While each plan set is
+    alive, one decode step's K2 (pinned and Algorithm 1's plans) and K3
+    calls are held bit for bit against the plain versions and timed, K2
+    once more at the 7b ADC on the down projection (the widest R), and K1
+    at Algorithm 1's search shape: on each distinct (R, C) of the adaptive
+    plans with ``adaptive``, else on the down projection alone. Each plan
+    set is freed before the next compile."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import calibration_tokens
+    from repro_torch.models import layers as L
+    from repro_torch.models import pim
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ContinuousServeEngine
+    full = configs.get(arch)
+    cfg0 = dataclasses.replace(full, n_layers=n_layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # the serve phase's plans, if run
+    t0 = time.perf_counter()
+    params = T.init_params(cfg0, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    say("decoders", arch=arch, layers=cfg0.n_layers,
+        reduced=f"n_layers {full.n_layers} -> {cfg0.n_layers}",
+        d_model=cfg0.d_model, n_heads=cfg0.n_heads,
+        n_kv_heads=cfg0.n_kv_heads, head_dim=cfg0.resolved_head_dim,
+        d_ff=cfg0.d_ff, vocab=cfg0.vocab_size, qk_norm=cfg0.qk_norm,
+        qkv_bias=cfg0.qkv_bias, dtype=cfg0.dtype,
+        params=n_params_of(params), init_s=round(time.perf_counter() - t0, 3),
+        peak_gb=peak_gb(base), resident_before_gb=round(base / 2**30, 3))
+    reqs = serve_requests(cfg0.vocab_size)
+    max_len = BLOCK * -(-(max(len(r.prompt) for r in reqs) + 8 + 1) // BLOCK)
+    calib = calibration_tokens(cfg0, 16)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens: dict = {}
+
+    def compile_plans(cfg):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        compiled = pim.compile_pim_params(params, cfg, calib)
+        torch.cuda.synchronize()
+        return compiled, dict(compile_s=round(time.perf_counter() - t0, 3),
+                              compile_launches=json.dumps(
+                                  ops.launch_counts()),
+                              sites=len(compiled.sites),
+                              compile_peak_gb=peak_gb(base))
+
+    def serve(run, cfg, plans):
+        eng = ContinuousServeEngine(cfg, params, plans=plans,
+                                    n_slots=N_SLOTS, max_len=max_len,
+                                    prefill_chunk=64)
+        with L.collect_pim_stats() as sink:
+            outs, serve_s, launches = drive(eng, reqs)
+            totals = L.pim_stats_totals(sink)
+        row = engine_row(f"{arch} {run}", eng, outs, serve_s, launches,
+                         PER_CALL[cfg.pim_mode], cfg.vocab_size)
+        row.update(peak_gb=peak_gb(base),
+                   projections_per_call=len(step_calls(cfg, plans)))
+        if cfg.pim_mode == "exact":
+            row.update(adc_converts_per_token=totals["adc_converts"]
+                       / row["tokens"],
+                       spec_failures=totals["spec_failures"])
+        tokens[run] = [o.tokens.tolist() for o in outs]
+        return row
+
+    def record(kernel, d, scope, launches):
+        say("decoders", kernel=kernel, scope=f"{arch}, {scope}", **d)
+        tally(ctx, "decoders", kernel, d, launches)
+
+    tag = f"{arch} decode step"
+    down = f"{n_layers - 1}.w2"  # R = d_ff: the most segments of any site
+    # exact, pinned (4,2,2): K2 per projection and the head
+    exact = dataclasses.replace(cfg0, pim_mode="exact")
+    compiled, info = compile_plans(exact)
+    row = serve("exact", exact, compiled.plans)
+    k2_launches = json.loads(row["launches"])["fused_spec_crossbar"]
+    say("decoders", **row, **info, **report_summary(compiled))
+    record("fused_spec_crossbar",
+           engine_call_kernel("fused_spec_crossbar", exact, compiled.plans,
+                              gen, rows, tag, "decoders"),
+           "one decode step", k2_launches)
+    say("decoders", **check_k2_adc7(exact, compiled.plans, gen, rows, tag,
+                                    down))
+    if not adaptive:  # K1 at the search shape on the widest R
+        check_k1_search("decoders", exact, [
+            (f"{arch} search.{down}", compiled.plans["layers"][-1]["ffn"]
+             ["w2"])], rows, gen)
+    del compiled
+    # int8: the ideal 8b reference, no kernel
+    int8 = dataclasses.replace(cfg0, pim_mode="int8")
+    compiled, info = compile_plans(int8)
+    say("decoders", **serve("int8", int8, compiled.plans), **info)
+    del compiled
+    if tokens["exact"] != tokens["int8"]:
+        raise AssertionError(f"{arch} exact tokens differ from int8 tokens "
+                             "at the 24b ADC")
+    # fast: K3 per projection and the head
+    fast = dataclasses.replace(cfg0, pim_mode="fast")
+    compiled, info = compile_plans(fast)
+    row = serve("fast", fast, compiled.plans)
+    say("decoders", **row, **info)
+    record("centered_int8_matmul",
+           engine_call_kernel("centered_int8_matmul", fast, compiled.plans,
+                              gen, rows, tag, "decoders"), "one decode step",
+           json.loads(row["launches"])["centered_int8_matmul"])
+    del compiled
+    if adaptive:  # exact on Algorithm 1's plans: K1 per site, then K2
+        adapt = dataclasses.replace(exact, pim_weight_slicing="adaptive")
+        compiled, info = compile_plans(adapt)
+        search = json.loads(info["compile_launches"])["fused_crossbar"]
+        if search <= 0:
+            raise AssertionError("Algorithm 1's compile launched no K1")
+        errs = [sp.error for sp in compiled.sites]
+        say("decoders", **serve("exact-adaptive", adapt, compiled.plans),
+            **info, search_k1_launches=search,
+            distinct_slicings=json.dumps(["-".join(map(str, sl)) for sl in
+                                          compiled.distinct_slicings()]),
+            mean_site_error=sum(errs) / len(errs), max_site_error=max(errs),
+            **report_summary(compiled))
+        say("decoders", kernel="fused_spec_crossbar",
+            scope=f"{arch}, one decode step, Algorithm 1's plans",
+            **engine_call_kernel("fused_spec_crossbar", adapt, compiled.plans,
+                                 gen, rows, f"{tag}, Algorithm 1's plans",
+                                 "decoders"))
+        k1 = check_k1_search(
+            "decoders", adapt, first_leaf_per_shape(adapt, compiled.plans,
+                                                    arch), rows, gen,
+            timed=True)
+        record("fused_crossbar", k1, "Algorithm 1's search shape, one "
+               "instance per distinct (R, C)", search)
+        del compiled
+        if tokens["exact-adaptive"] != tokens["exact"]:
+            raise AssertionError(f"{arch} exact-adaptive tokens differ from "
+                                 "exact tokens at the 24b ADC")
+    del params
+    torch.cuda.empty_cache()
+    say("decoders", ok=True, arch=arch, exact_equals_int8=True,
+        adaptive_equals_exact=adaptive or None,
+        first_tokens=json.dumps(tokens["exact"][0]))
 
 
 def prefix_requests(vocab: int):
@@ -2492,19 +2732,22 @@ def phase_timing(ctx: dict, rows: list) -> list:
                 hybrid_bound_ms=h.get("bound_ms"),
                 hybrid_bound_by=h.get("bound_by"),
                 hybrid_library_ms=h.get("library_ms"))
-        if "encoder_kernels" in ctx:  # the encoder phase's forwards
-            e = ctx["encoder_kernels"].get(name)
+        for key, archs in (("encoder", ENCODER_ARCHS),  # the phases' runs
+                           ("decoders", tuple(d[0] for d in DECODERS))):
+            if f"{key}_kernels" not in ctx:
+                continue
+            e = ctx[f"{key}_kernels"].get(name)
             b = e and bound(e["bytes"], e["ops"])
-            out[-1].update(
-                encoder_launches=e["launches"] if e else 0,
-                encoder_max_abs_err=max(
+            out[-1].update({
+                f"{key}_launches": e["launches"] if e else 0,
+                f"{key}_max_abs_err": max(
                     (r["max_abs_err"] for r in rows if r["kernel"] == name
-                     and str(r.get("site", "")).startswith(ENCODER_ARCHS)),
+                     and str(r.get("site", "")).startswith(archs)),
                     default=None),
-                encoder_ms=e and e["ms"],
-                encoder_bound_ms=b and b["bound_ms"],
-                encoder_bound_by=b and b["bound_by"],
-                encoder_library_ms=e and e["library_ms"])
+                f"{key}_ms": e and e["ms"],
+                f"{key}_bound_ms": b and b["bound_ms"],
+                f"{key}_bound_by": b and b["bound_by"],
+                f"{key}_library_ms": e and e["library_ms"]})
     return out
 
 
@@ -2512,7 +2755,8 @@ def phase_timing(ctx: dict, rows: list) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,serve,moe,hybrid,encoder,timing",
+                    default="build,kernels,serve,moe,hybrid,encoder,"
+                    "decoders,timing",
                     help="comma list of phases to run (default: all)")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -2547,6 +2791,8 @@ def main() -> int:
         phase_hybrid(ctx, rows)
     if "encoder" in phases:
         phase_encoder(ctx, rows)
+    if "decoders" in phases:
+        phase_decoders(ctx, rows)
     if "timing" in phases:
         kernels = phase_timing(ctx, rows)
     print(smi, flush=True)  # again, within the tail a log keeps

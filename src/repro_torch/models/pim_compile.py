@@ -35,9 +35,9 @@ Sites compile in three steps:
 Everything runs on the params' device. Plans come out as ``{"layers":
 [{"core": {...}, "ffn": {...}}, ...], "head": leaf}``, None for an rwkv
 layer; leaf keys match the reference's, and an expert site's leaves carry
-a leading expert axis. The
-reference's energy report (``CompiledPim.report``) needs ``core.energy``
-and ``core.mapping``, which are not ported yet.
+a leading expert axis. ``CompiledPim.report`` prices every site with
+the §2.5 energy model (``core.energy``): converts/MAC, ADC energy share,
+the slice-count histogram, as the reference's does, value for value.
 """
 
 from __future__ import annotations
@@ -50,6 +50,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import adaptive as ad
 from repro_torch.core import adc as adc_lib
 from repro_torch.core import center_offset as co
+from repro_torch.core import energy as en
+from repro_torch.core import mapping as mp
 from repro_torch.core import slicing as slc
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -84,7 +86,8 @@ class SitePlan:
 
 @dataclasses.dataclass
 class CompiledPim:
-    """Plan tree + the per-site table."""
+    """Plan tree + the per-site table, and the config they compiled for."""
+    cfg: ArchConfig
     plans: dict
     sites: tuple[SitePlan, ...]
 
@@ -102,6 +105,61 @@ class CompiledPim:
         for s in self.sites:
             hist[s.n_slices] = hist.get(s.n_slices, 0) + 1
         return dict(sorted(hist.items()))
+
+    def report(self, tokens: int = 4096) -> dict:
+        """Price every site with the §2.5 energy model (JSON-serializable).
+
+        Each site is mapped onto RAELLA silicon with *its own* slice count
+        (``bits_per_weight_slice = 8 / n_slices``); speculation follows
+        ``cfg.pim_speculation``. Reported per site: converts/MAC, ADC
+        energy, total energy, ADC share — plus whole-model aggregates and
+        the slice-count histogram (the paper's Fig. 7 x Fig. 12 story).
+        """
+        spec = 3 if self.cfg.pim_speculation else 0
+        rows = []
+        tot_converts = tot_macs = 0.0
+        tot_adc = tot_energy = 0.0
+        for sp in self.sites:
+            shape = mp.LayerShape(
+                name=sp.site, filter_len=sp.d_in, n_filters=sp.d_out,
+                n_positions=tokens, signed_inputs=True,
+                last_layer=sp.last_layer, row_positions=tokens)
+            arch = dataclasses.replace(
+                en.RAELLA, name=f"raella-{sp.n_slices}s",
+                n_weight_slices=sp.n_slices,
+                bits_per_weight_slice=slc.WEIGHT_BITS / sp.n_slices,
+                spec_slices=spec, adaptive_slicing=False)
+            r = en.analyze_layer(arch, shape)
+            rows.append({
+                "site": sp.site,
+                "slicing": list(sp.slicing),
+                "n_slices": sp.n_slices,
+                "error": None if sp.error is None else round(sp.error, 4),
+                "converts_per_mac": round(r.converts_per_mac, 4),
+                "adc_energy_pj": round(r.e_adc, 1),
+                "energy_pj": round(r.energy, 1),
+                "adc_share": round(r.e_adc / r.energy, 3),
+            })
+            tot_converts += r.converts
+            tot_macs += shape.macs
+            tot_adc += r.e_adc
+            tot_energy += r.energy
+        return {
+            "arch": self.cfg.name,
+            "pim_mode": self.cfg.pim_mode,
+            "slicing": ("adaptive"
+                        if self.cfg.pim_weight_slicing == "adaptive"
+                        else list(self.cfg.pim_weight_slicing)),
+            "n_sites": len(self.sites),
+            "distinct_slicings": ["-".join(map(str, s))
+                                  for s in self.distinct_slicings()],
+            "slice_histogram": {str(k): v
+                                for k, v in self.slice_histogram().items()},
+            "converts_per_mac": round(tot_converts / max(tot_macs, 1), 4),
+            "adc_energy_share": round(tot_adc / max(tot_energy, 1e-9), 3),
+            "energy_uj": round(tot_energy / 1e6, 2),
+            "sites": rows,
+        }
 
 
 # ------------------------------------------------------------------ capture
@@ -328,7 +386,7 @@ def compile_pim_params(params: dict, cfg: ArchConfig,
     sites.extend(head_sites)
     plans = {"layers": layer_plans,
              "head": {k: v[0] for k, v in head.items()}}
-    return CompiledPim(plans=plans, sites=tuple(sites))
+    return CompiledPim(cfg=cfg, plans=plans, sites=tuple(sites))
 
 
 def compile_layer(bp: dict, cfg: ArchConfig, layer: int,
@@ -349,4 +407,4 @@ def compile_layer(bp: dict, cfg: ArchConfig, layer: int,
         T.apply_block(bp, cfg, layer, x_cal, positions, plan=taps)
         plans, sites = _compile_position(
             [bp], [taps], cfg, layer % len(cfg.block_pattern))
-    return CompiledPim(plans=plans[0], sites=tuple(sites))
+    return CompiledPim(cfg=cfg, plans=plans[0], sites=tuple(sites))

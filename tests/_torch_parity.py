@@ -53,10 +53,20 @@ def one_thread():
 
 @functools.lru_cache(maxsize=None)
 def setup(arch: str):
+    """Both configs, the reference's weights in both packages, and the
+    calibration and test tokens. On a qk-norm config the reference's
+    ``q_norm`` / ``k_norm`` scales (ones at init) are replaced by seeded
+    draws in [0.5, 1.5), so the parity tests reach the scales' path."""
     over = dict(dtype="float32", kv_cache_dtype="float32")
     rcfg = ref_configs.get(arch).reduced(**over)
     cfg = configs.get(arch).reduced(**over)
     rparams, _ = RT.init_params(rcfg, jax.random.key(0))
+    if rcfg.qk_norm:
+        rng = np.random.default_rng(5)
+        for block in rparams["blocks"]:
+            for name in ("q_norm", "k_norm"):
+                block["core"][name] = jnp.asarray(rng.uniform(
+                    0.5, 1.5, block["core"][name].shape).astype(np.float32))
     np_params = jax.tree.map(lambda a: np.array(a, np.float32), rparams)
     params = convert.params_from_reference(np_params, cfg, "cpu")
     calib = np.random.default_rng(3).integers(
@@ -67,15 +77,21 @@ def setup(arch: str):
 
 
 @functools.lru_cache(maxsize=None)
-def compiled(arch: str, mode: str):
-    """(reference plans, port plans) for ``mode``."""
+def compiled_pim(arch: str, mode: str):
+    """(reference ``CompiledPim``, port ``CompiledPim``) for ``mode``."""
     rcfg, cfg, rparams, _, params, calib, _ = setup(arch)
-    if mode == "off":
-        return None, None
     rc = dataclasses.replace(rcfg, pim_mode=mode)
     c = dataclasses.replace(cfg, pim_mode=mode)
-    return (ref_pc.compile_pim_params(rparams, rc, calib).plans,
-            pc.compile_pim_params(params, c, calib).plans)
+    return (ref_pc.compile_pim_params(rparams, rc, calib),
+            pc.compile_pim_params(params, c, calib))
+
+
+def compiled(arch: str, mode: str):
+    """(reference plans, port plans) for ``mode``."""
+    if mode == "off":
+        return None, None
+    ref, port = compiled_pim(arch, mode)
+    return ref.plans, port.plans
 
 
 def run_ref(rcfg, rparams, plans, tokens) -> np.ndarray:

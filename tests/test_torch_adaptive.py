@@ -12,8 +12,10 @@
   reproduces every slicing, error and plan leaf bit for bit, ragged
   ``slice_valid`` / ``slice_shifts`` included; the port's forward on the
   reference's own plans (``convert.plans_from_reference``) matches the
-  reference's logits at the 7b ADC within ``_torch_parity.ATOL``; and the
-  port's own adaptive plans serve ``exact`` equal to ``int8`` at 24b.
+  reference's logits at the 7b ADC within ``_torch_parity.ATOL``; the
+  port's own adaptive plans serve ``exact`` equal to ``int8`` at 24b; and
+  the port's own compile reports (``CompiledPim.report``) the reference's
+  dict, measured errors included.
 """
 
 import dataclasses
@@ -160,11 +162,17 @@ def test_forward_on_reference_plans_matches_reference():
                           "exact")
 
 
+@functools.lru_cache(maxsize=None)
+def _port_compiled():
+    _, cfg, _, _, params, calib, _, _ = _model()
+    return pc.compile_pim_params(params, cfg, calib)
+
+
 def test_port_adaptive_plans_serve_exact_equal_int8():
     """The port's own Algorithm-1 compile chooses the reference's slicings
     and its ragged plans keep the pim_mode contract at 24b."""
     _, cfg, _, _, params, calib, tokens, ref = _model()
-    compiled = pc.compile_pim_params(params, cfg, calib)
+    compiled = _port_compiled()
     assert [(s.site, s.slicing) for s in compiled.sites] == \
         [(s.site, s.slicing) for s in ref.sites]
     assert compiled.distinct_slicings() == ref.distinct_slicings()
@@ -172,3 +180,16 @@ def test_port_adaptive_plans_serve_exact_equal_int8():
     int8 = P.run_port(dataclasses.replace(cfg, pim_mode="int8"), params,
                       compiled.plans, tokens)
     np.testing.assert_array_equal(exact, int8)
+
+
+def test_report_matches_reference():
+    """The energy report of the port's own adaptive compile equals the
+    reference's dict: the same slicings and errors, priced by the port's
+    copy of ``core.energy``."""
+    ref = _model()[-1]
+    compiled = _port_compiled()
+    assert compiled.report(tokens=64) == ref.report(tokens=64)
+    rep = compiled.report()
+    assert rep == ref.report()
+    assert rep["slicing"] == "adaptive" and len(rep["slice_histogram"]) > 1
+    assert all(s["error"] is not None for s in rep["sites"])

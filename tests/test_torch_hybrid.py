@@ -164,11 +164,11 @@ def test_configs_compare_equal(arch):
     assert core["x_proj" if arch == JAMBA else "wr"].dtype == torch.bfloat16
 
 
-def test_only_embedding_inputs_are_refused():
-    """Embedding inputs, once refused, now run: an embeddings-mode rwkv6
-    config initializes (its unused embedding table kept), and ``forward``
-    and ``prefill`` take (B, S, D) frame embeddings, cast to
-    ``cfg.dtype``; prefill's last logits equal the forward's."""
+def test_embedding_inputs_run_forward_and_prefill():
+    """An embeddings-mode rwkv6 config initializes (its unused embedding
+    table kept), and ``forward`` and ``prefill`` take (B, S, D) frame
+    embeddings, cast to ``cfg.dtype``; prefill's last logits equal the
+    forward's."""
     cfg = dataclasses.replace(configs.get(RWKV).reduced(dtype="float32"),
                               input_mode="embeddings")
     params = T.init_params(cfg, device="cpu")
