@@ -46,6 +46,22 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            ``paged-int8kv`` (K3, int8 KV cache), its tokens the continuous
            engine's under the same cache; both int8-KV runs again under
            ``torch.profiler`` (every kernel's device time);
+  telemetry ``repro_torch.obs`` on the serve phase's model, pinned exact
+           plans and 4 requests: continuous exact with metrics and tracing
+           on (tokens equal the serve phase's, run with telemetry off; live
+           counters equal ``ServeStats``; TTFT and e2e observed once a
+           request, TPOT once a decode token; one trace lane per request);
+           exact at the paper's 7b ADC on one request, whose
+           ``repro_pim_*_total`` counters (K2's) must equal a
+           ``with_pim_stats`` replay of its decode steps, with speculation
+           failures, and whose pJ/token gauge must equal the energy model
+           on them, then on all 4 (converts, failure rate, saturations and
+           pJ per decode token printed); paged exact on 5 blocks (it must
+           evict; the pool series equal ``ServeStats``); the launcher with
+           ``--metrics-out``, ``--trace-out`` and ``--profile-dir`` (the
+           profiler's trace must name K2's kernel); the decode step with
+           telemetry off and on, in exact and fast, in turns (recorded, not
+           gated);
   moe      phi3.5-moe-42b at its published widths, 4 of its 32 layers
            (random bf16 weights from a seed): the same 4 requests through
            ``ContinuousServeEngine`` in ``exact`` (K2 per expert),
@@ -858,7 +874,9 @@ def phase_serve(ctx: dict) -> None:
     serve_paged(ctx, params, cfg0, reqs, tokens, max_len)
     say("serve", ok=True, exact_equals_int8=True,
         first_tokens=json.dumps(tokens["exact"][0]))
-    del params
+    # the telemetry phase serves the same model, requests and plans
+    ctx["qwen"] = dict(cfg=cfg0, params=params, reqs=reqs, max_len=max_len,
+                       tokens=tokens)
 
 
 def empty_experts(cfg, plans: dict) -> int:
@@ -2220,6 +2238,339 @@ def serve_paged(ctx: dict, params, cfg0, reqs, tokens: dict,
             **device_profile(e, reqs))
 
 
+def phase_telemetry(ctx: dict) -> None:
+    """``repro_torch.obs`` on the serve phase's qwen1.5-0.5b, its pinned
+    exact plans and its 4 requests: the live metrics of a continuous and
+    a paged exact run held to ``ServeStats`` and their tokens to the serve
+    phase's (telemetry off); K2's counters at the paper's 7b ADC held to a
+    ``with_pim_stats`` replay of the same decode steps; the launcher's
+    three outputs; telemetry's host cost per decode step."""
+    import dataclasses
+    from repro_torch import obs
+    from repro_torch.core import energy as en
+    from repro_torch.serve import ContinuousServeEngine, PagedServeEngine
+    t_phase = time.perf_counter()
+    q = ctx["qwen"]
+    params, reqs, max_len = q["params"], q["reqs"], q["max_len"]
+    want_tokens = q["tokens"]["exact"]
+    exact = dataclasses.replace(q["cfg"], pim_mode="exact")
+    plans = ctx["exact_compiled"].plans
+    vocab = exact.vocab_size
+    checked = []
+
+    # 1. continuous exact, metrics and tracing on
+    tel = obs.ServeTelemetry(engine="continuous", tracing=True)
+    eng = ContinuousServeEngine(exact, params, n_slots=N_SLOTS,
+                                max_len=max_len, prefill_chunk=64,
+                                plans=plans, telemetry=tel)
+    outs, serve_s, launches = drive(eng, reqs)
+    row = engine_row("telemetry-exact", eng, outs, serve_s, launches,
+                     PER_CALL["exact"], vocab)
+    if [o.tokens.tolist() for o in outs] != want_tokens:
+        raise AssertionError("tokens with telemetry on differ from the "
+                             "serve phase's exact tokens")
+    live = check_lifecycle(tel, eng, outs)
+    lanes = check_trace(tel, outs)
+    say("telemetry", **row, equals_telemetry_off=True, **live,
+        trace_request_lanes=lanes)
+    checked += ["continuous exact tokens == telemetry off",
+                "counters == ServeStats", "histogram counts",
+                "trace lanes"]
+
+    # 2. exact at the paper's 7b ADC: one request, then its decode steps
+    # replayed under with_pim_stats; then all 4 requests
+    at7 = dataclasses.replace(exact, pim_adc_bits=7)
+    tel = obs.ServeTelemetry(engine="adc7")
+    eng = ContinuousServeEngine(at7, params, n_slots=1, max_len=max_len,
+                                prefill_chunk=64, plans=plans, telemetry=tel)
+    outs, _, _ = drive(eng, reqs[:1])
+    got = pim_counters(tel)
+    want = replay_decode(at7, params, plans, reqs[0], outs[0].tokens,
+                         max_len)
+    if got["totals"] != want:
+        raise AssertionError(f"7b counters {got['totals']} != the replay's "
+                             f"{want}")
+    if not want["spec_failures"] > 0:
+        raise AssertionError(f"no speculation failed at the 7b ADC: {want}")
+    n_tok = got["decode_tokens"]
+    pj = en.pim_work_energy_pj(want, 7)["total_pj"] / n_tok
+    if got["pj_per_token"] != pj:
+        raise AssertionError(f"pJ/token {got['pj_per_token']} != {pj}")
+    say("telemetry", mode="exact at the 7b ADC, 1 request",
+        counters_equal_replay=True, decode_tokens=n_tok,
+        **per_token(want, n_tok), tokens=json.dumps(outs[0].tokens.tolist()))
+    tel = obs.ServeTelemetry(engine="adc7x4")
+    eng = ContinuousServeEngine(at7, params, n_slots=N_SLOTS,
+                                max_len=max_len, prefill_chunk=64,
+                                plans=plans, telemetry=tel)
+    outs, serve_s, launches = drive(eng, reqs)
+    got = pim_counters(tel)
+    say("telemetry", **engine_row("telemetry-exact-7b", eng, outs, serve_s,
+                                  launches, PER_CALL["exact"], vocab),
+        decode_tokens=got["decode_tokens"],
+        **per_token(got["totals"], got["decode_tokens"]),
+        tokens_equal_24b=[o.tokens.tolist() for o in outs] == want_tokens)
+    checked += ["7b counters == with_pim_stats replay", "spec_failures > 0",
+                "pJ/token == energy model"]
+
+    # 3. paged exact on 5 blocks, evicting
+    tel = obs.ServeTelemetry(engine="paged")
+    eng = PagedServeEngine(exact, params, n_slots=N_SLOTS, max_len=max_len,
+                           prefill_chunk=64, block_size=BLOCK, n_blocks=5,
+                           plans=plans, telemetry=tel)
+    outs, serve_s, launches = drive(eng, reqs)
+    row = engine_row("telemetry-paged-exact", eng, outs, serve_s, launches,
+                     PER_CALL["paged-exact"], vocab)
+    if [o.tokens.tolist() for o in outs] != want_tokens:
+        raise AssertionError("paged tokens with telemetry differ from the "
+                             "continuous exact tokens")
+    st, r, lab = eng.stats, tel.registry, {"engine": "paged"}
+    if st.evictions < 1:
+        raise AssertionError(f"paged exact did not evict: {st}")
+    pool = {name: getattr(r, kind)(name, "", ("engine",)).get(**lab)
+            for kind, name in (
+                ("counter", "repro_serve_evictions_total"),
+                ("counter", "repro_serve_admission_waits_total"),
+                ("gauge", "repro_serve_peak_blocks_in_use"),
+                ("gauge", "repro_serve_blocks_in_use"))}
+    if list(pool.values()) != [st.evictions, st.admission_waits,
+                               st.peak_blocks_in_use, st.blocks_in_use]:
+        raise AssertionError(f"pool series {pool} != {st}")
+    say("telemetry", **row, pool_series_equal_stats=True,
+        **check_lifecycle(tel, eng, outs))
+    checked += ["paged exact evicts", "pool series == ServeStats",
+                "paged tokens == continuous"]
+
+    # 4. the launcher's three outputs
+    say("telemetry", **launcher_outputs())
+    checked += ["launcher metrics and trace load",
+                "profiler trace names K2's kernel"]
+
+    # 5. host cost: decode step with telemetry off and on, in turns
+    for mode, over, per_call in (("exact", {}, PER_CALL["exact"]),
+                                 ("fast", {"pim_mode": "fast"},
+                                  PER_CALL["fast"])):
+        cfg = dataclasses.replace(exact, **over)
+        pl = plans if mode == "exact" else ctx["fast_plans"]
+        steps = {"off": [], "on": []}
+        for which in ("off", "on", "on", "off"):
+            tel = (obs.ServeTelemetry(engine=mode, tracing=True)
+                   if which == "on" else None)
+            eng = ContinuousServeEngine(cfg, params, n_slots=N_SLOTS,
+                                        max_len=max_len, prefill_chunk=64,
+                                        plans=pl, telemetry=tel)
+            outs, serve_s, launches = drive(eng, reqs)
+            engine_row(f"telemetry-cost-{mode}", eng, outs, serve_s,
+                       launches, per_call, vocab)
+            steps[which].append(1e3 * eng.stats.decode_seconds
+                                / eng.stats.decode_steps)
+        off, on = (sum(v) / len(v) for v in (steps["off"], steps["on"]))
+        say("telemetry", host_cost=mode, order="off,on,on,off",
+            step_ms_off=json.dumps([round(v, 3) for v in steps["off"]]),
+            step_ms_on=json.dumps([round(v, 3) for v in steps["on"]]),
+            mean_off_ms=round(off, 3), mean_on_ms=round(on, 3),
+            delta_ms=round(on - off, 3),
+            delta_pct=round(100 * (on - off) / off, 2),
+            **telemetry_step_host_us(cfg, params, pl))
+    checked.append("host cost printed for exact and fast")
+    say("telemetry", ok=True, phase_s=round(time.perf_counter() - t_phase, 1),
+        checked=json.dumps(checked))
+
+
+def telemetry_step_host_us(cfg, params, plans, reps: int = 200) -> dict:
+    """Host time of one decode step's telemetry work alone, on the stats
+    of one real decode step of N_SLOTS slots: the decode-step span, the
+    device totals (exact mode) and their fetch, the PIM fold, the step
+    counters and N_SLOTS token hooks. The engine does this work once a
+    decode step; the step itself runs once, outside the timing."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    dev = params["embed"]["embed"].device
+    with torch.no_grad(), L.collect_pim_stats() as sink:
+        state = T.init_decode_state(cfg, N_SLOTS, 32, per_slot_pos=True,
+                                    device=dev)
+        T.decode_step(params, cfg, state, torch.ones(
+            (N_SLOTS, 1), dtype=torch.int64, device=dev), plans=plans)
+    tel = obs.ServeTelemetry(engine="cost", tracing=True)
+    tel.pim_adc_bits = cfg.pim_adc_bits
+    collect = tel.wants_pim_stats(cfg)
+    for uid in range(N_SLOTS):
+        tel.on_submit(uid)
+        tel.on_admit(uid, 8)
+        tel.on_token(uid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        with tel.span("decode_step", n_live=N_SLOTS):
+            if collect:
+                tot = L.pim_stats_device_totals(sink)
+                tel.on_pim_totals(tot.host(tot.counts.cpu()), N_SLOTS)
+            tel.observe_decode_step_seconds(0.1)
+            tel.on_decode_step(N_SLOTS)
+            for uid in range(N_SLOTS):
+                tel.on_token(uid)
+    us = 1e6 * (time.perf_counter() - t0) / reps
+    return dict(telemetry_host_us_per_step=round(us, 1),
+                stats_objects_per_step=len(sink))
+
+
+def check_lifecycle(tel, eng, outs) -> dict:
+    """The live counters equal ``ServeStats`` and the outputs: decode
+    steps, prefill chunks, completions, one e2e a request, and every
+    committed token a TTFT or a TPOT. Without evictions, one TTFT a
+    request and the outputs' tokens; an evicted request replays from
+    scratch, and its replay commits (and may observe a TTFT) again."""
+    from repro_torch.obs.serve import STEP_BUCKETS
+    st, r, lab = eng.stats, tel.registry, {"engine": tel.engine}
+
+    def count(name: str) -> float:
+        return r.counter(name, "", ("engine",)).get(**lab)
+
+    def hist(name: str, **kw) -> int:
+        return r.histogram(name, "", ("engine",), **kw).get(**lab)["count"]
+    n_tok = sum(len(o.tokens) for o in outs)
+    done = r.counter("repro_serve_requests_completed_total", "",
+                     ("engine", "reason"))
+    got = dict(decode_steps=count("repro_serve_decode_steps_total"),
+               prefill_chunks=count("repro_serve_prefill_chunks_total"),
+               completed=sum(v for _, v in done.series()),
+               e2e=hist("repro_serve_e2e_seconds"),
+               tokens=count("repro_serve_tokens_generated_total"),
+               ttft=hist("repro_serve_ttft_seconds"),
+               tpot=hist("repro_serve_tpot_seconds", buckets=STEP_BUCKETS))
+    want = dict(decode_steps=st.decode_steps,
+                prefill_chunks=st.prefill_chunks, completed=len(outs),
+                e2e=len(outs), tokens=got["ttft"] + got["tpot"])
+    if st.evictions == 0:
+        want.update(tokens=n_tok, ttft=len(outs), tpot=n_tok - len(outs))
+    ok = all(got[k] == v for k, v in want.items()) and (
+        len(outs) <= got["ttft"] <= len(outs) + st.evictions
+        and got["tokens"] >= n_tok and st.completed == len(outs))
+    if not ok:
+        raise AssertionError(f"live metrics {got}, want {want} "
+                             f"({st.evictions} evictions)")
+    return dict(live_counters_equal_stats=True,
+                live=json.dumps(got, sort_keys=True))
+
+
+def check_trace(tel, outs) -> int:
+    """The Chrome trace survives a JSON round trip, with one lane per
+    request (tid = uid + 1)."""
+    doc = json.loads(json.dumps(tel.tracer.chrome_trace()))
+    req = [e for e in doc["traceEvents"] if e["name"] == "request"]
+    lanes = sorted(e["tid"] for e in req)
+    if lanes != sorted(o.uid + 1 for o in outs):
+        raise AssertionError(f"trace request lanes {lanes}")
+    return len(lanes)
+
+
+def pim_counters(tel) -> dict:
+    """The telemetry's ``repro_pim_*_total`` counters, decode tokens and
+    pJ/token."""
+    from repro_torch.models import layers as L
+    r, lab = tel.registry, {"engine": tel.engine}
+    return dict(
+        totals={k: int(r.counter(f"repro_pim_{k}_total", "",
+                                 ("engine",)).get(**lab))
+                for k in L.PIM_STAT_KEYS},
+        decode_tokens=int(r.counter("repro_pim_decode_tokens_total", "",
+                                    ("engine",)).get(**lab)),
+        pj_per_token=r.gauge("repro_pim_pj_per_token", "",
+                             ("engine",)).get(**lab))
+
+
+def per_token(tot: dict, n_tok: int) -> dict:
+    """Converts, failures and energy per decode token (the paper's §2.5
+    component model at the 7b ADC); converts per weight is per token over
+    the weights both signed passes read."""
+    from repro_torch.core import energy as en
+    e = en.pim_work_energy_pj(tot, 7)
+    return dict(adc_converts_per_token=tot["adc_converts"] / n_tok,
+                no_spec_converts_per_token=tot["no_spec_converts"] / n_tok,
+                converts_per_weight=2 * tot["adc_converts"] / tot["macs"],
+                spec_failure_rate=tot["spec_failures"]
+                / tot["spec_attempts"],
+                saturations_per_token=tot["recovery_saturations"] / n_tok,
+                pj_per_token=e["total_pj"] / n_tok,
+                adc_pj_share=e["e_adc_pj"] / e["total_pj"])
+
+
+def replay_decode(cfg, params, plans, req, tokens, max_len: int) -> dict:
+    """The engine's decode steps of one request again, by hand, each under
+    ``layers.with_pim_stats``: the prompt prefilled in one chunk into a
+    B=1 state and inserted into slot 0 of a 1-slot state, as the engine
+    does, then the request's own tokens fed back. Returns the summed
+    totals; the greedy tokens must equal the engine's."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    step = L.with_pim_stats(lambda st, tok: T.decode_step(
+        params, cfg, st, tok, plans=plans))
+    want = dict.fromkeys(L.PIM_STAT_KEYS, 0)
+    dev = params["embed"]["embed"].device
+    with torch.no_grad():
+        one = T.init_decode_state(cfg, 1, max_len, device=dev)
+        logits, one = T.prefill_chunk(
+            params, cfg, one, torch.as_tensor(req.prompt[None],
+                                              dtype=torch.int64,
+                                              device=dev), plans=plans)
+        state = T.init_decode_state(cfg, 1, max_len, per_slot_pos=True,
+                                    device=dev)
+        T.insert_request(state, one, 0)
+        replay = [int(torch.argmax(logits[0, -1].cpu()))]
+        for tok in tokens[:-1]:
+            logits, state, tot = step(state, torch.tensor(
+                [[int(tok)]], dtype=torch.int64, device=dev))
+            replay.append(int(torch.argmax(logits[0, -1].cpu())))
+            for k, v in tot.host().items():
+                want[k] += v
+    if replay != [int(t) for t in tokens]:
+        raise AssertionError(f"replay tokens {replay} != {tokens.tolist()}")
+    return want
+
+
+def launcher_outputs() -> dict:
+    """``repro_torch.launch.serve.main`` on the card, paged exact with
+    ``--metrics-out``, ``--trace-out`` and ``--profile-dir`` into a
+    temporary directory: the metrics load with the PIM counters and the
+    final ``ServeStats`` gauges, the span trace loads, and the profiler's
+    trace names K2's CUDA kernel (``spec_kernel``) among its device
+    events."""
+    import tempfile
+    from repro_torch.launch import serve as launch
+    with tempfile.TemporaryDirectory() as d:
+        m, t, prof = (str(Path(d) / n) for n in ("m.json", "t.json", "prof"))
+        t0 = time.perf_counter()
+        launch.main(["--arch", ARCH, "--pim", "exact", "--engine", "paged",
+                     "--requests", "2", "--steps", "4", "--metrics-out", m,
+                     "--trace-out", t, "--profile-dir", prof])
+        launch_s = time.perf_counter() - t0
+        doc = json.loads(Path(m).read_text())
+        snap = doc["metrics"]
+        stats = sorted(k for k in snap if k.startswith("repro_serve_stats_"))
+        converts = snap["repro_pim_adc_converts_total"]["series"][0]["value"]
+        if not (converts > 0 and len(stats) == len(doc["stats"])):
+            raise AssertionError(f"metrics: converts {converts}, {stats}")
+        spans = len(json.loads(Path(t).read_text())["traceEvents"])
+        (path,) = Path(prof).iterdir()
+        size = path.stat().st_size
+        events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k2 = [e for e in kernels if "spec_kernel" in e.get("name", "")]
+    if not k2:
+        raise AssertionError("the profiler trace names no K2 kernel: "
+                             f"{sorted({e.get('name') for e in kernels})[:8]}")
+    return dict(launcher="paged exact, --metrics-out --trace-out "
+                "--profile-dir", launch_s=round(launch_s, 3),
+                metrics_series=len(snap), stats_gauges=len(stats),
+                adc_converts_total=int(converts), trace_events=spans,
+                profile_mb=round(size / 2**20, 1),
+                profile_kernel_events=len(kernels), k2_kernel_events=len(k2),
+                k2_name=short_name(k2[0]["name"]))
+
+
 def device_us(e) -> float:
     """A profiler event's device time in µs (the key moved across torch
     versions)."""
@@ -2755,14 +3106,15 @@ def phase_timing(ctx: dict, rows: list) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,serve,moe,hybrid,encoder,"
-                    "decoders,timing",
+                    default="build,kernels,serve,telemetry,moe,hybrid,"
+                    "encoder,decoders,timing",
                     help="comma list of phases to run (default: all)")
     args = ap.parse_args()
     phases = args.phases.split(",")
-    if "timing" in phases and "serve" not in phases:
-        ap.error("--phases timing needs serve: it times the plans that the "
-                 "serve phase compiles")
+    for needs in ("timing", "telemetry"):
+        if needs in phases and "serve" not in phases:
+            ap.error(f"--phases {needs} needs serve: it uses the model and "
+                     "the plans that the serve phase builds")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
@@ -2785,6 +3137,9 @@ def main() -> int:
     kernels = None
     if "serve" in phases:
         phase_serve(ctx)
+    if "telemetry" in phases:
+        phase_telemetry(ctx)
+    ctx.pop("qwen", None)  # free qwen's weights before the larger models
     if "moe" in phases:
         phase_moe(ctx, rows)
     if "hybrid" in phases:

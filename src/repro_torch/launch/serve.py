@@ -18,7 +18,11 @@ centered int8 kernel (fast), the speculation/recovery crossbar kernel
 (exact) or the ideal 8b-quantized reference (int8). Weights are random,
 from seed 0. The encoder-only archs (raella-bert-large, hubert-xlarge)
 have no decode step: the launcher refuses them before building anything,
-with the engines' error.
+with the engines' error. The continuous and paged engines carry a
+``repro_torch.obs.ServeTelemetry``: ``--metrics-out`` writes its metrics
+(with the final ``ServeStats`` and, in exact mode, the decode steps' PIM
+counters and pJ/token), ``--trace-out`` its Chrome trace of spans and
+``--profile-dir`` a ``torch.profiler`` trace of the run.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import configs, resolve_device
+from repro_torch import configs, obs, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import pim
@@ -87,6 +91,17 @@ def main(argv=None) -> None:
     ap.add_argument("--prefill-chunk", type=int, default=64)
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the final metrics snapshot here as JSON "
+                         "(Prometheus text exposition included; "
+                         "repro_torch.obs.export.write_metrics)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome-trace (Perfetto-loadable) span "
+                         "log of the run here")
+    ap.add_argument("--profile-dir", default=None,
+                    help="wrap the run in torch.profiler (CPU activity, "
+                         "and CUDA activity on the card), writing its "
+                         "Chrome trace into this directory")
     ap.add_argument("--pim", choices=("off", "fast", "exact", "int8"),
                     default="off")
     ap.add_argument("--pim-slicing", default=None,
@@ -94,6 +109,11 @@ def main(argv=None) -> None:
                          "tuple like '4,2,2' pinning every site")
     args = ap.parse_args(argv)
 
+    if args.engine == "lockstep" and (args.metrics_out or args.trace_out
+                                      or args.profile_dir):
+        ap.error("--metrics-out/--trace-out/--profile-dir instrument the "
+                 "continuous/paged scheduler loops; the lockstep "
+                 "reference engine has no request lifecycle to trace")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -143,6 +163,9 @@ def main(argv=None) -> None:
         print(f"kernel launches {ops.launch_counts()}")
         return
 
+    tel = obs.ServeTelemetry(engine=args.engine,
+                             tracing=args.trace_out is not None,
+                             profile_dir=args.profile_dir)
     trace = [dataclasses.replace(r, temperature=args.temperature)
              for r in build_trace(args.requests, prompt_len=args.prompt_len,
                                   steps=args.steps, vocab=cfg.vocab_size)]
@@ -152,14 +175,15 @@ def main(argv=None) -> None:
                                max_len=max_len,
                                prefill_chunk=args.prefill_chunk,
                                block_size=args.block_size,
-                               n_blocks=args.blocks, plans=plans)
+                               n_blocks=args.blocks, plans=plans,
+                               telemetry=tel)
     else:
         eng = ContinuousServeEngine(cfg, params, n_slots=args.slots,
                                     max_len=max_len,
                                     prefill_chunk=args.prefill_chunk,
-                                    plans=plans)
+                                    plans=plans, telemetry=tel)
     t0 = time.monotonic()
-    with L.collect_pim_stats() as sink:
+    with tel.profile(dev), L.collect_pim_stats() as sink:
         outs = eng.run(trace)
         totals = L.pim_stats_totals(sink)
     dt = time.monotonic() - t0
@@ -181,6 +205,21 @@ def main(argv=None) -> None:
               f"{totals['no_spec_converts'] / max(total, 1):.1f}), "
               f"spec failures {totals['spec_failures']}")
     print(f"kernel launches {ops.launch_counts()}")
+    tel.record_stats(st)
+    if args.metrics_out:
+        obs.write_metrics(tel.registry, args.metrics_out,
+                          config={"arch": cfg.name, "engine": args.engine,
+                                  "pim_mode": cfg.pim_mode,
+                                  "requests": args.requests,
+                                  "slots": args.slots},
+                          stats=st.snapshot())
+        print(f"metrics snapshot -> {args.metrics_out}")
+    if args.trace_out:
+        tel.tracer.write(args.trace_out)
+        print(f"chrome trace ({len(tel.tracer.events())} events) -> "
+              f"{args.trace_out}")
+    if args.profile_dir:
+        print(f"torch profiler trace -> {tel.profile_path()}")
     print("first outputs:", {o.uid: o.tokens[:8].tolist() for o in outs[:2]})
 
 

@@ -32,9 +32,14 @@ ATTN_CHUNK = 512
 # active, every exact-mode ``pim_matmul`` records its per-pass
 # SpeculationStats (speculation on) or CrossbarStats (speculation off)
 # into the innermost sink. Prefill and full-sequence forwards suspend
-# collection around their layer stacks, as the reference does, so the
-# collector reports decode-step work plus the prefill LM head (the
-# serve-time converts/token metric).
+# collection around their layer stacks, as the reference does, so a
+# collector around a whole serve run sees decode-step work plus the
+# prefill LM head. A region wrapped in ``with_pim_stats`` (an engine's
+# decode step, when its telemetry asks for PIM stats) collects into a
+# sink of its own and re-records its summed ``DeviceTotals`` into the
+# enclosing sink, so an outer collector's totals are the same with
+# telemetry on or off; the telemetry itself bills the decode step alone,
+# as the reference's does.
 _PIM_STATS_SINKS: list[list] = []
 
 # total-able work-stat fields; ``conversions_possible`` is the static
@@ -42,6 +47,9 @@ _PIM_STATS_SINKS: list[list] = []
 PIM_STAT_KEYS = ("adc_converts", "no_spec_converts", "spec_failures",
                  "spec_attempts", "recovery_saturations", "cycles", "macs")
 _STAT_ALIASES = {"no_spec_converts": "conversions_possible"}
+# the fields a stats object may hold as a device tensor (K2's counters);
+# every other field is a shape-static Python int
+PIM_DEVICE_KEYS = ("adc_converts", "spec_failures", "recovery_saturations")
 
 
 @contextlib.contextmanager
@@ -67,19 +75,100 @@ def suspend_pim_stats():
         _PIM_STATS_SINKS.extend(saved)
 
 
-def pim_stats_totals(stats) -> dict:
-    """Sum a sink's SpeculationStats / CrossbarStats into one
-    ``{field: int}`` dict (one host sync for the data-dependent fields).
-    A field a stats type lacks counts 0, after its alias
-    (``_STAT_ALIASES``)."""
-    tot = dict.fromkeys(PIM_STAT_KEYS, 0)
+def pim_stats_active() -> bool:
+    return bool(_PIM_STATS_SINKS)
+
+
+def pim_stats_record(entry) -> None:
+    """Append a stats object / totals to the innermost active sink."""
+    if _PIM_STATS_SINKS:
+        _PIM_STATS_SINKS[-1].append(entry)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceTotals:
+    """A sink's work totals before any host sync: ``static`` holds every
+    ``PIM_STAT_KEYS`` field's Python-int part, ``counts`` the tensor parts
+    of ``PIM_DEVICE_KEYS`` summed on the device into one int64 tensor of
+    that length (None when no entry held a tensor, as on K1's path)."""
+    static: dict
+    counts: torch.Tensor | None
+
+    def host(self, counts: torch.Tensor | None = None) -> dict:
+        """``{field: int}``. ``counts`` is ``self.counts`` already fetched
+        to the host (the engines fetch it right after the logits); without
+        it, this fetches ``self.counts`` (one sync)."""
+        tot = dict(self.static)
+        if self.counts is not None:
+            fetched = self.counts if counts is None else counts
+            for k, v in zip(PIM_DEVICE_KEYS, fetched.tolist()):
+                tot[k] += v
+        return tot
+
+
+def _stat_field(st, k: str):
+    """Field ``k`` of a stats object or totals dict; a field a stats type
+    lacks counts 0, after its alias (``_STAT_ALIASES``)."""
+    if isinstance(st, dict):
+        return st.get(k, 0)
+    v = getattr(st, k, None)
+    return getattr(st, _STAT_ALIASES.get(k, k), 0) if v is None else v
+
+
+def pim_stats_device_totals(stats) -> DeviceTotals:
+    """Sum a sink's entries (SpeculationStats / CrossbarStats objects,
+    totals dicts, ``DeviceTotals``) without a host sync: the tensor
+    fields with one ``torch.stack(...).sum(0)`` each and one stack of the
+    three sums, however many projections the region ran."""
+    static = dict.fromkeys(PIM_STAT_KEYS, 0)
+    parts: dict = {k: [] for k in PIM_DEVICE_KEYS}
     for st in stats:
+        if isinstance(st, DeviceTotals):
+            for k in PIM_STAT_KEYS:
+                static[k] += st.static[k]
+            if st.counts is not None:
+                for k, v in zip(PIM_DEVICE_KEYS, st.counts):
+                    parts[k].append(v)
+            continue
         for k in PIM_STAT_KEYS:
-            v = getattr(st, k, None)
-            if v is None:
-                v = getattr(st, _STAT_ALIASES.get(k, k), 0)
-            tot[k] = tot[k] + v
-    return {k: int(v) for k, v in tot.items()}
+            v = _stat_field(st, k)
+            if isinstance(v, torch.Tensor):
+                parts[k].append(v)  # only PIM_DEVICE_KEYS may be tensors
+            else:
+                static[k] += int(v)
+    tensors = [v for vs in parts.values() for v in vs]
+    if not tensors:
+        return DeviceTotals(static, None)
+    sums = [torch.stack(vs).sum(0) if vs else tensors[0].new_zeros(())
+            for vs in parts.values()]
+    return DeviceTotals(static, torch.stack(sums).to(torch.int64))
+
+
+def pim_stats_totals(stats) -> dict:
+    """Sum a sink's entries into one ``{field: int}`` dict (one host sync
+    for the data-dependent fields)."""
+    return pim_stats_device_totals(stats).host()
+
+
+def with_pim_stats(fn):
+    """Wrap ``fn`` so it also returns its summed work totals.
+
+    ``fn``'s body runs under :func:`collect_pim_stats`; the wrapper
+    appends the sink's :class:`DeviceTotals` to ``fn``'s return (tuple
+    returns are extended, single returns become a pair) and records them
+    into the enclosing sink, if any. Nothing syncs: the serve engines
+    fetch ``counts`` right after the logits, so stats collection adds no
+    host sync inside a step.
+    """
+    def wrapped(*args, **kwargs):
+        with collect_pim_stats() as acc:
+            out = fn(*args, **kwargs)
+        totals = pim_stats_device_totals(acc)
+        pim_stats_record(totals)
+        if isinstance(out, tuple):
+            return out + (totals,)
+        return out, totals
+    return wrapped
 
 
 class PimTap:

@@ -1,7 +1,7 @@
 """Paged-KV continuous batching.
 
 Port of ``repro.serve.paged`` without the disaggregated prefill/decode
-meshes and without the telemetry object. The contiguous
+meshes. The contiguous
 ``ContinuousServeEngine`` reserves one ``max_len`` KV region per slot, so
 its capacity is ``n_slots * max_len`` tokens of cache whether or not the
 requests use them. This engine keeps the KV cache in one pool of
@@ -34,6 +34,10 @@ Greedy outputs equal the contiguous and lockstep engines' (see
 ``_paged_gather``: masked gather positions contribute exact zeros). The
 pool is written in place; the host block table is authoritative, and each
 call gets its own device copy of it.
+
+Telemetry (``telemetry=``, as in ``ContinuousServeEngine``) adds the
+reference's pool hooks: occupancy and peak on every change of the pool,
+admission waits, prefix-block hits and evictions.
 """
 
 from __future__ import annotations
@@ -144,7 +148,8 @@ class PagedServeEngine(ContinuousServeEngine):
     def __init__(self, cfg: ArchConfig, params: Any, *, n_slots: int = 4,
                  max_len: int = 512, prefill_chunk: int = 64,
                  block_size: int = 16, n_blocks: int | None = None,
-                 prefix_sharing: bool = True, plans: Any = None):
+                 prefix_sharing: bool = True, plans: Any = None,
+                 telemetry=None):
         if block_size < 1 or max_len % block_size != 0:
             raise ValueError(
                 f"block_size ({block_size}) must be >= 1 and divide "
@@ -161,7 +166,8 @@ class PagedServeEngine(ContinuousServeEngine):
         self.layout = T.PagedLayout(n_blocks=n_blocks, block_size=block_size)
         self.alloc = BlockAllocator(n_blocks, block_size)
         super().__init__(cfg, params, n_slots=n_slots, max_len=max_len,
-                         prefill_chunk=prefill_chunk, plans=plans)
+                         prefill_chunk=prefill_chunk, plans=plans,
+                         telemetry=telemetry)
         # recurrent carries cannot be rebuilt from paged context: such
         # models prefill at B=1 and hand over through insert_request_paged
         self.staged_prefill = any(k != "attn" for k in cfg.block_pattern)
@@ -185,6 +191,7 @@ class PagedServeEngine(ContinuousServeEngine):
         self.stats.blocks_in_use = used
         self.stats.peak_blocks_in_use = max(self.stats.peak_blocks_in_use,
                                             used)
+        self.tel.on_pool(used, self.stats.peak_blocks_in_use)
 
     def _drain_budget(self) -> int:
         # evicted requests recompute from scratch; in the worst case each
@@ -212,10 +219,14 @@ class PagedServeEngine(ContinuousServeEngine):
         need = self.layout.blocks_for(plen) - len(shared)
         if need > len(self.alloc.free):
             self.stats.admission_waits += 1
+            self.tel.on_admission_wait(req.uid)
             return False
         self.queue.popleft()
         blocks = [self.alloc.claim(b) for b in shared] + self.alloc.alloc(need)
         self.stats.prefix_block_hits += len(shared)
+        self.tel.on_admit(req.uid, plen)
+        if shared:
+            self.tel.on_prefix_hits(req.uid, len(shared))
         state1 = self._staged_state() if self.staged_prefill else None
         self.slots[i] = _PagedSlot(req=req, state1=state1, blocks=blocks,
                                    n_shared=len(shared),
@@ -262,6 +273,7 @@ class PagedServeEngine(ContinuousServeEngine):
         self.queue.appendleft(slot.req)
         self.slots[j] = None
         self.stats.evictions += 1
+        self.tel.on_eviction(slot.req.uid)
 
     def _ensure_decode_block(self, i: int) -> None:
         """Grow slot ``i``'s table to cover its next write position,
@@ -295,11 +307,12 @@ class PagedServeEngine(ContinuousServeEngine):
         pressure). One host sync for the finished prefills' logits and one
         for the decode step's, as in the parent engine."""
         finished: list[RequestOutput] = []
-        free_idx = [i for i, s in enumerate(self.slots) if s is None]
-        while free_idx and self.queue:
-            if not self._try_admit(free_idx[0]):
-                break                       # head waits; FIFO holds
-            free_idx.pop(0)
+        with self.tel.span("admission"):
+            free_idx = [i for i, s in enumerate(self.slots) if s is None]
+            while free_idx and self.queue:
+                if not self._try_admit(free_idx[0]):
+                    break                   # head waits; FIFO holds
+                free_idx.pop(0)
         done = []
         t0 = time.perf_counter()
         for i, slot in enumerate(self.slots):
@@ -310,27 +323,25 @@ class PagedServeEngine(ContinuousServeEngine):
             hi = min(lo + self.prefill_chunk, prompt.shape[0])
             toks = torch.as_tensor(prompt[None, lo:hi], dtype=torch.int64,
                                    device=self.device)
-            if self.staged_prefill:
-                logits = self._prefill_staged(i, slot, toks,
-                                              last=hi == prompt.shape[0])
-            else:
-                logits, self.state = T.prefill_chunk_paged(
-                    self.params, self.cfg, self.state, toks, slot=i,
-                    table_row=self._device_table(self.tables[i]), pos0=lo,
-                    paged=self.layout, plans=self.plans)
+            with self._prefill_span(slot, lo, hi):
+                if self.staged_prefill:
+                    logits = self._prefill_staged(
+                        i, slot, toks, last=hi == prompt.shape[0])
+                else:
+                    logits, self.state = T.prefill_chunk_paged(
+                        self.params, self.cfg, self.state, toks, slot=i,
+                        table_row=self._device_table(self.tables[i]),
+                        pos0=lo, paged=self.layout, plans=self.plans)
             slot.n_prefilled = hi
             self.stats.prefill_chunks += 1
+            self.tel.on_prefill_chunk(slot.req.uid, lo, hi)
             if hi == prompt.shape[0]:
                 slot.live = True
                 slot.host_pos = hi
                 self._register_prompt_blocks(slot)
                 done.append((i, slot, logits[0, -1]))
         if done:
-            rows = torch.stack([lg for _, _, lg in done]).cpu()
-            for (i, slot, _), row in zip(done, rows):
-                self._commit(i, slot,
-                             self._sample(slot, row, int(torch.argmax(row))),
-                             finished)
+            self._commit_prefilled(done, finished)
             self.stats.prefill_seconds += time.perf_counter() - t0
         live = [i for i, s in enumerate(self.slots)
                 if s is not None and s.live]
@@ -341,23 +352,11 @@ class PagedServeEngine(ContinuousServeEngine):
                 if s is not None and s.live]
         if live:
             t0 = time.perf_counter()
-            toks = torch.zeros((self.n_slots, 1), dtype=torch.int64)
             tables = np.full_like(self.tables, self.layout.sentinel)
             for i in live:
-                toks[i, 0] = self.slots[i].next_tok
                 tables[i] = self.tables[i]  # other rows stay sentinel
-            logits, self.state = T.decode_step(
-                self.params, self.cfg, self.state, toks.to(self.device),
-                plans=self.plans, block_tables=self._device_table(tables),
-                paged=self.layout)
-            rows = logits[:, -1].cpu()
-            self.stats.decode_seconds += time.perf_counter() - t0
-            self.stats.decode_steps += 1
-            self.stats.decode_slot_tokens += len(live)
-            greedy = torch.argmax(rows, dim=-1)
-            for i in live:
-                slot = self.slots[i]
-                slot.host_pos += 1
-                self._commit(i, slot, self._sample(slot, rows[i],
-                                                   int(greedy[i])), finished)
+                self.slots[i].host_pos += 1
+            self._decode_live(live, finished, t0,
+                              block_tables=self._device_table(tables),
+                              paged=self.layout)
         return finished

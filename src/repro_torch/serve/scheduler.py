@@ -1,7 +1,6 @@
 """Continuous-batching serve engine (iteration-level scheduling).
 
-Port of ``repro.serve.scheduler.ContinuousServeEngine``, contiguous caches,
-no telemetry object yet:
+Port of ``repro.serve.scheduler.ContinuousServeEngine``, contiguous caches:
 
 - the batched decode state holds ``n_slots`` cache slots (KV caches and
   recurrent carries) with per-slot positions
@@ -20,11 +19,24 @@ sync for all slots' logits (greedy argmax takes the first maximum, as
 a CPU generator seeded with its seed, through the lockstep engine's
 ``sample`` on its host row, so it replays that engine's B = 1 stream
 (``serve.engine`` says why the host).
+
+Telemetry (``telemetry=``, a ``repro_torch.obs.ServeTelemetry``; default
+``NULL_TELEMETRY``, whose hooks do nothing) gets the reference's hooks at
+the reference's places: submit, admission, each prefill chunk, each
+committed token, each finished request, and each decode step with its
+host seconds. When it asks for PIM stats (``exact`` mode), each decode
+step, and nothing else, runs under ``layers.with_pim_stats``: its K2 (or
+K1) counters are summed on the device, fetched right after the logits and
+billed to the telemetry; the totals are re-recorded into any enclosing
+``collect_pim_stats()`` sink, which therefore sees the same work with
+telemetry on or off. Greedy outputs are bit-identical with telemetry on
+or off.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Any
@@ -33,7 +45,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.obs.serve import NULL_TELEMETRY, ServeTelemetry
 from repro_torch.serve.engine import check_plans, sample
 
 
@@ -80,6 +94,16 @@ class ServeStats:
         return 0.0 if self.decode_steps == 0 else (
             self.decode_slot_tokens / self.decode_steps)
 
+    def snapshot(self) -> dict:
+        """Every counter plus the derived utilization, as plain scalars:
+        the reference's keys plus ``prefill_seconds`` and
+        ``decode_seconds``. Both engines share this dataclass, so
+        exporters and the launcher read one schema."""
+        d = {f.name: getattr(self, f.name)
+             for f in dataclasses.fields(self)}
+        d["decode_utilization"] = self.decode_utilization
+        return d
+
 
 EngineStats = ServeStats   # the reference's older name
 
@@ -99,7 +123,8 @@ class ContinuousServeEngine:
 
     def __init__(self, cfg: ArchConfig, params: Any, *, n_slots: int = 4,
                  max_len: int = 512, prefill_chunk: int = 64,
-                 plans: Any = None):
+                 plans: Any = None,
+                 telemetry: ServeTelemetry | None = None):
         check_plans(cfg, plans)
         if n_slots < 1 or prefill_chunk < 1:
             raise ValueError("n_slots and prefill_chunk must be >= 1")
@@ -114,6 +139,36 @@ class ContinuousServeEngine:
         self.slots: list[_Slot | None] = [None] * n_slots
         self.queue: collections.deque[Request] = collections.deque()
         self.stats = ServeStats()
+        self.tel = telemetry if telemetry is not None else NULL_TELEMETRY
+        # the module function, not a closure over self: a reference cycle
+        # would keep a dropped engine's plans and caches on the card until
+        # the cyclic collector ran
+        self._decode = self._wrap_decode(T.decode_step)
+
+    # ---------------------------------------------------------- telemetry
+    def _wrap_decode(self, decode_fn):
+        """With PIM stats requested (``exact`` mode and an enabled
+        telemetry), the decode step also returns its work totals, summed
+        on the device (``layers.with_pim_stats``). Decode math is
+        untouched either way."""
+        self._collect_pim = self.tel.wants_pim_stats(self.cfg)
+        if not self._collect_pim:
+            return decode_fn
+        self.tel.pim_adc_bits = self.cfg.pim_adc_bits
+        return L.with_pim_stats(decode_fn)
+
+    def _decode_fetch(self, out, n_live: int):
+        """Unpack a decode result: the slots' last logits rows come to the
+        host in one fetch, and the PIM totals, when collected, right after
+        them (their few summing launches were queued behind the step)."""
+        if not self._collect_pim:
+            logits, state = out
+            return logits[:, -1].cpu(), state
+        logits, state, tot = out
+        rows = logits[:, -1].cpu()
+        counts = None if tot.counts is None else tot.counts.cpu()
+        self.tel.on_pim_totals(tot.host(counts), n_live)
+        return rows, state
 
     def _init_state(self) -> dict:
         """The batched decode state: one contiguous ``max_len`` region per
@@ -134,6 +189,7 @@ class ContinuousServeEngine:
                 f"({req.max_new_tokens}) exceeds engine max_len "
                 f"({self.max_len})")
         self.queue.append(req)
+        self.tel.on_submit(req.uid)
 
     @property
     def active_uids(self) -> tuple[int, ...]:
@@ -157,6 +213,7 @@ class ContinuousServeEngine:
         """Record a generated token; retire the slot if the request is done."""
         slot.tokens.append(tok)
         slot.next_tok = tok
+        self.tel.on_token(slot.req.uid)
         reason = None
         if tok in slot.req.stop_tokens:
             reason = "stop"
@@ -170,6 +227,7 @@ class ContinuousServeEngine:
                 finish_reason=reason))
             self.slots[idx] = None
             self.stats.completed += 1
+            self.tel.on_finish(slot.req.uid, reason, len(slot.tokens))
 
     def _staged_state(self) -> Any:
         """A fresh B=1 decode state for a slot's prompt."""
@@ -192,15 +250,64 @@ class ContinuousServeEngine:
         """Splice a finished B=1 prefill state into slot ``i``."""
         T.insert_request(self.state, state1, i)
 
+    @contextlib.contextmanager
+    def _prefill_span(self, slot: _Slot, lo: int, hi: int):
+        """The telemetry's span and profiler range around one chunk."""
+        with self.tel.span("prefill_chunk", uid=slot.req.uid, lo=lo,
+                           hi=hi), \
+                self.tel.annotate_step("prefill_chunk",
+                                       self.stats.prefill_chunks):
+            yield
+
+    def _commit_prefilled(self, done: list, finished: list) -> None:
+        """Commit the first token of each prompt that finished prefill this
+        iteration, after one host fetch of their logits rows."""
+        rows = torch.stack([lg for _, _, lg in done]).cpu()
+        for (i, slot, _), row in zip(done, rows):
+            self._commit(i, slot,
+                         self._sample(slot, row, int(torch.argmax(row))),
+                         finished)
+
+    def _decode_live(self, live: list[int], finished: list, t0: float,
+                     **decode_kw) -> None:
+        """One batched decode step of the ``live`` slots (the others feed
+        token 0 and their rows are ignored), then commit each live slot's
+        token. ``t0`` starts the step's host seconds."""
+        toks = torch.zeros((self.n_slots, 1), dtype=torch.int64)
+        for i in live:
+            toks[i, 0] = self.slots[i].next_tok
+        with self.tel.span("decode_step", n_live=len(live)):
+            with self.tel.annotate_step("decode_step",
+                                        self.stats.decode_steps):
+                out = self._decode(self.params, self.cfg, self.state,
+                                   toks.to(self.device), plans=self.plans,
+                                   **decode_kw)
+            rows, self.state = self._decode_fetch(out, len(live))
+            dt = time.perf_counter() - t0
+            self.stats.decode_seconds += dt
+            self.tel.observe_decode_step_seconds(dt)
+            self.stats.decode_steps += 1
+            self.stats.decode_slot_tokens += len(live)
+            self.tel.on_decode_step(len(live))
+            greedy = torch.argmax(rows, dim=-1)
+            for i in live:
+                self._commit(i, self.slots[i],
+                             self._sample(self.slots[i], rows[i],
+                                          int(greedy[i])), finished)
+
     @torch.no_grad()
     def step(self) -> list[RequestOutput]:
         """One scheduler iteration: admit -> prefill one chunk -> decode.
         Returns the requests that finished during this iteration."""
         finished: list[RequestOutput] = []
-        for i in range(self.n_slots):
-            if self.slots[i] is None and self.queue:
-                self.slots[i] = _Slot(req=self.queue.popleft(),
-                                      state1=self._staged_state())
+        with self.tel.span("admission"):
+            for i in range(self.n_slots):
+                if self.slots[i] is None and self.queue:
+                    req = self.queue.popleft()
+                    self.slots[i] = _Slot(req=req,
+                                          state1=self._staged_state())
+                    self.tel.on_admit(req.uid,
+                                      int(np.asarray(req.prompt).shape[0]))
         done = []
         t0 = time.perf_counter()
         for i, slot in enumerate(self.slots):
@@ -211,38 +318,21 @@ class ContinuousServeEngine:
             hi = min(lo + self.prefill_chunk, prompt.shape[0])
             toks = torch.as_tensor(prompt[None, lo:hi], dtype=torch.int64,
                                    device=self.device)
-            logits = self._prefill_staged(i, slot, toks,
-                                          last=hi == prompt.shape[0])
+            with self._prefill_span(slot, lo, hi):
+                logits = self._prefill_staged(i, slot, toks,
+                                              last=hi == prompt.shape[0])
             slot.n_prefilled = hi
             self.stats.prefill_chunks += 1
+            self.tel.on_prefill_chunk(slot.req.uid, lo, hi)
             if hi == prompt.shape[0]:
                 done.append((i, slot, logits[0, -1]))
         if done:
-            rows = torch.stack([lg for _, _, lg in done]).cpu()
-            for (i, slot, _), row in zip(done, rows):
-                self._commit(i, slot,
-                             self._sample(slot, row, int(torch.argmax(row))),
-                             finished)
+            self._commit_prefilled(done, finished)
             self.stats.prefill_seconds += time.perf_counter() - t0
         live = [i for i, s in enumerate(self.slots)
                 if s is not None and s.state1 is None]
         if live:
-            t0 = time.perf_counter()
-            toks = torch.zeros((self.n_slots, 1), dtype=torch.int64)
-            for i in live:
-                toks[i, 0] = self.slots[i].next_tok
-            logits, self.state = T.decode_step(
-                self.params, self.cfg, self.state, toks.to(self.device),
-                plans=self.plans)
-            rows = logits[:, -1].cpu()
-            self.stats.decode_seconds += time.perf_counter() - t0
-            self.stats.decode_steps += 1
-            self.stats.decode_slot_tokens += len(live)
-            greedy = torch.argmax(rows, dim=-1)
-            for i in live:
-                self._commit(i, self.slots[i],
-                             self._sample(self.slots[i], rows[i],
-                                          int(greedy[i])), finished)
+            self._decode_live(live, finished, time.perf_counter())
         return finished
 
     def _drain_budget(self) -> int:
