@@ -62,6 +62,29 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            profiler's trace must name K2's kernel); the decode step with
            telemetry off and on, in exact and fast, in turns (recorded, not
            gated);
+  nonideal device nonidealities and ADC noise on the serve phase's model,
+           pinned exact plans and 4 requests at the paper's 7b ADC: the
+           ideal array with speculation off (K1), then ``NonidealSim``
+           dies (no kernel; 1b static input slicing) at the nominal corner
+           (its tokens must equal the ideal run's), 1-sigma seed 0 twice
+           (equal tokens), 1-sigma seed 1 and 3-sigma, each die's share of
+           tokens equal to the ideal run's, step time and peak printed;
+           every crossbar call of one decode step (338) through the
+           nominal die's loop and K1, psum and saturations bit for bit;
+           one decode step's head and FFN-up inputs on each corner: the
+           output-code error must be 0 / rise / rise at the 24b ADC; on
+           the 1-sigma die the head's and the down projection's stuck
+           counts within 6 sd of their binomial means, no fault on padding
+           rows, std(log G/G0) within 5% of ``program_sigma``; a padded
+           plane stays zero at 3-sigma; a 3-sigma read of the head within
+           1e-5 of float64; the ADC noise model on the FFN up projection
+           (64 rows): noise 0 with a key == K2, one key one result, the
+           error rising over noise 0.04 / 0.08 / 0.12 with speculation on
+           and off, Algorithm 1 at noise 0.10 on no fewer slices; the
+           step's program and read device time (CUDA events, per
+           distinct shape times its calls); the launcher with
+           ``--device-corner 1sigma``; ``--phases build,serve,nonideal``
+           runs it;
   moe      phi3.5-moe-42b at its published widths, 4 of its 32 layers
            (random bf16 weights from a seed): the same 4 requests through
            ``ContinuousServeEngine`` in ``exact`` (K2 per expert),
@@ -3102,16 +3125,418 @@ def phase_timing(ctx: dict, rows: list) -> list:
     return out
 
 
+# ---------------------------------------------------------------- nonideal
+DIE_RUNS = (("nominal", 0), ("1sigma", 0), ("1sigma", 0), ("1sigma", 1),
+            ("3sigma", 0))   # (corner, die seed): 1-sigma seed 0 twice
+NOISE_LEVELS = (0.04, 0.08, 0.12)
+
+
+def phase_nonideal(ctx: dict) -> None:
+    """qwen1.5-0.5b served whole on ``NonidealSim`` dies at the paper's 7b
+    ADC (the serve phase's weights, pinned exact plans and 4 requests): the
+    nominal die's tokens and every crossbar call of a decode step equal the
+    ideal array's with speculation off (K1) bit for bit; the 1-sigma die
+    twice with one seed gives one set of tokens; the output-code error
+    rises with the corner; the fault and program-error statistics of the
+    largest planes; the float32 read against float64; the ADC noise model
+    on the FFN up projection and Algorithm 1 under noise; the step's
+    program and read device time, its wall time and peak memory; the
+    launcher's ``--device-corner``."""
+    import dataclasses
+    import torch
+    from repro_torch.core import backends as bk
+    from repro_torch.serve import ContinuousServeEngine
+    t_phase = time.perf_counter()
+    q = ctx["qwen"]
+    params, reqs, max_len = q["params"], q["reqs"], q["max_len"]
+    plans = ctx["exact_compiled"].plans
+    at7 = dataclasses.replace(q["cfg"], pim_mode="exact", pim_adc_bits=7)
+    vocab = at7.vocab_size
+    base = torch.cuda.memory_allocated()
+    checked = []
+
+    def serve(run, cfg, per_call):
+        eng = ContinuousServeEngine(cfg, params, n_slots=N_SLOTS,
+                                    max_len=max_len, prefill_chunk=64,
+                                    plans=plans)
+        torch.cuda.reset_peak_memory_stats()
+        outs, serve_s, launches = drive(eng, reqs)
+        row = engine_row(run, eng, outs, serve_s, launches, per_call, vocab)
+        row["peak_gib"] = peak_gb(base)
+        return [o.tokens.tolist() for o in outs], row
+
+    # 1. the ideal array with speculation off (K1 on every projection),
+    # then the dies (no kernel: engine_row checks 0 launches)
+    ideal, row = serve("ideal-nospec-7b",
+                       dataclasses.replace(at7, pim_speculation=False),
+                       PER_CALL["exact-nospec"])
+    say("nonideal", **row)
+    ideal_step_ms = row["step_ms"]
+    flat_ideal = [t for r in ideal for t in r]
+    tokens, steps = {}, {}
+    for corner, seed in DIE_RUNS:
+        cfg = dataclasses.replace(at7, pim_crossbar_backend="nonideal",
+                                  pim_device_corner=corner,
+                                  pim_device_seed=seed)
+        got, row = serve(f"die-{corner}-seed{seed}", cfg, {})
+        flat = [t for r in got for t in r]
+        share = sum(a == b for a, b in zip(flat, flat_ideal)) / len(flat)
+        if (corner, seed) in tokens and tokens[(corner, seed)] != got:
+            raise AssertionError(f"{corner} seed {seed} served twice gave "
+                                 f"{tokens[(corner, seed)]} and {got}")
+        tokens[(corner, seed)] = got
+        steps.setdefault(corner, []).append(row["step_ms"])
+        say("nonideal", **row, share_equal_ideal=round(share, 4),
+            first_tokens=json.dumps(got[0]))
+    if tokens[("nominal", 0)] != ideal:
+        raise AssertionError(f"nominal die tokens {tokens[('nominal', 0)]} "
+                             f"!= the ideal spec-off tokens {ideal}")
+    checked += ["nominal die tokens == ideal spec-off (K1) tokens",
+                "1sigma seed 0 twice: equal tokens", "dies launch no kernel"]
+
+    # 2. the zero-corner contract at full width: every crossbar call of one
+    # decode step, the nominal die's loop against K1
+    say("nonideal", **zero_corner_step(at7, plans))
+    checked.append("338 calls: nominal die psum and saturations == K1")
+
+    # 3. output-code error of one decode step's head and FFN up inputs
+    say("nonideal", **die_code_errors(at7, params, plans, reqs, max_len))
+    checked.append("code error rises nominal (0 at 24b) < 1sigma < 3sigma")
+
+    # 4. statistics of the largest planes, the padding contracts, the
+    # float32 read
+    say("nonideal", **die_statistics(at7, plans))
+    checked += ["stuck count within 6 sd", "no faults on padding rows",
+                "std(log G/G0) within 5% of program_sigma",
+                "padded plane stays zero", "float32 read vs float64 <= 1e-5"]
+
+    # 5. the ADC noise model and Algorithm 1 under noise
+    say("nonideal", **adc_noise_checks(params, plans))
+    checked += ["noise 0 with a key == K2", "one key, one psum",
+                "error rises with noise, spec on and off",
+                "Algorithm 1: noise 0.10 takes no fewer slices"]
+
+    # 6. device time of the program and the reads in one decode step
+    say("nonideal", scope="1sigma die, one decode step's 338 calls",
+        die_step_ms=json.dumps(steps["1sigma"]),
+        ideal_nospec_step_ms=ideal_step_ms,
+        **die_device_time(at7, plans, bk.make("nonideal", "1sigma")))
+
+    # 7. the launcher on a die
+    say("nonideal", **launcher_on_a_die())
+    checked.append("launcher --device-corner 1sigma serves")
+    say("nonideal", ok=True, phase_s=round(time.perf_counter() - t_phase, 1),
+        checked=json.dumps(checked))
+
+
+def site_plan(cfg, leaf):
+    """A compiled exact leaf as the model runs it (``PimPlan``)."""
+    from repro_torch.models import layers as L
+    return L._plan_to_pim_plan(leaf, cfg, rows=leaf["w_q"].shape[0])
+
+
+def zero_corner_step(cfg, plans: dict) -> dict:
+    """Each of one decode step's crossbar calls (every projection, both
+    signed passes, 4 rows of random codes 0..127) through the nominal
+    die's loop and through K1, psum and saturation count ``==``."""
+    import torch
+    from repro_torch.core import backends as bk
+    from repro_torch.core import crossbar as xbar
+    die = bk.make("nonideal", "nominal")
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    n = sats = 0
+    for name, leaf, B in step_calls(cfg, plans):
+        pp = site_plan(cfg, leaf)
+        for _ in range(2):  # the two signed passes
+            x = torch.randint(0, 128, (B, pp.enc.rows), generator=gen,
+                              device="cuda", dtype=torch.int32)
+            want, wst = xbar.forward(x, pp.enc, ONE_BIT, pp.adc)
+            got, gst = xbar.forward(x, pp.enc, ONE_BIT, pp.adc, device=die)
+            s_want, s_got = int(wst.saturations), int(gst.saturations)
+            if not torch.equal(got, want) or s_got != s_want:
+                raise AssertionError(f"nominal die != K1 at {name}: "
+                                     f"saturations {s_got} vs {s_want}")
+            n += 1
+            sats += s_want
+    if n != 2 * len(step_calls(cfg, plans)):
+        raise AssertionError(f"{n} calls compared")
+    return dict(zero_corner="nominal die loop == K1", calls_compared=n,
+                tolerance=0, saturations=sats)
+
+
+def die_code_errors(cfg, params, plans, reqs, max_len) -> dict:
+    """The inputs of one decode step (4 prompts cut to 8 tokens,
+    prefilled, then one greedy step) at the LM head and the first FFN up
+    projection, recorded at ``layers.pim_matmul``; each layer prepared on
+    them (``pim_linear.prepare``, calibrated output scale) and run on the
+    nominal, 1-sigma and 3-sigma dies, 1b input slices: the mean |8b
+    output-code error| on nonzero expected outputs against
+    ``forward_int_reference`` (``adaptive._error_value``'s measure), at
+    the 24b ADC (nominal must be 0) and at 7b. Must rise with the corner
+    at 24b."""
+    import dataclasses
+    import torch
+    from repro_torch.core import adc as adc_lib
+    from repro_torch.core import backends as bk
+    from repro_torch.core import pim_linear as pl
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    seen = []
+    orig = L.pim_matmul
+
+    def record(x, w, plan, c):
+        seen.append((x.reshape(-1, x.shape[-1]).float(), w.float()))
+        return orig(x, w, plan, c)
+
+    toks = torch.tensor([r.prompt[:8].tolist() for r in reqs],
+                        device="cuda")
+    with torch.no_grad():
+        logits, state = T.prefill(params, cfg, toks, max_len=max_len,
+                                  plans=plans)
+        nxt = logits[:, -1:].argmax(-1)
+        L.pim_matmul = record
+        try:
+            T.decode_step(params, cfg, state, nxt, plans=plans)
+        finally:
+            L.pim_matmul = orig
+    d, f = cfg.d_model, cfg.d_ff
+    sites = {"head": next(s for s in seen if s[1].shape[1] == cfg.vocab_size),
+             "ffn_up": next(s for s in seen if s[1].shape == (d, f))}
+    out = {}
+    for bits in (24, 7):
+        for site, (x, w) in sites.items():
+            plan = pl.prepare(w, x, speculation=False,
+                              adc=adc_lib.ADCConfig(bits=bits))
+            ref = pl.output_codes(pl.forward_int_reference(x, plan), plan)
+            nz = ref != 0
+            errs = []
+            for corner in ("nominal", "1sigma", "3sigma"):
+                die = dataclasses.replace(plan, device=bk.make("nonideal",
+                                                               corner))
+                got = pl.output_codes(pl.forward_exact(x, die), plan)
+                err = torch.where(nz, (got - ref).abs().float(), 0.0).sum()
+                errs.append(float(err / nz.sum().clamp_min(1)))
+            out[f"{site}_{bits}b"] = json.dumps([round(e, 4) for e in errs])
+            if bits == 24 and not errs[0] == 0.0 < errs[1] < errs[2]:
+                raise AssertionError(f"{site} code error at 24b {errs}")
+    return dict(code_error="nominal,1sigma,3sigma", rows=len(reqs), **out)
+
+
+def die_statistics(cfg, plans: dict) -> dict:
+    """The 1-sigma die (seed 0) on the two largest plane sets: the head
+    (3 x 2 x 512 x 151936 devices per array) and the down projection (R =
+    2816, padded to 3072 rows): the stuck count against its binomial mean
+    (within 6 sd), no fault on padding rows, std(log G/G0) over live,
+    non-stuck, nonzero devices within 5% of ``program_sigma``; a padded
+    all-zero plane on the down projection stays zero at 3-sigma; one read
+    of the head at 3-sigma against a float64 recomputation of the same
+    programmed planes (relative error <= 1e-5; TF32 would show ~1e-3)."""
+    import torch
+    from repro_torch.core import backends as bk
+    head = site_plan(cfg, plans["head"]).enc
+    down = site_plan(cfg, plans["layers"][0]["ffn"]["w2"]).enc
+    out = {}
+    sigma1 = bk.make("nonideal", "1sigma")
+    c = bk.SIGMA1
+    for site, enc in (("head", head), ("down", down)):
+        prog = sigma1.program(enc.planes, rows=enc.rows)
+        n_w, n_seg, R, C = enc.planes.shape
+        stuck = prog.stuck_on | prog.stuck_off  # (2, n_w, n_seg, R, C)
+        n = 2 * n_w * enc.rows * C
+        mean = n * c.stuck_rate
+        sd = math.sqrt(n * c.stuck_rate * (1 - c.stuck_rate))
+        count = int(stuck.sum())
+        if abs(count - mean) >= 6 * sd:
+            raise AssertionError(f"{site}: {count} stuck, mean {mean}")
+        pad = int(stuck.reshape(2, n_w, n_seg * R, C)[:, :, enc.rows:].sum())
+        if pad:
+            raise AssertionError(f"{site}: {pad} faults on padding rows")
+        ideal = bk.IDEAL.program(enc.planes)
+        sums = torch.zeros(2, dtype=torch.float64, device="cuda")
+        n_dev = 0
+        for i, (g, g0) in enumerate(((prog.gp, ideal.gp), (prog.gn,
+                                                           ideal.gn))):
+            keep = (g0 > 0) & ~stuck[i]
+            lg = torch.log(g[keep] / g0[keep].float()).double()
+            sums += torch.stack([lg.sum(), (lg * lg).sum()])
+            n_dev += lg.numel()
+            del keep, lg
+        m = sums[0] / n_dev
+        std = float(torch.sqrt(sums[1] / n_dev - m * m))
+        if abs(std / c.program_sigma - 1) > 0.05:
+            raise AssertionError(f"{site}: std(log G/G0) {std}")
+        out.update({f"{site}_stuck": count, f"{site}_stuck_mean": mean,
+                    f"{site}_stuck_sd": round(sd, 1),
+                    f"{site}_padding_faults": pad,
+                    f"{site}_std_log_g": round(std, 6),
+                    f"{site}_devices_in_std": n_dev})
+        del prog, stuck, ideal
+    padded = torch.cat([down.planes, torch.zeros_like(down.planes[:1])])
+    prog = bk.make("nonideal", "3sigma").program(padded, rows=down.rows)
+    if prog.gp[-1].any() or prog.gn[-1].any():
+        raise AssertionError("a padded plane grew conductance at 3sigma")
+    if not prog.stuck_on[:, -1].any():
+        raise AssertionError("no fault drawn on the padded plane")
+    del prog
+    die3 = bk.make("nonideal", "3sigma")
+    prog = die3.program(head.planes, rows=head.rows)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randint(0, 2, (N_SLOTS, head.n_segments, head.rows_per_xbar),
+                      generator=gen, device="cuda", dtype=torch.int32)
+    rel = 0.0
+    for j in range(head.n_slices):
+        pos, neg = die3.read(prog, x, j)
+        x64 = x.double().transpose(0, 1)
+        for got, g in ((pos, prog.gp[j]), (neg, prog.gn[j])):
+            want = torch.bmm(x64, g.double()).transpose(0, 1)
+            rel = max(rel, float((got.double() - want).abs().max()
+                                 / want.abs().max()))
+    if rel > 1e-5:
+        raise AssertionError(f"float32 read off float64 by {rel}")
+    del prog
+    torch.cuda.empty_cache()
+    return dict(statistics="1sigma seed 0", **out,
+                padded_plane_zero_at_3sigma=True,
+                read_rel_err_vs_float64=rel, read_tolerance=1e-5)
+
+
+def adc_noise_checks(params, plans: dict) -> dict:
+    """The ADC noise model on the first FFN up projection (1024 x 2816)
+    prepared on 64 rows of seeded normal activations at the 7b ADC:
+    noise 0 with a key is the K2 route bit for bit; one key gives one
+    psum and another key another; the output-code error rises over the
+    noise levels with speculation on (the noisy speculation loop) and off
+    (the noisy static loop); Algorithm 1 at noise 0.10 picks no fewer
+    slices than at 0 (``test_noise_pushes_to_more_slices``)."""
+    import dataclasses
+    import torch
+    from repro_torch.core import adaptive as ad
+    from repro_torch.core import adc as adc_lib
+    from repro_torch.core import pim_linear as pl
+    from repro_torch.core import rng
+    from repro_torch.kernels import ops
+    w = params["layers"][0]["ffn"]["w1"].float()
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    x = torch.randn(64, w.shape[0], generator=gen, device="cuda")
+    plan = pl.prepare(w, x, adc=adc_lib.ADCConfig(bits=7))
+    ops.reset_launch_counts()
+    y0 = pl.forward_exact(x, plan)
+    y0k = pl.forward_exact(x, plan, noise_level=0.0, key=rng.Key(0))
+    k2 = ops.launch_counts()["fused_spec_crossbar"]
+    if not torch.equal(y0, y0k) or k2 != 4:
+        raise AssertionError(f"noise 0 with a key != K2 ({k2} launches)")
+    a = pl.forward_exact(x, plan, noise_level=0.08, key=rng.Key(1))
+    b = pl.forward_exact(x, plan, noise_level=0.08, key=rng.Key(1))
+    c = pl.forward_exact(x, plan, noise_level=0.08, key=rng.Key(2))
+    if not torch.equal(a, b) or torch.equal(a, c):
+        raise AssertionError("one key must give one result, two keys two")
+    ref = pl.output_codes(pl.forward_int_reference(x, plan), plan)
+    nz = ref != 0
+    out = {}
+    for spec_on in (True, False):
+        p = dataclasses.replace(plan, speculation=spec_on)
+        errs = []
+        for noise in (0.0,) + NOISE_LEVELS:
+            y = pl.forward_exact(x, p, noise_level=noise, key=rng.Key(7))
+            err = torch.where(nz, (pl.output_codes(y, p) - ref).abs()
+                              .float(), 0.0).sum() / nz.sum().clamp_min(1)
+            errs.append(float(err))
+        if not errs[1] < errs[2] < errs[3]:
+            raise AssertionError(f"noise error spec={spec_on}: {errs}")
+        out["code_error_spec" if spec_on else "code_error_static"] = \
+            json.dumps([round(e, 4) for e in errs])
+    clean = ad.find_best_slicing(w, x)
+    noisy = ad.find_best_slicing(w, x, noise_level=0.10, key=rng.Key(0))
+    if noisy.n_slices < clean.n_slices:
+        raise AssertionError(f"noise 0.10 chose {noisy.slicing}, "
+                             f"noise 0 {clean.slicing}")
+    return dict(adc_noise="ffn up 1024x2816, 64 rows, 7b",
+                noise_levels=json.dumps((0.0,) + NOISE_LEVELS), **out,
+                slicing_noise0="-".join(map(str, clean.slicing)),
+                slicing_noise010="-".join(map(str, noisy.slicing)),
+                error_noise010=round(noisy.error, 4))
+
+
+def die_device_time(cfg, plans: dict, die) -> dict:
+    """Device time of one decode step's programming and reads on ``die``:
+    each distinct projection shape's ``program`` and one signed pass of
+    reads (one read per plane of the 8 one-bit input slices stacked, 4
+    rows each, as ``crossbar.forward`` reads), timed with CUDA events
+    (``cuda_ms``, 3 calls each) and multiplied by the calls a step makes
+    of it (two passes per projection); with the bytes the reads must move
+    and their bound. (``torch.profiler``'s kernel sums of these calls
+    came out below what the programming must move, or empty; PERF.md
+    has the runs.)"""
+    import collections
+    import torch
+    calls = step_calls(cfg, plans)
+    per_shape = collections.Counter()
+    leaf_of = {}
+    for _, leaf, _ in calls:
+        key = tuple(leaf["planes"].shape)
+        per_shape[key] += 2
+        leaf_of.setdefault(key, leaf)
+    program_ms = read_ms = 0.0
+    read_bytes = program_devices = 0
+    for key, n in per_shape.items():
+        enc = site_plan(cfg, leaf_of[key]).enc
+        x = torch.randint(0, 2, (8 * N_SLOTS, enc.n_segments,
+                                 enc.rows_per_xbar), device="cuda",
+                          dtype=torch.int32)
+        prog = die.program(enc.planes, rows=enc.rows)
+
+        def program():
+            die.program(enc.planes, rows=enc.rows)
+
+        def reads():
+            for j in range(enc.n_slices):
+                die.read(prog, x, j)
+
+        program_ms += n * cuda_ms(program, reps=3)
+        read_ms += n * cuda_ms(reads, reps=3)
+        program_devices += n * enc.planes.numel()
+        read_bytes += n * 8 * 2 * 4 * enc.planes.numel()
+        del prog
+    torch.cuda.empty_cache()
+    return dict(program_device_ms=round(program_ms, 3),
+                read_device_ms=round(read_ms, 3),
+                devices_programmed=program_devices,
+                read_gb=round(read_bytes / 1e9, 1),
+                read_bound_ms=round(1e3 * read_bytes / HBM_BYTES_PER_S, 3))
+
+
+def launcher_on_a_die() -> dict:
+    """``python -m repro_torch.launch.serve --arch qwen1.5-0.5b --pim
+    exact --device-corner 1sigma`` in-process, one request of up to 2
+    tokens (a die's engine call takes seconds): it names the die and
+    serves."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve as launch
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        launch.main(["--arch", ARCH, "--pim", "exact", "--device-corner",
+                     "1sigma", "--requests", "1", "--steps", "2"])
+    text = buf.getvalue()
+    line = "device corner: 1sigma (die seed 0, nonideal ReRAM array)"
+    if line not in text or "first outputs:" not in text:
+        raise AssertionError(f"launcher output: {text[-400:]}")
+    served = next(ln for ln in text.splitlines() if " continuous on " in ln)
+    return dict(launcher="--pim exact --device-corner 1sigma",
+                launch_s=round(time.perf_counter() - t0, 3), served=served)
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,serve,telemetry,moe,hybrid,"
-                    "encoder,decoders,timing",
+                    default="build,kernels,serve,telemetry,nonideal,moe,"
+                    "hybrid,encoder,decoders,timing",
                     help="comma list of phases to run (default: all)")
     args = ap.parse_args()
     phases = args.phases.split(",")
-    for needs in ("timing", "telemetry"):
+    for needs in ("timing", "telemetry", "nonideal"):
         if needs in phases and "serve" not in phases:
             ap.error(f"--phases {needs} needs serve: it uses the model and "
                      "the plans that the serve phase builds")
@@ -3139,6 +3564,8 @@ def main() -> int:
         phase_serve(ctx)
     if "telemetry" in phases:
         phase_telemetry(ctx)
+    if "nonideal" in phases:
+        phase_nonideal(ctx)
     ctx.pop("qwen", None)  # free qwen's weights before the larger models
     if "moe" in phases:
         phase_moe(ctx, rows)

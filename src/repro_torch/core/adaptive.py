@@ -11,8 +11,11 @@ ideal 8b-quantized layer on nonzero expected outputs.
 ``find_best_slicing`` evaluates one slice-count group of candidates at a
 time; ``measure_errors`` queues every candidate's device work before one
 host sync, so the per-site compile (``models.pim_compile``) does not stall
-on a round trip per candidate. A nonzero ``noise_level`` raises: ADC noise
-is not ported yet.
+on a round trip per candidate.
+
+The search is noise-aware: passing a noise level (with a ``key``,
+``core.rng``) makes the chosen slicing more conservative (Fig. 15's
+adaptivity claim).
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ class SlicingChoice:
 def _error_value(w: torch.Tensor, x_cal: torch.Tensor,
                  weight_slicing: Sequence[int], *,
                  adc: adc_lib.ADCConfig, encode_mode: str,
-                 noise_level: float, relu_out: bool,
+                 noise_level: float, key, relu_out: bool,
                  signed_inputs: bool | None = None) -> torch.Tensor:
     """Device-side §4.2.1 error (scalar float32 tensor, no host sync)."""
     plan = pl.prepare(w, x_cal, weight_slicing=weight_slicing, adc=adc,
@@ -50,7 +53,7 @@ def _error_value(w: torch.Tensor, x_cal: torch.Tensor,
                       relu_out=relu_out, signed_inputs=signed_inputs)
     # paper: 1b input slices while comparing weight slicings
     y_sim = pl.forward_exact(x_cal, plan, input_slicing=(1,) * sl.INPUT_BITS,
-                             noise_level=noise_level)
+                             noise_level=noise_level, key=key)
     y_ref = pl.forward_int_reference(x_cal, plan)
     out_sim = pl.output_codes(y_sim, plan, relu=relu_out)
     out_ref = pl.output_codes(y_ref, plan, relu=relu_out)
@@ -65,11 +68,12 @@ def measure_error(w: torch.Tensor, x_cal: torch.Tensor,
                   adc: adc_lib.ADCConfig = adc_lib.RAELLA_ADC,
                   encode_mode: str = "center",
                   noise_level: float = 0.0,
+                  key=None,
                   relu_out: bool = False) -> float:
     """Mean |8b-output error| on nonzero expected outputs (paper §4.2.1)."""
     return float(measure_errors(w, x_cal, [weight_slicing], adc=adc,
                                 encode_mode=encode_mode,
-                                noise_level=noise_level,
+                                noise_level=noise_level, key=key,
                                 relu_out=relu_out)[0])
 
 
@@ -78,6 +82,7 @@ def measure_errors(w: torch.Tensor, x_cal: torch.Tensor,
                    adc: adc_lib.ADCConfig = adc_lib.RAELLA_ADC,
                    encode_mode: str = "center",
                    noise_level: float = 0.0,
+                   key=None,
                    relu_out: bool = False) -> np.ndarray:
     """``measure_error`` over many candidate slicings, one host sync for
     all their errors: every candidate's work is queued first. The inputs'
@@ -87,8 +92,8 @@ def measure_errors(w: torch.Tensor, x_cal: torch.Tensor,
         return np.zeros((0,), np.float32)
     signed = bool((x_cal < 0).any())
     vals = [_error_value(w, x_cal, s, adc=adc, encode_mode=encode_mode,
-                         noise_level=noise_level, relu_out=relu_out,
-                         signed_inputs=signed)
+                         noise_level=noise_level, key=key,
+                         relu_out=relu_out, signed_inputs=signed)
             for s in slicings]
     return torch.stack(vals).cpu().numpy()
 
@@ -114,6 +119,7 @@ def find_best_slicing(w: torch.Tensor, x_cal: torch.Tensor, *,
                       adc: adc_lib.ADCConfig = adc_lib.RAELLA_ADC,
                       encode_mode: str = "center",
                       noise_level: float = 0.0,
+                      key=None,
                       relu_out: bool = False,
                       full_search: bool = False,
                       last_layer: bool = False) -> SlicingChoice:
@@ -126,7 +132,7 @@ def find_best_slicing(w: torch.Tensor, x_cal: torch.Tensor, *,
     error within the group. Each group is fetched with one host sync.
     """
     kwargs = dict(adc=adc, encode_mode=encode_mode, noise_level=noise_level,
-                  relu_out=relu_out)
+                  key=key, relu_out=relu_out)
     conservative = (1,) * sl.WEIGHT_BITS
     if last_layer:
         e = measure_error(w, x_cal, conservative, **kwargs)

@@ -1,20 +1,20 @@
 """Functional 512-row 2T2R crossbar simulator (paper §4.1.4, §5.1).
 
-Port of ``repro.core.crossbar`` at noise 0. Bit-exact integer model of
-RAELLA's analog datapath:
+Port of ``repro.core.crossbar``. Bit-exact integer model of RAELLA's
+analog datapath:
 
   inputs (unsigned 8b, temporally sliced)  x  weights (Center+Offset encoded,
   spatially sliced, signed sign-magnitude planes)  ->  per-(input-slice,
-  weight-slice) signed column sums over <=512 rows  ->  ADC (clamp)  ->
-  digital shift+add  ->  int32 psums (+ the digital center term
-  phi * sum(I)).
+  weight-slice) signed column sums over <=512 rows  ->  ADC (7b clamp, with
+  optional analog noise)  ->  digital shift+add  ->  int32 psums (+ the
+  digital center term phi * sum(I)).
 
-``forward`` runs the whole static-slicing datapath as ONE fused kernel op
-(``kernels.ops.fused_crossbar_forward``, kernel K1) on the ideal device;
-``backend='python'`` runs the loop below instead — the oracle the tests
-hold the kernel to. Speculation (``core.speculation``) uses the segmenting
-and column-sum pieces here. Analog noise and nonideal devices are not
-ported yet and raise.
+``forward`` runs the whole noiseless static-slicing datapath on the ideal
+device as ONE fused kernel op (``kernels.ops.fused_crossbar_forward``,
+kernel K1). Noisy runs, runs on a ``NonidealSim`` die, ``ideal=True`` and
+``backend='python'`` take the loop below — the oracle the tests hold the
+kernel to. Speculation (``core.speculation``) uses the segmenting and
+column-sum pieces here.
 """
 
 from __future__ import annotations
@@ -75,6 +75,7 @@ def forward(x_u8: torch.Tensor,
             adc: adc_lib.ADCConfig = adc_lib.RAELLA_ADC,
             *,
             noise_level: float = 0.0,
+            key=None,
             ideal: bool = False,
             backend: str | None = None,
             device: bk.CrossbarBackend | None = None
@@ -85,19 +86,21 @@ def forward(x_u8: torch.Tensor,
 
     ``ideal=True`` skips the ADC (infinite resolution). At noise 0 on the
     ideal device the datapath runs as the fused kernel op (K1);
-    ``backend='python'`` and ideal runs take the loop. ``enc`` may carry
-    all-zero padding planes (compiled per-site plans): they convert to 0
-    and contribute nothing, but the work stats count every plane.
+    ``backend='python'``, ideal runs, noisy runs (``noise_level`` > 0
+    needs a ``key``, ``core.rng``) and a ``NonidealSim`` ``device`` take
+    the loop. A die programs its planes once per call and reads float32
+    column sums; at an all-zero corner that is bit-exact with the ideal
+    path. ``enc`` may carry all-zero padding planes (compiled per-site
+    plans): they convert to 0 and contribute nothing. The work stats count
+    every plane and are the same for every device.
     """
     if backend not in (None, "python"):
         raise ValueError(f"backend must be None or 'python', got {backend!r}")
-    if noise_level:
-        raise NotImplementedError(
-            "ADC noise is not ported yet (ROADMAP); noise_level must be 0")
+    if noise_level and key is None:
+        raise ValueError(
+            f"noise_level={noise_level} requires a key: pass key= "
+            "(silently running noiseless would drop the requested noise)")
     dev = bk.IDEAL if device is None else device
-    if not isinstance(dev, bk.IdealSim):
-        raise NotImplementedError(
-            "nonideal crossbar devices are not ported yet (ROADMAP)")
     B = x_u8.shape[0]
     n_seg, R = enc.n_segments, enc.rows_per_xbar
     in_bounds = sl.slice_bounds(input_slicing, sl.INPUT_BITS)
@@ -107,7 +110,8 @@ def forward(x_u8: torch.Tensor,
     total = B * n_seg * enc.cols * len(in_bounds) * enc.n_slices
     macs = B * enc.rows * enc.cols
 
-    if not ideal and backend is None:
+    if not ideal and noise_level == 0.0 and backend is None \
+            and isinstance(dev, bk.IdealSim):
         from repro_torch.kernels import ops as kops
         psum, sats = kops.fused_crossbar_forward(
             x_u8, enc.planes, enc.shifts, enc.centers,
@@ -118,21 +122,53 @@ def forward(x_u8: torch.Tensor,
 
     xs = _segment_inputs(x_u8, n_seg, R)  # (B, n_seg, R)
     prog = dev.program(enc.planes, rows=enc.rows)
+    # the input slices stacked on the batch axis: one read and one
+    # conversion per plane cover them all, elementwise as one per slice
+    x_all = torch.cat([sl.crop_unsigned(xs, hi, li) for hi, li in in_bounds])
+    # one key per (input slice, plane), split in the reference's order
+    keys = None if key is None else key.split(len(in_bounds) * enc.n_slices)
     psum = co.center_term(x_u8, enc)
-    shifts = [int(s) for s in enc.shifts]
+    shifts = _shifts(enc)
     saturations = torch.zeros((), dtype=torch.int64, device=x_u8.device)
-    for (hi, li) in in_bounds:
-        x_sl = sl.crop_unsigned(xs, hi, li)
-        for j in range(enc.n_slices):
-            pos, neg = dev.read(prog, x_sl, j)
-            val = pos - neg
-            if not ideal:
-                val, sat = adc_lib.convert(val, adc)
-                saturations = saturations + sat.sum()
-            psum = psum + (val.sum(dim=1) << (li + shifts[j]))
+    for j in range(enc.n_slices):
+        pos, neg = dev.read(prog, x_all, j)  # (n_in * B, n_seg, C)
+        val = pos - neg
+        if ideal:
+            if val.is_floating_point():
+                val = torch.round(val).to(torch.int32)
+        else:
+            k = None if keys is None else _SliceKeys(keys[j::enc.n_slices])
+            val, sat = adc_lib.convert(val, adc, noise_level=noise_level,
+                                       pos_sum=pos, neg_sum=neg, key=k)
+            saturations = saturations + sat.sum()
+        sums = val.sum(dim=1)  # (n_in * B, C)
+        for i, (_, li) in enumerate(in_bounds):
+            psum = psum + (sums[i * B:(i + 1) * B] << (li + shifts[j]))
     stats = CrossbarStats(adc_converts=total, saturations=saturations,
                           conversions_possible=total, macs=macs)
     return psum.to(torch.int32), stats  # int64 sums; same value mod 2^32
+
+
+class _SliceKeys:
+    """One plane's keys of the stacked input slices, as one key: block i
+    of a draw (the rows of input slice i) comes from ``keys[i]`` at the
+    block's own shape, so each slice's noise is what its own key draws."""
+
+    def __init__(self, keys):
+        self.keys = keys
+
+    def normal(self, shape, device="cpu") -> torch.Tensor:
+        block = (shape[0] // len(self.keys),) + tuple(shape[1:])
+        return torch.cat([k.normal(block, device) for k in self.keys])
+
+
+def _shifts(enc: co.EncodedWeights):
+    """Each plane's recombination shift: Python ints for a layer's own
+    encoding, a device int64 vector for compiled per-site plans (read
+    element by element on the device: no host sync per call)."""
+    if isinstance(enc.shifts, torch.Tensor):
+        return enc.shifts.to(torch.int64)
+    return [int(s) for s in enc.shifts]
 
 
 def matmul_reference(x_u8: torch.Tensor, w_u8: torch.Tensor) -> torch.Tensor:

@@ -3,17 +3,17 @@
 Port of ``repro.core.pim_linear``. Modes:
 
   exact — bit-exact simulation of the accelerator datapath (Center+Offset,
-          sliced 512-row crossbars, the ADC): with speculation and
-          recovery (kernel K2), or with static input slicing when the plan
-          has speculation off (kernel K1). Signed inputs run as two
-          unsigned passes (paper §5.1).
+          sliced 512-row crossbars, the ADC, optional analog noise): with
+          speculation and recovery (kernel K2), or with static input
+          slicing when the plan has speculation off (kernel K1). Signed
+          inputs run as two unsigned passes (paper §5.1). A plan on a
+          ``NonidealSim`` die reads through its programmed nonidealities
+          with static input slicing; a nonzero noise level runs the
+          crossbar loops with a key (``core.rng``).
   int8  — ``forward_int_reference``: the ideal 8b-quantized layer that
           ``exact`` equals bit for bit at a non-saturating ADC.
   fast  — the centered int8 matmul plus the rank-1 center term (Eq. 1 —
           kernel K3).
-
-A plan with a nonideal device, or a nonzero ADC noise level, raises
-``NotImplementedError``: neither is ported yet.
 """
 
 from __future__ import annotations
@@ -46,7 +46,11 @@ class PimPlan:
     # None: per-site compiled plans (enc carries the shifts)
     weight_slicing: tuple[int, ...] | None = None
     encode_mode: str = "center"     # "center" | "zero" (differential baseline)
-    # analog array model: only the ideal integer read (None / IdealSim)
+    # analog array model for the exact path (core.backends): None /
+    # IdealSim = exact integer read (fused-kernel eligible); NonidealSim =
+    # a ReRAM die with program noise / drift / stuck-ats / IR drop. A
+    # nonideal device forces static input slicing: speculation's recovery
+    # rule assumes an ideal saturation signal.
     device: bk.CrossbarBackend | None = None
     fast_w_off: torch.Tensor | None = None    # int8 offsets (rows, cols)
     fast_centers: torch.Tensor | None = None  # int32 per-column centers
@@ -83,24 +87,28 @@ def _unsigned_passes(x_q: torch.Tensor,
 
 def _accumulate_int(x_q: torch.Tensor, plan: PimPlan, *,
                     input_slicing: Sequence[int] | None = None,
+                    noise_level: float = 0.0, key=None,
                     backend: str | None = None
                     ) -> tuple[torch.Tensor, list]:
     """x_q (B, rows) int codes -> x_q @ w_q int32 via the crossbar: the
-    speculation pass (K2) or, with speculation off, the static-slicing
-    pass (K1) at ``input_slicing`` (default 1b slices)."""
-    if plan.device is not None and not isinstance(plan.device, bk.IdealSim):
-        raise NotImplementedError(
-            "nonideal crossbar devices are not ported yet (ROADMAP)")
+    speculation pass (K2 at noise 0) or, with speculation off or on a
+    nonideal die, the static-slicing pass (K1 on the ideal device at noise
+    0) at ``input_slicing`` (default 1b slices). Signed pass ``i`` draws
+    from ``key.fold_in(i)``."""
     stats = []
     acc = torch.zeros((x_q.shape[0], plan.enc.cols), dtype=torch.int32,
                       device=x_q.device)
     in_sl = (1,) * sl.INPUT_BITS if input_slicing is None else input_slicing
-    for sign, xp in _unsigned_passes(x_q, plan.lq.x_signed):
-        if plan.speculation:
+    nonideal = isinstance(plan.device, bk.NonidealSim)
+    for i, (sign, xp) in enumerate(_unsigned_passes(x_q, plan.lq.x_signed)):
+        k = None if key is None else key.fold_in(i)
+        if plan.speculation and not nonideal:
             psum, st = spec.forward(xp, plan.enc, plan.spec_slicing,
-                                    plan.adc, backend=backend)
+                                    plan.adc, noise_level=noise_level, key=k,
+                                    backend=backend)
         else:
             psum, st = xbar.forward(xp, plan.enc, in_sl, plan.adc,
+                                    noise_level=noise_level, key=k,
                                     backend=backend, device=plan.device)
         acc = acc + sign * psum
         stats.append(st)
@@ -118,15 +126,15 @@ def quantize_inputs(x: torch.Tensor, plan: PimPlan) -> torch.Tensor:
 def forward_exact(x: torch.Tensor, plan: PimPlan, *,
                   input_slicing: Sequence[int] | None = None,
                   noise_level: float = 0.0,
+                  key=None,
                   backend: str | None = None,
                   return_stats: bool = False):
     """Float-in / float-out exact accelerator simulation. ``input_slicing``
-    applies with speculation off (default 1b slices)."""
-    if noise_level:
-        raise NotImplementedError(
-            "ADC noise is not ported yet (ROADMAP); noise_level must be 0")
+    applies with speculation off or on a nonideal die (default 1b slices).
+    ``noise_level`` > 0 needs a ``key`` (``core.rng``)."""
     y_int, stats = _accumulate_int(quantize_inputs(x, plan), plan,
                                    input_slicing=input_slicing,
+                                   noise_level=noise_level, key=key,
                                    backend=backend)
     y = q.dequantize(y_int, plan.lq)
     if return_stats:

@@ -1,19 +1,21 @@
 """Dynamic Input Slicing: speculation + recovery (paper §4.3).
 
-Port of ``repro.core.speculation`` at noise 0. Speculation processes inputs
+Port of ``repro.core.speculation``. Speculation processes inputs
 with an aggressive slicing (default 4b-2b-2b); any conversion that saturates
 at the ADC bounds is flagged, and the failed (column x input-slice) results
 are replaced by a recovery pass that re-slices that input slice into 1b
 sub-slices. The crossbar always runs all recovery cycles, but ADCs only
 convert — only count work — for columns that failed speculation.
 
-The pass runs as ONE fused kernel op (``kernels.ops.
-fused_spec_crossbar_forward``); recovery converts are billed analytically
-from the per-spec-slice failure counts it returns, ``converts = attempts +
-sum_i width_i * failures_i`` (reference ``speculation.py:113-121``).
-``backend='python'`` runs the loop below instead — the oracle the tests
-hold the kernel to. Data-dependent counters are int64 tensors; the
-shape-static ones are Python ints.
+At noise 0 the pass runs as ONE fused kernel op (``kernels.ops.
+fused_spec_crossbar_forward``, kernel K2); recovery converts are billed
+analytically from the per-spec-slice failure counts it returns,
+``converts = attempts + sum_i width_i * failures_i`` (reference
+``speculation.py:113-121``). ``backend='python'`` runs the loop below
+instead — the oracle the tests hold the kernel to — and so does a noisy
+pass (the ADC noise model, ``adc.convert``, draws per conversion from a
+key). Data-dependent counters are int64 tensors; the shape-static ones are
+Python ints.
 """
 
 from __future__ import annotations
@@ -59,19 +61,26 @@ def forward(x_u8: torch.Tensor,
             spec_slicing: Sequence[int] = SPEC_SLICING,
             adc: adc_lib.ADCConfig = adc_lib.RAELLA_ADC,
             *,
+            noise_level: float = 0.0,
+            key=None,
             backend: str | None = None,
             valid: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, SpeculationStats]:
     """Speculative crossbar forward. x_u8: (B, rows) -> (psum (B, cols)
     int32, stats).
 
-    ``backend='python'`` runs the reference loop; anything else the fused
-    kernel op (dispatched by device). ``valid`` optionally masks padded
-    slice planes: masked planes are zeroed, but the work stats still count
-    every plane.
+    ``backend='python'`` and noisy runs (``noise_level`` > 0 needs a
+    ``key``, ``core.rng``) take the reference loop; anything else the
+    fused kernel op (dispatched by device). ``valid`` optionally masks
+    padded slice planes: masked planes are zeroed, but the work stats
+    still count every plane.
     """
     if backend not in (None, "python"):
         raise ValueError(f"backend must be None or 'python', got {backend!r}")
+    if noise_level and key is None:
+        raise ValueError(
+            f"noise_level={noise_level} requires a key: pass key= "
+            "(silently running noiseless would drop the requested noise)")
     adc_lib.check_zero_preserving(adc)  # the padding contract
     B = x_u8.shape[0]
     n_seg, R = enc.n_segments, enc.rows_per_xbar
@@ -87,7 +96,7 @@ def forward(x_u8: torch.Tensor,
     cycles = len(spec_slicing) + sl.INPUT_BITS
     macs = B * enc.rows * enc.cols
 
-    if backend is None:
+    if noise_level == 0.0 and backend is None:
         from repro_torch.kernels import ops as kops
         psum, fails, rec_sats = kops.fused_spec_crossbar_forward(
             x_u8, planes, enc.shifts, enc.centers,
@@ -105,20 +114,28 @@ def forward(x_u8: torch.Tensor,
 
     xs = xbar._segment_inputs(x_u8, n_seg, R)
     psum = co.center_term(x_u8, enc)
-    shifts = [int(s) for s in enc.shifts]
+    shifts = xbar._shifts(enc)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     rec_converts, failures, rec_sats = zero, zero, zero
+    # one key per conversion pass: each spec slice's, then its recovery
+    # bits' from high to low
+    n_keys = sum(1 + w for w in spec_slicing) * enc.n_slices
+    keys = iter(key.split(n_keys) if key is not None else [None] * n_keys)
     for (hi, li) in spec_bounds:
         width = hi - li + 1
         x_spec = sl.crop_unsigned(xs, hi, li)
         for j in range(enc.n_slices):
             pos, neg = xbar.column_sums(x_spec, planes[j])
-            spec_val, spec_sat = adc_lib.convert(pos - neg, adc)
+            spec_val, spec_sat = adc_lib.convert(
+                pos - neg, adc, noise_level=noise_level, pos_sum=pos,
+                neg_sum=neg, key=next(keys))
             rec_total = torch.zeros_like(spec_val)
             for b in range(width - 1, -1, -1):  # local bit positions
                 x_bit = sl.crop_unsigned(xs, li + b, li + b)
                 rpos, rneg = xbar.column_sums(x_bit, planes[j])
-                rval, rsat = adc_lib.convert(rpos - rneg, adc)
+                rval, rsat = adc_lib.convert(
+                    rpos - rneg, adc, noise_level=noise_level, pos_sum=rpos,
+                    neg_sum=rneg, key=next(keys))
                 rec_total = rec_total + (rval << b)
                 rec_sats = rec_sats + (rsat & spec_sat).sum()
             value = torch.where(spec_sat, rec_total, spec_val)

@@ -23,6 +23,10 @@ with the engines' error. The continuous and paged engines carry a
 (with the final ``ServeStats`` and, in exact mode, the decode steps' PIM
 counters and pJ/token), ``--trace-out`` its Chrome trace of spans and
 ``--profile-dir`` a ``torch.profiler`` trace of the run.
+``--device-corner nominal|1sigma|3sigma`` (with ``--pim exact``) serves on
+a nonideal ReRAM die of seed ``--device-seed``
+(``repro_torch.core.backends.NonidealSim``): static input slicing, the
+die's float32 reads and the ADC in the crossbar loop, no kernel.
 """
 
 from __future__ import annotations
@@ -107,6 +111,16 @@ def main(argv=None) -> None:
     ap.add_argument("--pim-slicing", default=None,
                     help="'adaptive' (Algorithm 1 per site) or a comma "
                          "tuple like '4,2,2' pinning every site")
+    ap.add_argument("--device-corner", default=None,
+                    choices=("nominal", "1sigma", "3sigma"),
+                    help="run --pim exact on a nonideal ReRAM die "
+                         "(repro_torch.core.backends.NonidealSim): "
+                         "conductance program noise, retention drift, "
+                         "stuck-at fault maps, IR drop at the named corner. "
+                         "'nominal' is the all-zero corner (bit-exact with "
+                         "the ideal sim — the zero-corner contract)")
+    ap.add_argument("--device-seed", type=int, default=0,
+                    help="die seed for --device-corner fault/noise maps")
     args = ap.parse_args(argv)
 
     if args.engine == "lockstep" and (args.metrics_out or args.trace_out
@@ -114,6 +128,10 @@ def main(argv=None) -> None:
         ap.error("--metrics-out/--trace-out/--profile-dir instrument the "
                  "continuous/paged scheduler loops; the lockstep "
                  "reference engine has no request lifecycle to trace")
+    if args.device_corner is not None and args.pim != "exact":
+        ap.error("--device-corner requires --pim exact (only the "
+                 "bit-exact accelerator simulation models the analog "
+                 "array)")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -123,6 +141,12 @@ def main(argv=None) -> None:
     if args.reduced:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, pim_mode=args.pim)
+    if args.device_corner is not None:
+        cfg = dataclasses.replace(cfg, pim_crossbar_backend="nonideal",
+                                  pim_device_corner=args.device_corner,
+                                  pim_device_seed=args.device_seed)
+        print(f"device corner: {args.device_corner} "
+              f"(die seed {args.device_seed}, nonideal ReRAM array)")
     if args.pim_slicing is not None:
         slicing = args.pim_slicing if args.pim_slicing == "adaptive" \
             else tuple(int(b) for b in args.pim_slicing.split(","))

@@ -223,7 +223,8 @@ def pim_matmul(x: torch.Tensor, w: torch.Tensor, plan,
       off   — the float product (also when ``plan`` is None);
       fast  — centered int8 matmul + center term (kernel K3);
       exact — the bit-exact accelerator datapath (kernel K2, or K1 with
-              ``cfg.pim_speculation`` off);
+              ``cfg.pim_speculation`` off; on a ``nonideal`` crossbar
+              backend the die's loop, no kernel);
       int8  — the ideal 8b-quantized reference ``exact`` equals at a
               non-saturating ADC.
     """

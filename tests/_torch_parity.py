@@ -37,6 +37,31 @@ ATOL = {"off": 1e-4, "fast": 1e-2, "int8": 1e-2, "exact": 1e-2}
 ATOL_INT8_KV = 2e-2
 
 
+class JaxKey:
+    """A ``repro_torch.core.rng.Key`` stand-in that draws what the
+    reference draws: it wraps a ``jax.random`` key, splits and folds it as
+    ``jax.random`` does, and returns ``jax.random.normal`` /
+    ``jax.random.uniform`` float32 draws as torch tensors. Fed one, the
+    port's dies and noisy converts see the reference's random numbers."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def split(self, n: int) -> list["JaxKey"]:
+        return [JaxKey(k) for k in jax.random.split(self.key, n)]
+
+    def fold_in(self, i: int) -> "JaxKey":
+        return JaxKey(jax.random.fold_in(self.key, i))
+
+    def normal(self, shape, device="cpu") -> torch.Tensor:
+        return torch.from_numpy(np.array(jax.random.normal(
+            self.key, tuple(shape), jnp.float32))).to(device)
+
+    def uniform(self, shape, device="cpu") -> torch.Tensor:
+        return torch.from_numpy(np.array(jax.random.uniform(
+            self.key, tuple(shape), jnp.float32))).to(device)
+
+
 @pytest.fixture(autouse=True)
 def one_thread():
     """One intra-op thread for each test of a module that imports this

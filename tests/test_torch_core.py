@@ -17,8 +17,10 @@ from repro.core import adc as ref_adc
 from repro.core import pim_linear as ref_pl
 from repro.quant import quantize as ref_q
 from repro_torch.core import adc as adc_lib
+from repro_torch.core import backends as bk
 from repro_torch.core import crossbar as xbar
 from repro_torch.core import pim_linear as pl
+from repro_torch.core import rng
 from repro_torch.quant import quantize as q
 
 from _torch_parity import one_thread  # noqa: F401  (autouse fixture)
@@ -123,17 +125,31 @@ def test_forward_fast_matches_reference(plans, weights, signed):
 
 
 def test_unported_datapaths_raise(plans, weights):
-    """Speculation off runs (kernel K1); a nonideal device and ADC noise
-    are not ported yet and raise, on both datapaths."""
+    """The datapaths that raised before they were ported now run, on both
+    the speculation and the static path: a nominal die equals the ideal
+    device, a 3-sigma die and ADC noise move the outputs, one key gives
+    one result. What still raises is misuse: noise without a key
+    (``ValueError``, never a silent noiseless run) and an unknown
+    backend."""
     _, port = plans
     x = torch.from_numpy(weights[2])
+    die = bk.make("nonideal", "3sigma", seed=1)
     for spec_on in (True, False):
         plan = dataclasses.replace(port, speculation=spec_on)
-        assert pl.forward_exact(x, plan).shape == (7, 56)
-        with pytest.raises(NotImplementedError):
-            pl.forward_exact(x, dataclasses.replace(plan, device=object()))
-        with pytest.raises(NotImplementedError):
+        y = pl.forward_exact(x, plan)
+        assert y.shape == (7, 56)
+        nominal = dataclasses.replace(plan, device=bk.make("nonideal"))
+        _eq(pl.forward_exact(x, nominal), y.numpy())
+        on_die = pl.forward_exact(x, dataclasses.replace(plan, device=die))
+        assert torch.isfinite(on_die).all() and not torch.equal(on_die, y)
+        noisy = pl.forward_exact(x, plan, noise_level=0.05, key=rng.Key(0))
+        assert torch.isfinite(noisy).all() and not torch.equal(noisy, y)
+        _eq(pl.forward_exact(x, plan, noise_level=0.05, key=rng.Key(0)),
+            noisy.numpy())
+        with pytest.raises(ValueError, match="requires a key"):
             pl.forward_exact(x, plan, noise_level=0.05)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="requires a key"):
         xbar.forward(torch.zeros((1, 1100), dtype=torch.int32), port.enc,
                      noise_level=0.05)
+    with pytest.raises(ValueError, match="crossbar backend"):
+        bk.make("analog")

@@ -203,8 +203,13 @@ def test_ideal_backend_reads_match_reference(layer):
                              ref_bk.IDEAL.read(rprog, jnp.asarray(xs.numpy()),
                                                j)):
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError):
-        bk.make("nonideal")
+    # the nominal die reads exactly what the ideal array reads
+    die = bk.make("nonideal")
+    assert isinstance(die, bk.NonidealSim) and die.corner == bk.NOMINAL
+    zprog = die.program(enc.planes)
+    for j in range(3):
+        for got, want in zip(die.read(zprog, xs, j), bk.IDEAL.read(prog, xs, j)):
+            np.testing.assert_array_equal(got.numpy(), want.numpy())
     with pytest.raises(ValueError):
         bk.make("analog")
 
