@@ -31,13 +31,17 @@ from repro_torch.configs.raella_bert_large import CONFIG as RAELLA_BERT_LARGE
 from repro_torch.configs.rwkv6_3b import CONFIG as RWKV6_3B
 from repro_torch.configs.yi_6b import CONFIG as YI_6B
 
-__all__ = ["ArchConfig", "REGISTRY", "get"]
+__all__ = ["ArchConfig", "ASSIGNED", "REGISTRY", "get"]
 
 REGISTRY: dict[str, ArchConfig] = {
     c.name: c for c in (PHI35_MOE, LLAMA4_MAVERICK, JAMBA15_LARGE,
                         QWEN15_110B, YI_6B, QWEN25_32B, QWEN15_05B,
                         HUBERT_XLARGE, RWKV6_3B, CHAMELEON_34B,
                         RAELLA_BERT_LARGE)}
+
+# the LM zoo ``paper.lm_on_pim`` walks: every arch but the paper's own BERT,
+# in registry order
+ASSIGNED = tuple(n for n in REGISTRY if n != "raella-bert-large")
 
 
 def get(name: str) -> ArchConfig:

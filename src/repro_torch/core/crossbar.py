@@ -181,7 +181,9 @@ def column_sum_distribution(x_u8: torch.Tensor,
                             input_slicing: Sequence[int],
                             adc: adc_lib.ADCConfig = adc_lib.RAELLA_ADC):
     """All raw (pre-ADC) column sums + fraction in ADC range (Fig. 3
-    harness)."""
+    harness). The fraction is the reference's float32 mean: the exact
+    count of in-range sums times the float32 reciprocal of their number,
+    the same on every device."""
     xs = _segment_inputs(x_u8, enc.n_segments, enc.rows_per_xbar)
     sums = []
     for (hi, li) in sl.slice_bounds(input_slicing, sl.INPUT_BITS):
@@ -190,5 +192,7 @@ def column_sum_distribution(x_u8: torch.Tensor,
             pos, neg = column_sums(x_sl, enc.planes[j])
             sums.append((pos - neg).reshape(-1))
     cs = torch.cat(sums)
-    in_range = ((cs >= adc.lo) & (cs <= adc.hi)).to(torch.float32).mean()
-    return cs, in_range
+    count = ((cs >= adc.lo) & (cs <= adc.hi)).sum().to(torch.float32)
+    inv = torch.tensor(1.0 / cs.numel(), dtype=torch.float32,
+                       device=cs.device)
+    return cs, count * inv

@@ -9,6 +9,9 @@ places and in the order the reference calls ``jax.random`` on its key:
   ``normal(shape, device)``   float32 standard normal draws;
   ``uniform(shape, device)``  float32 draws in [0, 1).
 
+The paper artifacts (``repro_torch.paper``) also draw integers, with
+``randint(low, high, shape, device)`` (int64 in [low, high)).
+
 ``Key(seed)`` is the port's own implementation. A child's seed is a
 deterministic function of the parent's and of the derivation (splitmix64
 over Python ints), and every draw comes from a fresh ``torch.Generator``
@@ -71,6 +74,12 @@ class Key:
     def uniform(self, shape, device="cpu") -> torch.Tensor:
         return torch.rand(tuple(shape), generator=self._generator(device),
                           dtype=torch.float32, device=device)
+
+    def randint(self, low: int, high: int, shape, device="cpu"
+                ) -> torch.Tensor:
+        return torch.randint(low, high, tuple(shape),
+                             generator=self._generator(device),
+                             dtype=torch.int64, device=device)
 
     def __eq__(self, other) -> bool:
         return isinstance(other, Key) and other.state == self.state

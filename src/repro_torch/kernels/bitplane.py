@@ -17,7 +17,10 @@ import torch
 
 from repro_torch.kernels import build
 
-ROWS_PER_XBAR = 512  # the segment length the kernels are compiled for
+ROWS_PER_XBAR = 512  # RAELLA's segment length, the kernels' default
+# the segment lengths the kernels are instantiated for: 1..4 stages of BK
+# rows (the reference's kernels take any; ISAAC's crossbars have 128)
+SEGMENT_ROWS = (128, 256, 384, 512)
 MAX_SLICES = 8       # input (or spec) slices and planes per launch
 BN, BK, STAGES = 64, 128, 4
 BITS = 8                    # B fragment columns: bit planes or slices
@@ -60,11 +63,22 @@ def smem_bytes(bt: int, cluster: int, x: str = "codes") -> int:
     return ring + slab + XSUM_BYTES + r16(inbox) + TABLE_BYTES
 
 
+def check_rows(rows_per_xbar: int) -> None:
+    """Refuse a segment length the kernels are not instantiated for."""
+    if rows_per_xbar not in SEGMENT_ROWS:
+        raise ValueError(
+            f"the crossbar kernels take segments of {SEGMENT_ROWS} rows "
+            f"(1 to 4 stages of {BK}), got rows_per_xbar={rows_per_xbar}; "
+            "the plain versions take any")
+
+
 def tile_plan(B: int, R: int, C: int, n_j: int, n_seg: int | None = None,
-              bt: int | None = None, x: str = "codes") -> TilePlan:
+              bt: int | None = None, x: str = "codes",
+              rows_per_xbar: int = ROWS_PER_XBAR) -> TilePlan:
     """Launch plan for B batch rows of R rows against planes (n_j, n_seg *
-    512, C) (``n_seg`` defaults to the fewest segments that hold R), x
-    being the operand ``x`` ("codes" or "slices", which sizes its stage).
+    rows_per_xbar, C) (``n_seg`` defaults to the fewest segments that hold
+    R), x being the operand ``x`` ("codes" or "slices", which sizes its
+    stage). The segment length sets the stages a pair takes, not the plan.
 
     The batch tile is the fewest rows of 1, 2 or 4 (one n8 tile per row)
     that hold B, at most 4 (``bt`` forces one of them instead, for
@@ -76,8 +90,9 @@ def tile_plan(B: int, R: int, C: int, n_j: int, n_seg: int | None = None,
     """
     if min(B, R, C, n_j) < 1:
         raise ValueError(f"empty operands: B={B}, R={R}, C={C}, n_j={n_j}")
-    n_seg = -(-R // ROWS_PER_XBAR) if n_seg is None else n_seg
-    if n_seg * ROWS_PER_XBAR < R:
+    check_rows(rows_per_xbar)
+    n_seg = -(-R // rows_per_xbar) if n_seg is None else n_seg
+    if n_seg * rows_per_xbar < R:
         raise ValueError(f"{n_seg} segments do not hold {R} rows")
     if bt is None:
         bt = next(b for b in BATCH_TILES if b >= min(B, BATCH_TILES[-1]))
@@ -137,21 +152,19 @@ def check_operands(x_u8: torch.Tensor, w_planes: torch.Tensor,
                    n_i: int, mults: torch.Tensor, centers: torch.Tensor,
                    rows_per_xbar: int, dev) -> tuple[int, int, int, int, int]:
     """What the C launchers read as raw pointers, checked: x (B, R) int32,
-    planes (n_j, n_seg * 512, C) int8 holding R, mults (n_i, n_j) and
-    centers (n_seg, C) int32, all contiguous on ``dev``. Returns (B, R, C,
-    n_j, n_seg)."""
-    if rows_per_xbar != ROWS_PER_XBAR:
-        raise ValueError(f"kernel is built for {ROWS_PER_XBAR}-row segments, "
-                         f"got rows_per_xbar={rows_per_xbar}")
+    planes (n_j, n_seg * rows_per_xbar, C) int8 holding R, mults (n_i, n_j)
+    and centers (n_seg, C) int32, all contiguous on ``dev``; a segment
+    length of ``SEGMENT_ROWS``. Returns (B, R, C, n_j, n_seg)."""
+    check_rows(rows_per_xbar)
     build.check_operand(x_u8, "x_u8", torch.int32, 2, dev)
     build.check_operand(w_planes, "w_planes", torch.int8, 3, dev)
     B, R = x_u8.shape
     n_j, Rp, C = w_planes.shape
-    if Rp % ROWS_PER_XBAR or Rp < R or not 1 <= n_j <= MAX_SLICES:
+    if Rp % rows_per_xbar or Rp < R or not 1 <= n_j <= MAX_SLICES:
         raise ValueError(f"w_planes {tuple(w_planes.shape)} does not fit "
-                         f"x rows {R} in {ROWS_PER_XBAR}-row segments "
+                         f"x rows {R} in {rows_per_xbar}-row segments "
                          f"with 1..{MAX_SLICES} planes")
-    n_seg = Rp // ROWS_PER_XBAR
+    n_seg = Rp // rows_per_xbar
     build.check_operand(mults, "mults", torch.int32, 2, dev)
     build.check_operand(centers, "centers", torch.int32, 2, dev)
     if tuple(mults.shape) != (n_i, n_j) or tuple(centers.shape) != (n_seg, C):

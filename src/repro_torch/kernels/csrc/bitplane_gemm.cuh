@@ -1,5 +1,5 @@
-// The int8 GEMM over 512-row crossbar segments that K1
-// (fused_crossbar.cu), K2 (fused_spec_crossbar.cu) and K4
+// The int8 GEMM over crossbar segments of 128, 256, 384 or 512 rows that
+// K1 (fused_crossbar.cu), K2 (fused_spec_crossbar.cu) and K4
 // (sliced_crossbar.cu) share: staging, tensor-core fragments, the
 // per-segment reduction, the cluster reduction and the launch. Each kernel
 // adds its own epilogue, which turns the 8 column sums of one (b, c) and
@@ -12,8 +12,14 @@
 // The identity it rests on: every input-slice, speculative and recovery
 // column sum is a linear combination of the 8 bit-plane dots d[p] =
 // bit_p(x[b, seg]) . w_j[seg, c]. So per segment s and plane j the work is
-// one integer GEMM -- (64 columns) x (512 rows) x (8 bit planes of each
+// one integer GEMM -- (64 columns) x (segment rows) x (8 bit planes of each
 // batch row) -- and an epilogue on its 8 sums per (b, c).
+//
+// The segment length (the rows one ADC conversion spans: 512 for RAELLA's
+// 2T2R crossbars, 128 for ISAAC's) is a template parameter, SUBS stages of
+// BK = 128 rows, instantiated for SUBS = 1..4 (`dispatch` below picks one
+// per call), so the stage loop's pair arithmetic divides by a constant and
+// the 512-row instantiation is the code that had 512 fixed.
 //
 // What bounds it on an H100. At decode (B <= 64) the planes are read once
 // and nothing else is large: 16 int8 operations per plane byte per batch
@@ -28,7 +34,7 @@
 //   shared-memory stages with cp.async.cg (16 bytes a thread, zero-filled
 //   past the edges, L2 128-byte prefetch hint), 8 KB of weights a stage;
 //   the stage sequence runs through every (segment, plane) pair the block
-//   owns, 4 stages a pair. Each warp stages exactly the 32 rows of each
+//   owns, SUBS stages a pair. Each warp stages exactly the 32 rows of each
 //   stage that its k32 step reads, so a warp waits on its own copies and
 //   its lanes alone, and the 4 warps meet only twice a pair. The ring
 //   holds STAGES = 4 stages. Operands whose rows are not 16-byte aligned
@@ -49,7 +55,7 @@
 //   their 128 accumulators take a thread to 255 registers in K2. The grid
 //   runs the batch tiles of one column tile next to each other, so they
 //   share L2.
-// - The clamp needs the whole segment. When a pair's 512 rows are in, the
+// - The clamp needs the whole segment. When a pair's rows are all in, the
 //   warps add their accumulators into one shared-memory slab ([row][bit
 //   plane][column] int32, shared atomics; the C fragment spreads one
 //   (b, c)'s 8 sums over the 4 lanes of a quad, 2 each) and their x row
@@ -92,7 +98,7 @@
 // multiples of 16.
 //
 // Integer arithmetic wraps modulo 2^32 like the reference's int32: the
-// s32 accumulators cannot overflow (|d| <= 512 * 128 * 128), and
+// s32 accumulators cannot overflow (|d| <= rows * 128 * 128 <= 2^23), and
 // contributions, row sums and the center term add in uint32.
 
 #pragma once
@@ -100,19 +106,19 @@
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 #include <utility>
 
 namespace bitplane {
 
 namespace cg = cooperative_groups;
 
-constexpr int ROWS = 512;        // rows per crossbar segment (ADC span)
 constexpr int BITS = 8;          // B columns (n8): bit planes or slices
 constexpr int MAX_I = 8;         // input (or spec) slices
 constexpr int MAX_J = 8;         // weight planes
 constexpr int BN = 64;           // output columns per block: 4 m16 tiles
 constexpr int BK = 128;          // rows per stage: 4 k32 steps
-constexpr int SUBS = ROWS / BK;  // stages per (segment, plane) pair
+constexpr int MAX_SUBS = 4;      // stages per (segment, plane) pair: 512 rows
 constexpr int STAGES = 4;        // cp.async ring depth
 constexpr int WARPS = 4;         // warps per block, one k32 step of a stage
 constexpr int THREADS = 32 * WARPS;
@@ -126,13 +132,13 @@ constexpr int TABLE_BYTES =  // mults, then the block's counters
 constexpr int SLAB_S = BN + 1;   // slab row stride in int32 (spreads banks)
 
 // The x operand of K1 and K2: (B, R) int32 codes 0..255 against planes
-// (n_j, n_seg * 512, C) that hold every row of the last segment. Column g
+// (n_j, n_seg * rows, C) that hold every row of the last segment. Column g
 // of a batch row's n8 tile is bit plane g of its codes; the segment's code
 // sums give the center term at plane 0.
 struct CodesX {
   using T = int32_t;
   static constexpr bool ROW_SUMS = true;  // x row sums and the center term
-  static constexpr bool PADDED = true;    // planes hold n_seg * 512 rows
+  static constexpr bool PADDED = true;    // planes hold n_seg * rows rows
   static constexpr int ROW_BYTES = 4 * BK + 16;  // staged bytes a batch row
 };
 // The x operand of K4: (n_i, B, R) int8 slices against planes (n_j, R, C),
@@ -177,16 +183,23 @@ __host__ __device__ constexpr int smem_bytes_max(int bt) {
   return m;
 }
 
+// A segment length the kernels are instantiated for: 1..MAX_SUBS stages.
+__host__ __device__ constexpr bool rows_ok(int rows) {
+  return rows % BK == 0 && rows >= BK && rows <= MAX_SUBS * BK;
+}
+
 // The launch plan (bitplane.py::tile_plan) against this header's
-// constants: bn, bk, stages and smem must equal them; bt is the batch tile
-// (1, 2 or 4 rows), cluster the ranks (1..8) and ppr the (segment, plane)
-// pairs per rank, with no rank empty.
+// constants: bn, bk, stages and smem must equal them; rows is the segment
+// length (rows_ok), bt the batch tile (1, 2 or 4 rows), cluster the ranks
+// (1..8) and ppr the (segment, plane) pairs per rank, with no rank empty.
 template <class X>
-inline bool plan_ok(int B, int R, int C, int n_seg, int n_j, int bn, int bk,
-                    int stages, int bt, int cluster, int ppr, int smem) {
+inline bool plan_ok(int B, int R, int C, int n_seg, int rows, int n_j,
+                    int bn, int bk, int stages, int bt, int cluster, int ppr,
+                    int smem) {
   const int n_pairs = n_seg * n_j;
   return n_j >= 1 && n_j <= MAX_J && B >= 1 && C >= 1 && R >= 1 &&
-         n_seg >= 1 && R <= n_seg * ROWS && bn == BN && bk == BK &&
+         rows_ok(rows) && n_seg >= 1 && R <= (long long)n_seg * rows &&
+         bn == BN && bk == BK &&
          (bt == 1 || bt == 2 || bt == 4) && stages == STAGES &&
          cluster >= 1 && cluster <= MAX_CLUSTER && ppr >= 1 &&
          (long long)cluster * ppr >= n_pairs &&
@@ -351,7 +364,8 @@ __device__ __forceinline__ uint32_t pack_bytes(int4 v) {
 // The body of a kernel on the grid (batch tiles * cluster, column tiles)
 // with clusters of (cluster, 1, 1): cluster rank r owns the (segment,
 // plane) pairs [r*ppr, (r+1)*ppr), pair p being segment p / n_j and plane
-// p % n_j. X is the x operand (CodesX, SlicesX). `epi` is the kernel's
+// p % n_j, a segment being SUBS * BK rows. X is the x operand (CodesX,
+// SlicesX). `epi` is the kernel's
 // epilogue:
 //   uint32_t epi(const int (&d)[BITS], bool ok, const int32_t* mj)
 //     one (b, c)'s contribution for one (segment, plane) from its 8
@@ -365,13 +379,15 @@ __device__ __forceinline__ uint32_t pack_bytes(int4 v) {
 // sums; counts (epi.slots(),) the call's counters, zero before the launch;
 // next_counts (Epi::SLOTS,), zeroed here. An epilogue with no slots and an
 // operand with no row sums leave those pointers untouched (null).
-template <int BT, bool VEC, class X, class Epi>
+template <int BT, int SUBS, bool VEC, class X, class Epi>
 __device__ __forceinline__ void gemm(
     const typename X::T* __restrict__ x, const int8_t* __restrict__ w,
     const int32_t* __restrict__ mults, const int32_t* __restrict__ centers,
     int32_t* __restrict__ out, unsigned long long* __restrict__ counts,
     unsigned long long* __restrict__ next_counts, int B, int R, int C,
     int n_seg, int n_j, int ppr, int n_i, Epi& epi) {
+  static_assert(SUBS >= 1 && SUBS <= MAX_SUBS, "1..4 stages a segment");
+  constexpr int ROWS = SUBS * BK;                   // rows per segment
   constexpr int SB = stage_bytes<X>(BT);
   constexpr int TILE = BT * BN;                     // (b, c) elements
   constexpr int EL = (TILE + THREADS - 1) / THREADS;  // per thread
@@ -525,7 +541,7 @@ __device__ __forceinline__ void gemm(
     }
     if (it % SUBS != SUBS - 1) continue;
 
-    // The pair's 512 rows are in. Add the warps' accumulators into the
+    // The pair's ROWS rows are in. Add the warps' accumulators into the
     // slab: C register r of m16 tile i holds MMA row g + 8*(r/2) (column
     // 4g + i, +32) and bit plane 2t + r%2; and the
     // x row sums (after the quad's lanes, the same in every lane) into
@@ -622,6 +638,31 @@ __device__ __forceinline__ void gemm(
     uint32_t s = 0u;
     for (int q = 0; q < cs; ++q) s += inbox[q * per + jj];
     out[(size_t)row * C + col] = (int32_t)s;
+  }
+}
+
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// f(Int<BT>{}, Int<SUBS>{}) for a call's batch tile bt (1, 2 or 4 rows) and
+// segment length rows (128, 256, 384 or 512): the instantiation of a
+// kernel that serves it. cudaErrorInvalidValue for any other.
+template <class F>
+cudaError_t dispatch(int bt, int rows, F&& f) {
+  auto by_bt = [&](auto subs) -> cudaError_t {
+    switch (bt) {
+      case 1: return f(Int<1>{}, subs);
+      case 2: return f(Int<2>{}, subs);
+      case 4: return f(Int<4>{}, subs);
+      default: return cudaErrorInvalidValue;
+    }
+  };
+  switch (rows) {
+    case 128: return by_bt(Int<1>{});
+    case 256: return by_bt(Int<2>{});
+    case 384: return by_bt(Int<3>{});
+    case 512: return by_bt(Int<4>{});
+    default: return cudaErrorInvalidValue;
   }
 }
 

@@ -1,4 +1,6 @@
-// Speculation + recovery over 512-row crossbar segments (paper §4.3).
+// Speculation + recovery over crossbar segments of 128 to 512 rows (paper
+// §4.3; 512 on RAELLA's crossbars; bitplane::dispatch picks the
+// instantiation).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/fused_spec_crossbar.py
 // (fused_spec_crossbar / _kernel). Plain version:
@@ -103,7 +105,7 @@ struct SpecEpilogue {
   __device__ __forceinline__ int slots() const { return tab.n_i + 1; }
 };
 
-template <int BT, bool VEC>
+template <int BT, int SUBS, bool VEC>
 __global__ void __launch_bounds__(THREADS) spec_kernel(
     const int32_t* __restrict__ x, const int8_t* __restrict__ w,
     const int32_t* __restrict__ mults, const int32_t* __restrict__ centers,
@@ -112,29 +114,31 @@ __global__ void __launch_bounds__(THREADS) spec_kernel(
     int n_seg, int n_j, int ppr, int lo, int hi,
     const __grid_constant__ Tables tab) {
   SpecEpilogue epi(tab, lo, hi);
-  gemm<BT, VEC, CodesX>(x, w, mults, centers, out, counts, next_counts, B,
-                        R, C, n_seg, n_j, ppr, tab.n_i, epi);
+  gemm<BT, SUBS, VEC, CodesX>(x, w, mults, centers, out, counts,
+                              next_counts, B, R, C, n_seg, n_j, ppr, tab.n_i,
+                              epi);
 }
 
 template <bool VEC>
-cudaError_t launch_bt(const int32_t* x, const int8_t* w, const int32_t* m,
-                      const int32_t* c, int32_t* out,
-                      unsigned long long* counts, unsigned long long* next,
-                      int B, int R, int C, int n_seg, int n_j, int lo, int hi,
-                      const Tables& tab, int bt, int cluster, int ppr,
-                      cudaStream_t st) {
-  static bool attr[3] = {};  // one attribute call per instantiation
-  switch (bt) {
-    case 1: return launch<1, CodesX>(spec_kernel<1, VEC>, attr[0], B, C, cluster, st, x, w, m, c, out, counts, next, B, R, C, n_seg, n_j, ppr, lo, hi, tab);
-    case 2: return launch<2, CodesX>(spec_kernel<2, VEC>, attr[1], B, C, cluster, st, x, w, m, c, out, counts, next, B, R, C, n_seg, n_j, ppr, lo, hi, tab);
-    case 4: return launch<4, CodesX>(spec_kernel<4, VEC>, attr[2], B, C, cluster, st, x, w, m, c, out, counts, next, B, R, C, n_seg, n_j, ppr, lo, hi, tab);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t launch_plan(const int32_t* x, const int8_t* w, const int32_t* m,
+                        const int32_t* c, int32_t* out,
+                        unsigned long long* counts, unsigned long long* next,
+                        int B, int R, int C, int n_seg, int rows, int n_j,
+                        int lo, int hi, const Tables& tab, int bt,
+                        int cluster, int ppr, cudaStream_t st) {
+  return dispatch(bt, rows, [&](auto bt_c, auto subs_c) {
+    constexpr int BT = decltype(bt_c)::value, SUBS = decltype(subs_c)::value;
+    static bool attr = false;  // one attribute call per instantiation
+    return launch<BT, CodesX>(spec_kernel<BT, SUBS, VEC>, attr, B, C,
+                              cluster, st, x, w, m, c, out, counts, next, B,
+                              R, C, n_seg, n_j, ppr, lo, hi, tab);
+  });
 }
 
 }  // namespace
 
-// x (B, R) int32 codes; w (n_j, n_seg*512, C) int8; mults (n_i, n_j) int32;
+// x (B, R) int32 codes; w (n_j, n_seg*rows, C) int8, rows (the segment
+// length) 128, 256, 384 or 512; mults (n_i, n_j) int32;
 // centers (n_seg, C) int32; out (B, C) int32, every element written once;
 // counts (n_i + 1,) int64 (failures per spec slice, then recovery
 // saturations), zero before the launch: blocks add into it; next_counts
@@ -150,12 +154,12 @@ cudaError_t launch_bt(const int32_t* x, const int8_t* w, const int32_t* m,
 extern "C" int fused_spec_crossbar_launch(
     const void* x, const void* w, const void* mults, const void* centers,
     void* out, void* counts, void* next_counts, int B, int R, int C,
-    int n_seg, int n_j, int n_i, int max_w, const int* li, const int* mask,
-    const int* rmults, int adc_lo, int adc_hi, int bn, int bk, int stages,
-    int bt, int cluster, int ppr, int smem, void* stream) {
+    int n_seg, int rows, int n_j, int n_i, int max_w, const int* li,
+    const int* mask, const int* rmults, int adc_lo, int adc_hi, int bn, int bk,
+    int stages, int bt, int cluster, int ppr, int smem, void* stream) {
   if (n_i < 1 || n_i > MAX_I || max_w < 1 || max_w > MAX_W ||
-      !plan_ok<CodesX>(B, R, C, n_seg, n_j, bn, bk, stages, bt, cluster, ppr,
-                       smem))
+      !plan_ok<CodesX>(B, R, C, n_seg, rows, n_j, bn, bk, stages, bt, cluster,
+                       ppr, smem))
     return (int)cudaErrorInvalidValue;
   Tables tab{};
   tab.n_i = n_i;
@@ -178,12 +182,12 @@ extern "C" int fused_spec_crossbar_launch(
   auto* nk = static_cast<unsigned long long*>(next_counts);
   auto st = static_cast<cudaStream_t>(stream);
   return (int)(vec_ok<CodesX>(x, w, R, C)
-                   ? launch_bt<true>(xp, wp, mp, cp, op, kp, nk, B, R, C,
-                                     n_seg, n_j, adc_lo, adc_hi, tab, bt,
-                                     cluster, ppr, st)
-                   : launch_bt<false>(xp, wp, mp, cp, op, kp, nk, B, R, C,
-                                      n_seg, n_j, adc_lo, adc_hi, tab, bt,
-                                      cluster, ppr, st));
+                   ? launch_plan<true>(xp, wp, mp, cp, op, kp, nk, B, R, C,
+                                       n_seg, rows, n_j, adc_lo, adc_hi, tab,
+                                       bt, cluster, ppr, st)
+                   : launch_plan<false>(xp, wp, mp, cp, op, kp, nk, B, R, C,
+                                        n_seg, rows, n_j, adc_lo, adc_hi, tab,
+                                        bt, cluster, ppr, st));
 }
 
 extern "C" const char* fused_spec_crossbar_error_string(int err) {

@@ -10,7 +10,8 @@
 //
 // What it computes, per output (b, c):
 //   out = sum_{s, i, j} clip(x_i[b, seg s] . w_j[seg s, c], lo, hi) * mults(i, j)
-// over 512-row segments s, input slices i and weight planes j, with x
+// over segments s of rows_per_xbar rows (128, 256, 384 or 512; 512 on
+// RAELLA's crossbars), input slices i and weight planes j, with x
 // (n_i, B, R) and planes (n_j, R, C) int8 of any value and rows past R
 // zero on both sides. There is no center term and no counter: it is K1's
 // function (csrc/fused_crossbar.cu) on inputs that arrive already sliced.
@@ -60,46 +61,47 @@ struct SlicedEpilogue {
   }
 };
 
-template <int BT, bool VEC>
+template <int BT, int SUBS, bool VEC>
 __global__ void __launch_bounds__(THREADS) sliced_kernel(
     const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     const int32_t* __restrict__ mults, int32_t* __restrict__ out, int B,
     int R, int C, int n_seg, int n_j, int ppr, int n_i, int lo, int hi) {
   SlicedEpilogue epi{n_i, lo, hi};
-  gemm<BT, VEC, SlicesX>(x, w, mults, nullptr, out, nullptr, nullptr, B, R,
-                         C, n_seg, n_j, ppr, n_i, epi);
+  gemm<BT, SUBS, VEC, SlicesX>(x, w, mults, nullptr, out, nullptr, nullptr,
+                               B, R, C, n_seg, n_j, ppr, n_i, epi);
 }
 
 template <bool VEC>
-cudaError_t launch_bt(const int8_t* x, const int8_t* w, const int32_t* m,
-                      int32_t* out, int B, int R, int C, int n_seg, int n_j,
-                      int n_i, int lo, int hi, int bt, int cluster, int ppr,
-                      cudaStream_t st) {
-  static bool attr[3] = {};  // one attribute call per instantiation
-  switch (bt) {
-    case 1: return launch<1, SlicesX>(sliced_kernel<1, VEC>, attr[0], B, C, cluster, st, x, w, m, out, B, R, C, n_seg, n_j, ppr, n_i, lo, hi);
-    case 2: return launch<2, SlicesX>(sliced_kernel<2, VEC>, attr[1], B, C, cluster, st, x, w, m, out, B, R, C, n_seg, n_j, ppr, n_i, lo, hi);
-    case 4: return launch<4, SlicesX>(sliced_kernel<4, VEC>, attr[2], B, C, cluster, st, x, w, m, out, B, R, C, n_seg, n_j, ppr, n_i, lo, hi);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t launch_plan(const int8_t* x, const int8_t* w, const int32_t* m,
+                        int32_t* out, int B, int R, int C, int n_seg,
+                        int rows, int n_j, int n_i, int lo, int hi, int bt,
+                        int cluster, int ppr, cudaStream_t st) {
+  return dispatch(bt, rows, [&](auto bt_c, auto subs_c) {
+    constexpr int BT = decltype(bt_c)::value, SUBS = decltype(subs_c)::value;
+    static bool attr = false;  // one attribute call per instantiation
+    return launch<BT, SlicesX>(sliced_kernel<BT, SUBS, VEC>, attr, B, C,
+                               cluster, st, x, w, m, out, B, R, C, n_seg, n_j,
+                               ppr, n_i, lo, hi);
+  });
 }
 
 }  // namespace
 
 // x (n_i, B, R) int8; w (n_j, R, C) int8; mults (n_i, n_j) int32; out
-// (B, C) int32, every element written once. n_seg = ceil(R / 512). The
+// (B, C) int32, every element written once. rows is the segment length
+// (128, 256, 384 or 512) and n_seg = ceil(R / rows). The
 // tile plan is checked against the header's constants
 // (bitplane::plan_ok<SlicesX>). Operands whose rows all start 16-byte
 // aligned (R and C multiples of 16) take the cp.async path, others the
 // word-load path. Returns the launch's cudaError_t.
 extern "C" int sliced_crossbar_launch(
     const void* x, const void* w, const void* mults, void* out, int B, int R,
-    int C, int n_seg, int n_j, int n_i, int adc_lo, int adc_hi, int bn,
-    int bk, int stages, int bt, int cluster, int ppr, int smem,
+    int C, int n_seg, int rows, int n_j, int n_i, int adc_lo, int adc_hi,
+    int bn, int bk, int stages, int bt, int cluster, int ppr, int smem,
     void* stream) {
-  if (n_i < 1 || n_i > MAX_I || (n_seg - 1) * ROWS >= R ||
-      !plan_ok<SlicesX>(B, R, C, n_seg, n_j, bn, bk, stages, bt, cluster,
-                        ppr, smem))
+  if (n_i < 1 || n_i > MAX_I || (long long)(n_seg - 1) * rows >= R ||
+      !plan_ok<SlicesX>(B, R, C, n_seg, rows, n_j, bn, bk, stages, bt,
+                        cluster, ppr, smem))
     return (int)cudaErrorInvalidValue;
   const auto* xp = static_cast<const int8_t*>(x);
   const auto* wp = static_cast<const int8_t*>(w);
@@ -107,12 +109,12 @@ extern "C" int sliced_crossbar_launch(
   auto* op = static_cast<int32_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   return (int)(vec_ok<SlicesX>(x, w, R, C)
-                   ? launch_bt<true>(xp, wp, mp, op, B, R, C, n_seg, n_j,
-                                     n_i, adc_lo, adc_hi, bt, cluster, ppr,
-                                     st)
-                   : launch_bt<false>(xp, wp, mp, op, B, R, C, n_seg, n_j,
-                                      n_i, adc_lo, adc_hi, bt, cluster, ppr,
-                                      st));
+                   ? launch_plan<true>(xp, wp, mp, op, B, R, C, n_seg, rows,
+                                       n_j, n_i, adc_lo, adc_hi, bt, cluster,
+                                       ppr, st)
+                   : launch_plan<false>(xp, wp, mp, op, B, R, C, n_seg, rows,
+                                        n_j, n_i, adc_lo, adc_hi, bt, cluster,
+                                        ppr, st));
 }
 
 extern "C" const char* sliced_crossbar_error_string(int err) {

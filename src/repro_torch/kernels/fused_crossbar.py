@@ -27,7 +27,7 @@ _c = ctypes.c_int
 _p = ctypes.c_void_p
 KERNEL = build.CudaKernel(
     "fused_crossbar",
-    [_p, _p, _p, _p, _p, _p, _p, _c, _c, _c, _c, _c, _c, _p, _p,
+    [_p, _p, _p, _p, _p, _p, _p, _c, _c, _c, _c, _c, _c, _c, _p, _p,
      *[_c] * 9, _p])
 
 
@@ -38,13 +38,14 @@ def check_tables(in_li: Sequence[int], in_mask: Sequence[int]) -> None:
     bitplane.check_slices(in_li, in_mask, "input")
 
 
-def tile_plan(B: int, R: int, C: int, n_j: int,
-              n_seg: int | None = None) -> TilePlan:
-    """Launch plan of K1 for x (B, R) and planes (n_j, n_seg * 512, C):
-    K2's (``bitplane.tile_plan``). At Algorithm 1's B = 16 that is four
+def tile_plan(B: int, R: int, C: int, n_j: int, n_seg: int | None = None,
+              rows_per_xbar: int = ROWS_PER_XBAR) -> TilePlan:
+    """Launch plan of K1 for x (B, R) and planes (n_j, n_seg *
+    rows_per_xbar, C): K2's (``bitplane.tile_plan``). At Algorithm 1's B = 16 that is four
     4-row batch tiles, which measured faster than 2- or 1-row tiles
     (``csrc/fused_crossbar.cu`` says by how much)."""
-    return bitplane.tile_plan(B, R, C, n_j, n_seg)
+    return bitplane.tile_plan(B, R, C, n_j, n_seg,
+                              rows_per_xbar=rows_per_xbar)
 
 
 def launch(x_u8: torch.Tensor, w_planes: torch.Tensor,
@@ -61,14 +62,14 @@ def launch(x_u8: torch.Tensor, w_planes: torch.Tensor,
     check_tables(in_li, in_mask)
     B, R, C, n_j, n_seg = bitplane.check_operands(
         x_u8, w_planes, n_i, mults, centers, rows_per_xbar, dev)
-    plan = tile_plan(B, R, C, n_j, n_seg)
+    plan = tile_plan(B, R, C, n_j, n_seg, rows_per_xbar=rows_per_xbar)
     out = torch.empty((B, C), dtype=torch.int32, device=dev)
     key, counts, next_counts = bitplane.counts_buffers(
         KERNEL.name, dev, COUNT_SLOTS)
     KERNEL.launch(
         build.ptr(x_u8), build.ptr(w_planes), build.ptr(mults),
         build.ptr(centers), build.ptr(out), build.ptr(counts),
-        build.ptr(next_counts), B, R, C, n_seg, n_j, n_i,
+        build.ptr(next_counts), B, R, C, n_seg, rows_per_xbar, n_j, n_i,
         (ctypes.c_int * n_i)(*in_li), (ctypes.c_int * n_i)(*in_mask),
         adc_lo, adc_hi, plan.bn, plan.bk, plan.stages, plan.bt,
         plan.cluster, plan.pairs_per_rank, plan.smem_bytes)

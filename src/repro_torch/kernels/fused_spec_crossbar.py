@@ -27,7 +27,7 @@ _c = ctypes.c_int
 _p = ctypes.c_void_p
 KERNEL = build.CudaKernel(
     "fused_spec_crossbar",
-    [_p, _p, _p, _p, _p, _p, _p, _c, _c, _c, _c, _c, _c, _c,
+    [_p, _p, _p, _p, _p, _p, _p, _c, _c, _c, _c, _c, _c, _c, _c,
      _p, _p, _p, *[_c] * 9, _p])
 
 
@@ -62,7 +62,7 @@ def launch(x_u8: torch.Tensor, w_planes: torch.Tensor,
     B, R, C, n_j, n_seg = bitplane.check_operands(
         x_u8, w_planes, n_i, mults, centers, rows_per_xbar, dev)
     max_w = len(rmults[0])
-    plan = tile_plan(B, R, C, n_j, n_seg)
+    plan = tile_plan(B, R, C, n_j, n_seg, rows_per_xbar=rows_per_xbar)
     out = torch.empty((B, C), dtype=torch.int32, device=dev)
     key, counts, next_counts = bitplane.counts_buffers(
         KERNEL.name, dev, COUNT_SLOTS)
@@ -70,7 +70,7 @@ def launch(x_u8: torch.Tensor, w_planes: torch.Tensor,
         build.ptr(x_u8), build.ptr(w_planes), build.ptr(mults),
         build.ptr(centers), build.ptr(out), build.ptr(counts),
         build.ptr(next_counts),
-        B, R, C, n_seg, n_j, n_i, max_w,
+        B, R, C, n_seg, rows_per_xbar, n_j, n_i, max_w,
         (ctypes.c_int * n_i)(*spec_li), (ctypes.c_int * n_i)(*spec_mask),
         (ctypes.c_int * (n_i * max_w))(*[v for r in rmults for v in r]),
         adc_lo, adc_hi, plan.bn, plan.bk, plan.stages, plan.bt,

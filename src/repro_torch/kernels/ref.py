@@ -44,7 +44,7 @@ def sliced_crossbar_matmul(x_slices: torch.Tensor, w_planes: torch.Tensor,
 
     x_slices (n_i, B, R) int8 input-slice values; w_planes (n_j, R, C) int8
     signed weight-slice values (any R: rows past it read as zero); mults
-    (n_i, n_j) int32 recombination multipliers. Per 512-row segment each
+    (n_i, n_j) int32 recombination multipliers. Per segment each
     (i, j) column sum is clamped to [adc_lo, adc_hi] before the digital
     shift+add. Returns (B, C) int32 (no center term).
     """
@@ -72,7 +72,8 @@ def fused_crossbar(x_u8: torch.Tensor, w_planes: torch.Tensor,
                    rows_per_xbar: int = 512,
                    adc_lo: int = -64, adc_hi: int = 63
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The static-slicing exact datapath over every 512-row segment.
+    """The static-slicing exact datapath over every ``rows_per_xbar``-row
+    segment.
 
     x_u8 (B, R) int32 unsigned 8b codes; w_planes (n_j, Rp, C) int8 with Rp
     a ``rows_per_xbar`` multiple >= R; in_li / in_mask (n_i,) each input
@@ -113,7 +114,8 @@ def fused_spec_crossbar(x_u8: torch.Tensor, w_planes: torch.Tensor,
                         rows_per_xbar: int = 512,
                         adc_lo: int = -64, adc_hi: int = 63
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Speculation + recovery (paper §4.3) over every 512-row segment.
+    """Speculation + recovery (paper §4.3) over every ``rows_per_xbar``-row
+    segment.
 
     x_u8 (B, R) int32 unsigned 8b codes; w_planes (n_j, Rp, C) int8 with Rp
     a ``rows_per_xbar`` multiple >= R; spec_li / spec_mask (n_i,) the spec

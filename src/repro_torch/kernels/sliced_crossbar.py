@@ -25,14 +25,16 @@ plain = ref.sliced_crossbar_matmul
 _c = ctypes.c_int
 _p = ctypes.c_void_p
 KERNEL = build.CudaKernel(
-    "sliced_crossbar", [_p, _p, _p, _p, *[_c] * 15, _p])
+    "sliced_crossbar", [_p, _p, _p, _p, *[_c] * 16, _p])
 
 
-def tile_plan(B: int, R: int, C: int, n_j: int) -> TilePlan:
-    """Launch plan of K4 for x slices (n_i, B, R) and planes (n_j, R, C):
-    the shared GEMM's (``bitplane.tile_plan``) with the slice operand's
-    stage."""
-    return bitplane.tile_plan(B, R, C, n_j, x="slices")
+def tile_plan(B: int, R: int, C: int, n_j: int,
+              rows_per_xbar: int = ROWS_PER_XBAR) -> TilePlan:
+    """Launch plan of K4 for x slices (n_i, B, R) and planes (n_j, R, C)
+    over segments of ``rows_per_xbar`` rows: the shared GEMM's
+    (``bitplane.tile_plan``) with the slice operand's stage."""
+    return bitplane.tile_plan(B, R, C, n_j, x="slices",
+                              rows_per_xbar=rows_per_xbar)
 
 
 def launch(x_slices: torch.Tensor, w_planes: torch.Tensor,
@@ -43,9 +45,7 @@ def launch(x_slices: torch.Tensor, w_planes: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"sliced_crossbar kernel needs CUDA tensors, "
                          f"got {dev}")
-    if rows_per_xbar != ROWS_PER_XBAR:
-        raise ValueError(f"kernel is built for {ROWS_PER_XBAR}-row segments, "
-                         f"got rows_per_xbar={rows_per_xbar}")
+    bitplane.check_rows(rows_per_xbar)
     build.check_operand(x_slices, "x_slices", torch.int8, 3, dev)
     build.check_operand(w_planes, "w_planes", torch.int8, 3, dev)
     build.check_operand(mults, "mults", torch.int32, 2, dev)
@@ -58,11 +58,12 @@ def launch(x_slices: torch.Tensor, w_planes: torch.Tensor,
                          f"{tuple(w_planes.shape)}, mults "
                          f"{tuple(mults.shape)} do not chain (1..{MAX_SLICES} "
                          "slices, non-empty)")
-    n_seg = -(-R // ROWS_PER_XBAR)
-    plan = tile_plan(B, R, C, n_j)
+    n_seg = -(-R // rows_per_xbar)
+    plan = tile_plan(B, R, C, n_j, rows_per_xbar=rows_per_xbar)
     out = torch.empty((B, C), dtype=torch.int32, device=dev)
     KERNEL.launch(build.ptr(x_slices), build.ptr(w_planes), build.ptr(mults),
-                  build.ptr(out), B, R, C, n_seg, n_j, n_i, adc_lo, adc_hi,
+                  build.ptr(out), B, R, C, n_seg, rows_per_xbar, n_j, n_i,
+                  adc_lo, adc_hi,
                   plan.bn, plan.bk, plan.stages, plan.bt, plan.cluster,
                   plan.pairs_per_rank, plan.smem_bytes)
     return out

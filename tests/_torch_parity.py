@@ -61,6 +61,11 @@ class JaxKey:
         return torch.from_numpy(np.array(jax.random.uniform(
             self.key, tuple(shape), jnp.float32))).to(device)
 
+    def randint(self, low: int, high: int, shape, device="cpu"
+                ) -> torch.Tensor:
+        return torch.from_numpy(np.array(jax.random.randint(
+            self.key, tuple(shape), low, high)).astype(np.int64)).to(device)
+
 
 @pytest.fixture(autouse=True)
 def one_thread():
@@ -221,3 +226,39 @@ def check_plans(arch: str, mode: str) -> None:
     for k, v in leaf.items():
         np.testing.assert_array_equal(v[0].numpy(),
                                       np.asarray(ref["embed"]["head"][k]))
+
+
+# ------------------------------------------------- the paper artifacts
+def jax_keys(seed: int) -> JaxKey:
+    """``repro_torch.paper.common.KEY`` drawing the reference's numbers."""
+    return JaxKey(jax.random.key(seed))
+
+
+@pytest.fixture
+def reference_draws(monkeypatch):
+    """The port's paper artifacts draw the reference's random numbers; the
+    trainer's cache is emptied around the test, since it does not key on
+    the key type."""
+    from repro_torch.paper import common
+    monkeypatch.setattr(common, "KEY", jax_keys)
+    common._trained.cache_clear()
+    yield
+    common._trained.cache_clear()
+
+
+@pytest.fixture
+def reference_mlp(monkeypatch, reference_draws):
+    """``common.trained_mlp`` returns the reference's trained classifier
+    (its lru-cached training) as the port's ``MLP``, with the teacher
+    drawn through the reference's keys."""
+    from benchmarks import common as rc
+    from repro_torch.paper import common
+
+    def trained(d_in=128, hidden=256, n_classes=8, steps=1500, seed=0,
+                device="cpu"):
+        mlp, _ = rc.trained_mlp(d_in=d_in, hidden=hidden,
+                                n_classes=n_classes, steps=steps, seed=seed)
+        return (common.mlp_from_reference(mlp.w1, mlp.w2, device),
+                common.PosTeacher(d_in=d_in, n_classes=n_classes, seed=seed,
+                                  device=device))
+    monkeypatch.setattr(common, "trained_mlp", trained)

@@ -460,11 +460,12 @@ def slice_operand(xs, bt, rng):
 
 
 def bitplane_walk(operand, planes, mults, centers, plan, epilogue,
-                  n_counts):
+                  n_counts, rows=512):
     """numpy walk of the int8 GEMM that K1, K2 and K4 share
     (``csrc/bitplane_gemm.cuh``): per (column tile, batch tile) and
-    cluster rank, its (segment, plane) pairs in 128-row stages zero-filled
-    past the operands; warp w's k32 step of each stage with its A fragments
+    cluster rank, its (segment, plane) pairs of ``rows``-row segments in
+    128-row stages (``rows // 128`` a pair) zero-filled past the
+    operands; warp w's k32 step of each stage with its A fragments
     from the swizzled stage and its B fragments from ``operand``
     (``code_operand``: one bit plane per n8 column; ``slice_operand``: one
     input slice), as m16n8k32 products by the PTX fragment layouts; at a
@@ -477,7 +478,7 @@ def bitplane_walk(operand, planes, mults, centers, plan, epilogue,
     there. Returns (psum int32, counts)."""
     B, frags = operand
     n_j, Rp, C = planes.shape
-    n_seg = Rp // 512
+    n_seg = Rp // rows
     bt, cs, ppr = plan.bt, plan.cluster, plan.pairs_per_rank
     tile, S = bt * 64, bp.SLAB_STRIDE
     n_el = -(-tile // 128)
@@ -498,8 +499,8 @@ def bitplane_walk(operand, planes, mults, centers, plan, epilogue,
                     s, j = divmod(pr, n_j)
                     D = np.zeros((4, 4, bt, 16, 8), np.int64)  # (w, i, n, m, p)
                     xs_acc = np.zeros((4, bt, 32), np.int64)   # (w, n, lane)
-                    for sub in range(4):
-                        k0 = s * 512 + sub * 128
+                    for sub in range(rows // 128):
+                        k0 = s * rows + sub * 128
                         # warp w runs k32 step w of the stage
                         A = mma_a_matrix(k2_a_fragments(k2_stage_planes(
                             wcols[j, k0:k0 + 128])))       # (w, i, 16, 32)
@@ -557,7 +558,7 @@ def bitplane_walk(operand, planes, mults, centers, plan, epilogue,
 
 
 def k2_walk(x, planes, spec_li, spec_mask, mults, rmults, centers, lo, hi,
-            plan):
+            plan, rows=512):
     """``bitplane_walk`` with K2's epilogue: speculation, clamp, recovery
     and select in uint32; failures per spec slice and recovery
     saturations. Returns (psum, failures, recovery saturations)."""
@@ -581,11 +582,12 @@ def k2_walk(x, planes, spec_li, spec_mask, mults, rmults, centers, lo, hi,
         return out
     psum, counts = bitplane_walk(code_operand(x, plan.bt, planes.shape[1]),
                                  planes, mults, centers, plan, epilogue,
-                                 n_i + 1)
+                                 n_i + 1, rows)
     return psum, counts[:n_i], int(counts[n_i])
 
 
-def k1_walk(x, planes, in_li, in_mask, mults, centers, lo, hi, plan):
+def k1_walk(x, planes, in_li, in_mask, mults, centers, lo, hi, plan,
+            rows=512):
     """``bitplane_walk`` with K1's epilogue: per input slice the shifted
     sum of its bit-plane sums, the clamp, the saturation count and the
     multiply by mults in uint32. Returns (psum, saturations)."""
@@ -600,21 +602,26 @@ def k1_walk(x, planes, in_li, in_mask, mults, centers, lo, hi, plan):
             out += cs_ % M * int(mults[i, j]) % M
         return out
     psum, counts = bitplane_walk(code_operand(x, plan.bt, planes.shape[1]),
-                                 planes, mults, centers, plan, epilogue, 1)
+                                 planes, mults, centers, plan, epilogue, 1,
+                                 rows)
     return psum, int(counts[0])
 
 
-# (B, R, C, n_j, spec slicing, padded plane, wrapping centers): clusters of
-# 5, 6, 2, 8, 3, 7 and 4 ranks; ragged last segments (1100, 520, 300,
-# 1500, 700 rows), ragged column tiles, batch tiles of 1, 2 and 4 rows,
-# five batch tiles at B = 17
-K2_WALKS = [(3, 1100, 100, 3, (4, 2, 2), False, False),
-            (9, 1000, 72, 3, (4, 2, 2), True, True),
-            (17, 520, 64, 1, (8,), False, False),
-            (4, 1024, 128, 8, (4, 2, 2), True, True),
-            (6, 300, 40, 3, (2, 2, 2, 2), False, True),
-            (1, 1500, 70, 7, (4, 2, 2), True, False),
-            (2, 700, 90, 2, (4, 2, 2), False, True)]
+# (B, R, C, n_j, spec slicing, padded plane, wrapping centers, segment
+# rows): clusters of 5, 6, 2, 8, 3, 7 and 4 ranks; ragged last segments
+# (1100, 520, 300, 1500, 700 rows), ragged column tiles, batch tiles of 1,
+# 2 and 4 rows, five batch tiles at B = 17; then shorter segments: six of
+# 128 rows (a ragged one) over 3 planes, 18 pairs on a cluster of 6, with
+# Zero+Offset's plane values; three of 256 rows at C = 8, a Fig. 15 head
+K2_WALKS = [(3, 1100, 100, 3, (4, 2, 2), False, False, 512),
+            (9, 1000, 72, 3, (4, 2, 2), True, True, 512),
+            (17, 520, 64, 1, (8,), False, False, 512),
+            (4, 1024, 128, 8, (4, 2, 2), True, True, 512),
+            (6, 300, 40, 3, (2, 2, 2, 2), False, True, 512),
+            (1, 1500, 70, 7, (4, 2, 2), True, False, 512),
+            (2, 700, 90, 2, (4, 2, 2), False, True, 512),
+            (5, 700, 72, 3, (4, 2, 2), True, True, 128),
+            (4, 600, 8, 2, (4, 2, 2), False, False, 256)]
 
 
 @pytest.mark.parametrize("bits", [7, 24])
@@ -624,10 +631,10 @@ def test_k2_tile_walk_matches_plain(case, bits):
     walked in numpy, equal ``ref.fused_spec_crossbar`` exactly: psum,
     failures per spec slice and recovery saturations."""
     from repro_torch.kernels import ref
-    B, R, C, n_j, slicing, padded, wrap = case
+    B, R, C, n_j, slicing, padded, wrap, rows = case
     rng = np.random.default_rng(B * R + C + n_j)
-    n_seg = -(-R // 512)
-    planes = np.concatenate([rng.integers(-m, m + 1, (1, n_seg * 512, C))
+    n_seg = -(-R // rows)
+    planes = np.concatenate([rng.integers(-m, m + 1, (1, n_seg * rows, C))
                              for m in (15, 3, 3, 1, 7, 3, 1, 15)[:n_j]])
     planes[:, R:] = 0  # zero padding rows
     planes = planes.astype(np.int8)
@@ -641,15 +648,16 @@ def test_k2_tile_walk_matches_plain(case, bits):
     if wrap:
         centers = rng.integers(-2**31, 2**31, (n_seg, C)).astype(np.int32)
     w_flat, li, mask, mults, rmults = ops.spec_tables(
-        torch.from_numpy(planes.reshape(n_j, n_seg, 512, C)),
-        torch.from_numpy(shifts), slicing, valid)
+        torch.from_numpy(planes.reshape(n_j, n_seg, rows, C)),
+        torch.from_numpy(shifts), slicing, valid, rows)
     adc = adc_lib.ADCConfig(bits=bits)
     want = ref.fused_spec_crossbar(
         torch.from_numpy(x), w_flat, li, mask, mults, rmults,
-        torch.from_numpy(centers), adc_lo=adc.lo, adc_hi=adc.hi)
-    plan = fs.tile_plan(B, R, C, n_j)
+        torch.from_numpy(centers), adc_lo=adc.lo, adc_hi=adc.hi,
+        rows_per_xbar=rows)
+    plan = fs.tile_plan(B, R, C, n_j, rows_per_xbar=rows)
     got = k2_walk(x, w_flat.numpy(), li, mask, mults.numpy(), rmults,
-                  centers, adc.lo, adc.hi, plan)
+                  centers, adc.lo, adc.hi, plan, rows)
     np.testing.assert_array_equal(got[0], want[0].numpy())
     np.testing.assert_array_equal(got[1], want[1].numpy())
     assert got[2] == int(want[2])
@@ -662,14 +670,20 @@ def test_k2_tile_walk_matches_plain(case, bits):
 
 
 # ---------------------------------------------------------------- K1
-# (B, R, C, n_j, input slicing, padded plane, wrapping centers): Algorithm
-# 1's 1b slices at its B = 16 with 8 planes (a padded one), the pinned
-# (4,2,2) and the widest (8,) slicing; clusters of 6, 8, 5 and 4 ranks,
-# batch tiles of 4, 2 and 1 rows, ragged segments and column tiles
-K1_WALKS = [(3, 1100, 100, 3, (1,) * 8, False, False),
-            (16, 520, 64, 8, (1,) * 8, True, True),
-            (2, 1024, 72, 3, (4, 2, 2), False, True),
-            (1, 700, 90, 4, (8,), True, False)]
+# (B, R, C, n_j, input slicing, padded plane, wrapping centers, segment
+# rows): Algorithm 1's 1b slices at its B = 16 with 8 planes (a padded
+# one), the pinned (4,2,2) and the widest (8,) slicing; clusters of 6, 8,
+# 5 and 4 ranks, batch tiles of 4, 2 and 1 rows, ragged segments and column
+# tiles; then Fig. 15's ISAAC arm, 1b slices on 4 planes of 128-row
+# segments (two, its head at C = 8, and three with a ragged one), and
+# (4,2,2) over three 256-row segments
+K1_WALKS = [(3, 1100, 100, 3, (1,) * 8, False, False, 512),
+            (16, 520, 64, 8, (1,) * 8, True, True, 512),
+            (2, 1024, 72, 3, (4, 2, 2), False, True, 512),
+            (1, 700, 90, 4, (8,), True, False, 512),
+            (4, 256, 8, 4, (1,) * 8, False, False, 128),
+            (3, 300, 72, 4, (1,) * 8, True, True, 128),
+            (2, 700, 40, 3, (4, 2, 2), False, True, 256)]
 
 
 @pytest.mark.parametrize("bits", [7, 24])
@@ -680,10 +694,10 @@ def test_k1_tile_walk_matches_plain(case, bits):
     and the saturation count; a padded plane adds nothing."""
     from repro_torch.kernels import fused_crossbar as fx
     from repro_torch.kernels import ref
-    B, R, C, n_j, slicing, padded, wrap = case
+    B, R, C, n_j, slicing, padded, wrap, rows = case
     rng = np.random.default_rng(B * R + C + n_j + 1)
-    n_seg = -(-R // 512)
-    planes = np.concatenate([rng.integers(-m, m + 1, (1, n_seg * 512, C))
+    n_seg = -(-R // rows)
+    planes = np.concatenate([rng.integers(-m, m + 1, (1, n_seg * rows, C))
                              for m in (15, 3, 3, 1, 7, 3, 1, 15)[:n_j]])
     planes[:, R:] = 0  # zero padding rows
     planes = planes.astype(np.int8)
@@ -696,15 +710,15 @@ def test_k1_tile_walk_matches_plain(case, bits):
     lo_hi = (-2**31, 2**31) if wrap else (1, 256)
     centers = rng.integers(*lo_hi, (n_seg, C)).astype(np.int32)
     w_flat, li, mask, mults = ops.crossbar_tables(
-        torch.from_numpy(planes.reshape(n_j, n_seg, 512, C)),
-        torch.from_numpy(shifts), slicing, valid)
+        torch.from_numpy(planes.reshape(n_j, n_seg, rows, C)),
+        torch.from_numpy(shifts), slicing, valid, rows)
     adc = adc_lib.ADCConfig(bits=bits)
     want = ref.fused_crossbar(torch.from_numpy(x), w_flat, li, mask, mults,
                               torch.from_numpy(centers), adc_lo=adc.lo,
-                              adc_hi=adc.hi)
-    plan = fx.tile_plan(B, R, C, n_j)
+                              adc_hi=adc.hi, rows_per_xbar=rows)
+    plan = fx.tile_plan(B, R, C, n_j, rows_per_xbar=rows)
     got = k1_walk(x, w_flat.numpy(), li, mask, mults.numpy(), centers,
-                  adc.lo, adc.hi, plan)
+                  adc.lo, adc.hi, plan, rows)
     np.testing.assert_array_equal(got[0], want[0].numpy())
     assert got[1] == int(want[1])
     if bits == 7:
@@ -738,14 +752,14 @@ def test_k1_tile_plan_within_limits(RC, B):
 
 
 # ---------------------------------------------------------------- K4
-def k4_walk(xs, planes, mults, lo, hi, plan, rng):
+def k4_walk(xs, planes, mults, lo, hi, plan, rng, rows=512):
     """``bitplane_walk`` with K4's slice operand and epilogue: per input
     slice its column sum, the clamp and the multiply by mults in uint32; no
     center term, no counters. The planes' rows past R are zero, as the
     kernel's copies fill them. Returns psum."""
     n_i = xs.shape[0]
     n_j, R, C = planes.shape
-    wp = np.zeros((n_j, -(-R // 512) * 512, C), np.int64)
+    wp = np.zeros((n_j, -(-R // rows) * rows, C), np.int64)
     wp[:, :R] = planes
     M = 2**32
 
@@ -756,18 +770,21 @@ def k4_walk(xs, planes, mults, lo, hi, plan, rng):
             out += cs_ * np.uint64(int(mults[i, j]) % M) % np.uint64(M)
         return (out % np.uint64(M)).astype(np.int64)
     psum, _ = bitplane_walk(slice_operand(xs, plan.bt, rng), wp, mults,
-                            None, plan, epilogue, 0)
+                            None, plan, epilogue, 0, rows)
     return psum
 
 
-# (n_i, n_j, B, R, C): the sites' 8 slices x 3 planes (a cluster of 6);
-# one slice and one plane (nearly empty n8 tiles, a cluster of 1 rank,
-# batch tile of 1 row, a partial segment); five batch tiles of 4 rows over
-# 8 planes (a cluster of 8) at R = 1001 (the word-load path, a partial
-# segment); 3 of 4 rows over 16 column tiles at C = 1008; four batch tiles
-# under one narrow column tile (C = 7)
-K4_WALKS = [(8, 3, 4, 1024, 72), (1, 1, 1, 300, 7), (3, 8, 17, 1001, 72),
-            (8, 1, 3, 1000, 1008), (3, 3, 16, 1024, 7)]
+# (n_i, n_j, B, R, C, segment rows): the sites' 8 slices x 3 planes (a
+# cluster of 6); one slice and one plane (nearly empty n8 tiles, a cluster
+# of 1 rank, batch tile of 1 row, a partial segment); five batch tiles of 4
+# rows over 8 planes (a cluster of 8) at R = 1001 (the word-load path, a
+# partial segment); 3 of 4 rows over 16 column tiles at C = 1008; four
+# batch tiles under one narrow column tile (C = 7); then five 128-row
+# segments (a partial one) over 3 planes, and three of 256 rows at C = 8
+K4_WALKS = [(8, 3, 4, 1024, 72, 512), (1, 1, 1, 300, 7, 512),
+            (3, 8, 17, 1001, 72, 512), (8, 1, 3, 1000, 1008, 512),
+            (3, 3, 16, 1024, 7, 512), (8, 3, 4, 600, 72, 128),
+            (3, 2, 5, 700, 8, 256)]
 
 
 @pytest.mark.parametrize("bits", [7, 24])
@@ -781,7 +798,7 @@ def test_k4_tile_walk_matches_plain(case, bits):
     24b one)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import sliced_crossbar as sx
-    n_i, n_j, B, R, C = case
+    n_i, n_j, B, R, C, rows = case
     rng = np.random.default_rng(n_i * 1000 + n_j * 100 + B + R + C)
     xs = rng.integers(-128, 128, (n_i, B, R)).astype(np.int8)
     planes = rng.integers(-128, 128, (n_j, R, C)).astype(np.int8)
@@ -791,14 +808,15 @@ def test_k4_tile_walk_matches_plain(case, bits):
     adc = adc_lib.ADCConfig(bits=bits)
     args = (torch.from_numpy(xs), torch.from_numpy(planes),
             torch.from_numpy(mults))
-    want = ref.sliced_crossbar_matmul(*args, adc_lo=adc.lo, adc_hi=adc.hi)
+    want = ref.sliced_crossbar_matmul(*args, adc_lo=adc.lo, adc_hi=adc.hi,
+                                      rows_per_xbar=rows)
     got = k4_walk(xs, planes, mults, adc.lo, adc.hi,
-                  sx.tile_plan(B, R, C, n_j), rng)
+                  sx.tile_plan(B, R, C, n_j, rows_per_xbar=rows), rng, rows)
     np.testing.assert_array_equal(got, want.numpy())
     if bits == 7:
         full = adc_lib.ADCConfig(bits=24)
         assert not torch.equal(want, ref.sliced_crossbar_matmul(
-            *args, adc_lo=full.lo, adc_hi=full.hi))
+            *args, adc_lo=full.lo, adc_hi=full.hi, rows_per_xbar=rows))
 
 
 @pytest.mark.parametrize("B", [1, 3, 4, 16, 17, 64, 65])
@@ -837,3 +855,101 @@ def test_k4_launch_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         sx.launch(xs, wp, m)
     assert torch.equal(sx.forward(xs, wp, m), sx.plain(xs, wp, m))
+
+
+# --------------------------------------------------- shorter segments
+@pytest.mark.parametrize("rows", [128, 256])
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k4"])
+def test_plain_kernels_match_reference_at_short_segments(kernel, rows):
+    """K1's, K2's and K4's plain versions over several segments of 128
+    and 256 rows (ISAAC's crossbars have 128) against the reference's
+    Pallas kernels in interpret mode at the same ``rows_per_xbar``, bit for
+    bit: psum and counters, at the paper's 7b ADC (where the clamps bite)
+    and with an unsigned 8b window."""
+    rng = np.random.default_rng(rows + len(kernel))
+    B, R, C = 5, 3 * rows - 40, 24   # three segments, the last ragged
+    n_seg = -(-R // rows)
+    for adc in (ref_adc.ADCConfig(bits=7), ref_adc.ADCConfig(bits=8,
+                                                              signed=False)):
+        lo, hi = adc.lo, adc.hi
+        if kernel == "k4":
+            xs = rng.integers(-128, 128, (8, B, R)).astype(np.int8)
+            wp = rng.integers(-3, 4, (3, R, C)).astype(np.int8)
+            mults = rng.integers(-64, 64, (8, 3)).astype(np.int32)
+            want = ref_ops.sliced_crossbar_matmul(
+                jnp.asarray(xs), jnp.asarray(wp), jnp.asarray(mults),
+                adc_lo=lo, adc_hi=hi, rows_per_xbar=rows,
+                backend="interpret")
+            got = ops.sliced_crossbar_matmul(
+                torch.from_numpy(xs), torch.from_numpy(wp),
+                torch.from_numpy(mults), adc_lo=lo, adc_hi=hi,
+                rows_per_xbar=rows)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+            continue
+        planes = rng.integers(0 if adc.lo == 0 else -15, 16,
+                              (4, n_seg, rows, C)).astype(np.int8)
+        planes.reshape(4, -1, C)[:, R:] = 0  # zero padding rows
+        shifts = np.array([6, 4, 2, 0], np.int32)
+        centers = rng.integers(0, 256, (n_seg, C)).astype(np.int32)
+        x = rng.integers(0, 256, (B, R)).astype(np.int32)
+        jargs = (jnp.asarray(x), jnp.asarray(planes), jnp.asarray(shifts),
+                 jnp.asarray(centers))
+        targs = (torch.from_numpy(x), torch.from_numpy(planes),
+                 torch.from_numpy(shifts), torch.from_numpy(centers))
+        kw = dict(adc_lo=lo, adc_hi=hi, rows_per_xbar=rows)
+        if kernel == "k1":
+            want = ref_ops.fused_crossbar_forward(
+                *jargs, input_slicing=(1,) * 8, backend="interpret", **kw)
+            got = ops.fused_crossbar_forward(*targs, input_slicing=(1,) * 8,
+                                             **kw)
+        else:
+            want = ref_ops.fused_spec_crossbar_forward(
+                *jargs, spec_slicing=(4, 2, 2), backend="interpret", **kw)
+            got = ops.fused_spec_crossbar_forward(
+                *targs, spec_slicing=(4, 2, 2), **kw)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        assert int(got[1].sum()) > 0  # saturations / failures occur
+
+
+@pytest.mark.parametrize("rows", [64, 100, 200, 640, 1024])
+def test_kernels_refuse_other_segment_lengths(rows):
+    """The CUDA kernels are instantiated for segments of 128, 256, 384 and
+    512 rows; any other length is refused before a launch, and the message
+    names the supported ones (the plain versions take any)."""
+    from repro_torch.kernels import fused_crossbar as fx
+    from repro_torch.kernels import sliced_crossbar as sx
+    msg = r"\(128, 256, 384, 512\)"
+    for plan in (lambda: fx.tile_plan(4, 1000, 64, 3, rows_per_xbar=rows),
+                 lambda: fs.tile_plan(4, 1000, 64, 3, rows_per_xbar=rows),
+                 lambda: sx.tile_plan(4, 1000, 64, 3, rows_per_xbar=rows),
+                 lambda: bp.check_rows(rows)):
+        with pytest.raises(ValueError, match=msg):
+            plan()
+    x = torch.zeros((2, rows), dtype=torch.int32)
+    w = torch.zeros((1, rows, 4), dtype=torch.int8)
+    with pytest.raises(ValueError, match=msg):
+        bp.check_operands(x, w, 1, torch.zeros((1, 1), dtype=torch.int32),
+                          torch.zeros((1, 4), dtype=torch.int32), rows,
+                          torch.device("cpu"))
+    for ok in bp.SEGMENT_ROWS:
+        assert fx.tile_plan(4, 1000, 64, 3, rows_per_xbar=ok).grid[1] == 1
+
+
+@pytest.mark.parametrize("rows", [128, 256, 384])
+def test_tile_plans_at_short_segments(rows):
+    """At 128-384-row segments the plans split the (segment, plane) pairs
+    of ceil(R / rows) segments across the cluster, none empty, within the
+    card's limits, for every operand."""
+    from repro_torch.kernels import sliced_crossbar as sx
+    for B, R, C, n_j in ((2048, 128, 256, 4), (2048, 256, 8, 4),
+                         (10, 512, 512, 3), (4, 1000, 72, 8)):
+        n_pairs = -(-R // rows) * n_j
+        for p, x in ((fs.tile_plan(B, R, C, n_j, rows_per_xbar=rows),
+                      "codes"),
+                     (sx.tile_plan(B, R, C, n_j, rows_per_xbar=rows),
+                      "slices")):
+            owners = [pr // p.pairs_per_rank for pr in range(n_pairs)]
+            assert sorted(set(owners)) == list(range(p.cluster))
+            assert p.smem_bytes == bp.smem_bytes(p.bt, p.cluster, x)
+            assert p.smem_bytes <= SMEM_LIMIT and p.grid[1] <= 65535

@@ -89,8 +89,9 @@ def test_engine_needs_plans_in_pim_modes(model):
 
 
 def test_imports_are_torch_only():
-    """A fresh interpreter imports every repro_torch module and
-    chip_smoke.py; neither jax nor the reference package may load."""
+    """A fresh interpreter imports every repro_torch module (the paper
+    artifacts included) and chip_smoke.py; neither jax, the reference
+    package nor the reference's ``benchmarks`` scripts may load."""
     code = (
         "import importlib, pkgutil, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
@@ -99,10 +100,12 @@ def test_imports_are_torch_only():
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' "
-        "or m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
+        "'benchmarks') or m.startswith(('jax.', 'jaxlib', 'repro.', "
+        "'benchmarks.')))\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
         "assert 'repro_torch.serve.paged' in sys.modules\n"
+        "assert 'repro_torch.paper.fig15_noise' in sys.modules\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
