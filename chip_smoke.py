@@ -85,6 +85,24 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            distinct shape times its calls); the launcher with
            ``--device-corner 1sigma``; ``--phases build,serve,nonideal``
            runs it;
+  train    training on the card, no kernel on its path (``pim_mode``
+           off; every kernel's launch count must stay 0): one
+           ``make_grad_fn`` step of reduced qwen1.5-0.5b and reduced
+           phi3.5-moe-42b (float32, vocab 64) on the card and on the CPU
+           from the same weights and batch, with 1 and 4 micro-batches,
+           losses to 1e-5 relative and every gradient leaf to the CPU
+           tests' tolerance, then one ``make_train_step`` (params by
+           relative global norm); qwen1.5-0.5b at its published size (bf16,
+           remat, float32 AdamW moments) through ``train_loop.train`` with
+           a straggler monitor, 20 steps at 8 x 64 tokens from a
+           ``SyntheticLM`` of 8,192 data tokens (the model keeps its
+           151,936 outputs), the loss falling by 0.3, then 5 steps at 8 x
+           1,024 tokens with 2 micro-batches (step ms, tokens/s, peak GiB,
+           model TFLOP/s printed); ``resilient_train`` on reduced qwen
+           with a failure injected at step 12 reaching step 20; card ->
+           CPU and CPU -> card checkpoints restored bit for bit; the
+           launcher ``python -m repro_torch.launch.train --reduced
+           --resilient`` as a subprocess; ``--phases build,train`` runs it;
   moe      phi3.5-moe-42b at its published widths, 4 of its 32 layers
            (random bf16 weights from a seed): the same 4 requests through
            ``ContinuousServeEngine`` in ``exact`` (K2 per expert),
@@ -225,6 +243,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -3910,12 +3929,283 @@ def check_short_segments(rows: list, gen) -> None:
     torch.cuda.synchronize()
 
 
+# ---------------------------------------------------------------- train
+TRAIN_HOLD = ("qwen1.5-0.5b", "phi3.5-moe-42b")  # the card-vs-CPU configs
+GRAD_RTOL = 1e-4  # tests/test_torch_train_grads.py's leaf tolerance
+# SyntheticLM keeps a dense (v, v) float32 transition matrix and its
+# cumsum on the host: 0.54 GB at 8,192 data tokens, 185 GB at qwen's
+# 151,936, so the full-width runs learn a chain over the first 8,192 ids
+TRAIN_DATA_VOCAB = 8192
+TRAIN_RUNS = (("A", 64, 1, 20), ("B", 1024, 2, 5))  # seq, micro, steps
+TRAIN_BATCH = 8
+BF16_DENSE_FLOPS = 989e12  # H100 SXM, dense bf16 (data sheet)
+
+
+def phase_train() -> None:
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    train_card_vs_cpu()
+    train_full_width()
+    train_restart()
+    train_launcher()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    if launches:
+        raise AssertionError(f"kernels launched while training: {launches}")
+    torch.cuda.synchronize()
+    say("train", phase_s=round(time.perf_counter() - t0, 3),
+        k1_k4_launches=0)
+
+
+def _grad_err(got, want) -> tuple[float, float]:
+    """(largest |got - want| over the leaves, largest ratio of it to the
+    tests' bound GRAD_RTOL * (|want| + max|want|); <= 1 passes)."""
+    from repro_torch.train import _tree
+    worst_abs = worst = 0.0
+    for g, w in zip(_tree.leaves(got), _tree.leaves(want), strict=True):
+        d = (g.cpu().double() - w.double()).abs()
+        bound = GRAD_RTOL * (w.double().abs() + w.double().abs().max())
+        worst_abs = max(worst_abs, float(d.max()))
+        worst = max(worst, float((d / bound.clamp_min(1e-30)).max()))
+    return worst_abs, worst
+
+
+def train_card_vs_cpu() -> None:
+    """The train path's hold on the card (no kernel lies on it): one
+    gradient step on the card and on the CPU from the same weights and
+    batch, then one train step each."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.train import _tree
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+    ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=200,
+                           weight_decay=0.01)
+    batch = SyntheticLM(64, 32, 8, seed=3).batch(0)
+    for arch in TRAIN_HOLD:
+        base = configs.get(arch).reduced(vocab_size=64, dtype="float32")
+        host = T.init_params(base, seed=0, device="cpu")
+        for micro in (1, 4):
+            cfg = dataclasses.replace(base, micro_batches=micro)
+            out = {}
+            for dev in ("cuda", "cpu"):
+                p = _tree.tree_map(lambda t: t.to(dev, copy=True), host)
+                loss, grads = tl.make_grad_fn(cfg)(p, tl.to_device(batch, p))
+                new_p, _, m = tl.make_train_step(cfg, ocfg)(
+                    p, opt.init_state(ocfg, p), tl.to_device(batch, p))
+                out[dev] = (float(loss), grads, float(m["loss"]),
+                            _tree.tree_map(lambda t: t.cpu(), new_p))
+            (lc, gc, sc, pc), (lh, gh, sh, ph) = out["cuda"], out["cpu"]
+            loss_rel = abs(lc - lh) / abs(lh)
+            step_rel = abs(sc - sh) / abs(sh)
+            grad_abs, grad_ratio = _grad_err(gc, gh)
+            dp = opt.global_norm(_tree.tree_map(lambda a, b: a - b, pc, ph))
+            param_rel = float(dp) / float(opt.global_norm(ph))
+            say("train", hold=arch, micro_batches=micro, loss_cuda=lc,
+                loss_cpu=lh, loss_rel=f"{loss_rel:.3e}",
+                grad_max_abs=f"{grad_abs:.3e}",
+                grad_err_over_tol=f"{grad_ratio:.3f}",
+                step_loss_rel=f"{step_rel:.3e}",
+                params_rel=f"{param_rel:.3e}")
+            if not (loss_rel <= 1e-5 and step_rel <= 1e-5
+                    and grad_ratio <= 1.0 and param_rel < 1e-3):
+                raise AssertionError(f"{arch} x{micro}: card and CPU differ")
+
+
+def train_full_width() -> None:
+    """qwen1.5-0.5b at its published size: run A (20 steps, the loss must
+    fall by 0.3) and run B (1,024 tokens a row, 2 micro-batches)."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train import fault_tolerance as ft
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+    base = configs.get(ARCH)
+    for run, seq, micro, steps in TRAIN_RUNS:
+        cfg = dataclasses.replace(base, micro_batches=micro)
+        ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=steps,
+                               state_dtype=cfg.opt_state_dtype)
+        data = SyntheticLM(vocab_size=TRAIN_DATA_VOCAB, seq_len=seq,
+                           batch_size=TRAIN_BATCH, seed=0)
+        losses, dts = [], []
+        mon = ft.StragglerMonitor()
+
+        def record(state, metrics, dt):
+            losses.append(float(metrics["loss"]))
+            dts.append(dt)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = tl.train(cfg, ocfg, data.iterator(0), num_steps=steps,
+                         hooks=[mon.hook(), record], log_every=0)
+        wall = time.perf_counter() - t0
+        n = n_params_of(state.params)
+        n_embed = state.params["embed"]["embed"].numel()
+        tokens = TRAIN_BATCH * seq
+        step_s = statistics.median(dts)
+        tflops = 6 * (n - n_embed) * tokens / step_s / 1e12
+        say("train", run=run, arch=ARCH, params=n, dtype=cfg.dtype,
+            remat=cfg.remat, micro_batches=micro, batch=TRAIN_BATCH, seq=seq,
+            data_vocab=TRAIN_DATA_VOCAB, model_vocab=cfg.vocab_size,
+            steps=steps, wall_s=round(wall, 3),
+            step_ms_median=round(step_s * 1e3, 3),
+            step_ms_first=round(dts[0] * 1e3, 3),
+            step_ms_min=round(min(dts) * 1e3, 3),
+            tokens_per_s=round(tokens / step_s, 1),
+            peak_gib=peak_gb(), resident_before_gib=round(resident / 2**30, 3),
+            loss_first=round(losses[0], 4), loss_last=round(losses[-1], 4),
+            model_tflops=round(tflops, 2),
+            bf16_peak_tflops=BF16_DENSE_FLOPS / 1e12,
+            stragglers=len(mon.events))
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"run {run}: a loss is not finite: {losses}")
+        if run == "A" and not losses[-1] <= losses[0] - 0.3:
+            raise AssertionError(f"run A: loss {losses[0]} -> {losses[-1]}"
+                                 ", not 0.3 lower")
+        say("train", run=run, **train_step_breakdown(
+            cfg, ocfg, state, tl.to_device(data.batch(steps), state.params),
+            step_s))
+        del state
+        torch.cuda.empty_cache()
+
+
+def train_step_breakdown(cfg, ocfg, state, batch, step_s: float) -> dict:
+    """One more step of a run, split at syncs into the gradients (forward,
+    recompute, backward) and AdamW, then one whole step under
+    ``torch.profiler``: its kernels' device time, against the run's
+    median step for the card's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, grads = tl.make_grad_fn(cfg)(state.params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    opt.apply_updates(ocfg, state.params, grads, state.opt_state)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del grads
+    step = tl.make_train_step(cfg, ocfg)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state.params, state.opt_state, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and device_us(e) > 0]
+    if not kernels:
+        raise AssertionError("the profiler saw no kernel")
+    dev_ms = sum(map(device_us, kernels)) / 1e3
+    top = sorted(kernels, key=device_us, reverse=True)[:5]
+    return dict(grad_ms=round((t1 - t0) * 1e3, 3),
+                adamw_ms=round((t2 - t1) * 1e3, 3),
+                kernels_device_ms=round(dev_ms, 3),
+                cuda_kernels=sum(e.count for e in kernels),
+                busy_share=round(dev_ms / (step_s * 1e3), 4),
+                top_kernels=json.dumps([[short_name(e.key), e.count,
+                                         round(device_us(e) / 1e3, 3)]
+                                        for e in top]))
+
+
+def train_restart() -> None:
+    """``resilient_train`` through an injected failure, then checkpoints
+    across devices, bit for bit both ways."""
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.train import _tree
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import fault_tolerance as ft
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+    cfg = configs.get(ARCH).reduced(vocab_size=64)
+    ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=200,
+                           weight_decay=0.01)
+    crashed = []
+
+    def injector(step):
+        if step == 12 and not crashed:
+            crashed.append(step)
+            raise RuntimeError("injected node failure")
+
+    def fresh(dev, seed):
+        p = T.init_params(cfg, seed=seed, device=dev)
+        return p, opt.init_state(ocfg, p)
+
+    def same(a, b) -> int:
+        pairs = list(zip(_tree.leaves(a), _tree.leaves(b), strict=True))
+        if not all(x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+                   for x, y in pairs):
+            raise AssertionError("a restored checkpoint differs")
+        return sum(x.dtype == torch.bfloat16 for x, _ in pairs)
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        state = ft.resilient_train(
+            cfg, ocfg, lambda s: SyntheticLM(64, 32, 8, seed=7).iterator(s),
+            num_steps=20, ckpt_dir=f"{d}/run", ckpt_every=5,
+            fail_injector=injector)
+        restart_s = time.perf_counter() - t0
+        last = ckpt.latest_step(f"{d}/run")
+        if not (state.step == 20 and crashed and last == 20
+                and _tree.leaves(state.params)[0].is_cuda):
+            raise AssertionError(f"restart: step {state.step}, latest {last}")
+        card = (state.params, state.opt_state)
+        ckpt.save(f"{d}/card", 20, card)
+        on_cpu, _, _ = ckpt.restore(f"{d}/card", fresh("cpu", 5))
+        n_bf16 = same(on_cpu, card)
+        p, o = on_cpu  # one CPU step, so the way back carries new values
+        tl.make_train_step(cfg, ocfg)(p, o, SyntheticLM(
+            64, 32, 8, seed=7).batch(20))
+        ckpt.save(f"{d}/cpu", 21, on_cpu)
+        on_card, step, _ = ckpt.restore(f"{d}/cpu", fresh("cuda", 6))
+        same(on_card, on_cpu)
+        if not (step == 21 and _tree.leaves(on_card)[0].is_cuda):
+            raise AssertionError("CPU -> card restore")
+    say("train", restart="failure injected at step 12", reached=state.step,
+        latest_step=last, restart_s=round(restart_s, 3),
+        card_to_cpu="bit for bit", cpu_to_card="bit for bit",
+        leaves=len(_tree.leaves(card)), bf16_leaves=n_bf16)
+
+
+def train_launcher() -> None:
+    """``python -m repro_torch.launch.train --reduced --resilient`` as a
+    subprocess on the card."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               ARCH, "--reduced", "--steps", "20", "--ckpt-dir", d,
+               "--ckpt-every", "5", "--resilient"]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=600, cwd=ROOT, env=env)
+        launch_s = time.perf_counter() - t0
+    if out.returncode != 0 or "done at step 20" not in out.stdout:
+        raise AssertionError(f"launcher rc {out.returncode}: "
+                             f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    say("train", launcher=" ".join(cmd[2:]), rc=out.returncode,
+        launch_s=round(launch_s, 3),
+        last_line=out.stdout.strip().splitlines()[-1])
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,serve,telemetry,nonideal,moe,"
-                    "hybrid,encoder,decoders,paper,timing",
+                    default="build,kernels,serve,telemetry,nonideal,train,"
+                    "moe,hybrid,encoder,decoders,paper,timing",
                     help="comma list of phases to run (default: all)")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -3950,6 +4240,8 @@ def main() -> int:
     if "nonideal" in phases:
         phase_nonideal(ctx)
     ctx.pop("qwen", None)  # free qwen's weights before the larger models
+    if "train" in phases:
+        phase_train()
     if "moe" in phases:
         phase_moe(ctx, rows)
     if "hybrid" in phases:

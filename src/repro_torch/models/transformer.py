@@ -15,7 +15,7 @@ model keeps its unused ``embed.embed`` table, as the reference's does.
 Public surface:
   init_params(cfg, seed=, device=)           -> params
   forward(params, cfg, inputs, plans)        -> logits
-  lm_loss(params, cfg, batch)                -> scalar (forward only)
+  lm_loss(params, cfg, batch)                -> scalar (differentiable)
   init_decode_state(cfg, B, L, ..., paged=)  -> state (contiguous or paged)
   prefill / prefill_chunk / decode_step / insert_request
   init_layer / apply_block / run_layer       -> one layer (fresh / cached)
@@ -50,6 +50,7 @@ import dataclasses
 import functools
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -226,16 +227,36 @@ def embed_inputs(params: dict, cfg: ArchConfig,
     return inputs.to(getattr(torch, cfg.dtype))
 
 
+def _records(tree) -> bool:
+    """Whether any tensor of a nested dict/list of tensors requires grad."""
+    if isinstance(tree, torch.Tensor):
+        return tree.requires_grad
+    items = tree.values() if isinstance(tree, dict) else tree
+    return any(_records(v) for v in items)
+
+
 def forward_hidden(params: dict, cfg: ArchConfig, inputs: torch.Tensor,
                    plans=None) -> torch.Tensor:
-    """Full-sequence forward to final hidden states (B, S, D)."""
+    """Full-sequence forward to final hidden states (B, S, D).
+
+    With ``cfg.remat``, while autograd records (grad enabled and some
+    parameter requires grad), each layer runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward, as the
+    reference's ``jax.checkpoint`` per repeat and per block: only the
+    layers' inputs stay alive. Otherwise (serving under ``no_grad``) the
+    layers run as they are."""
     x = embed_inputs(params, cfg, inputs)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
+    remat = cfg.remat and torch.is_grad_enabled() and _records(params)
     with L.suspend_pim_stats():
         for layer, (bp, plan) in enumerate(zip(params["layers"],
                                                _layer_plans(cfg, plans))):
-            x = apply_block(bp, cfg, layer, x, positions, plan)
+            if remat:
+                x = checkpoint(apply_block, bp, cfg, layer, x, positions,
+                               plan, use_reentrant=False)
+            else:
+                x = apply_block(bp, cfg, layer, x, positions, plan)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
@@ -252,11 +273,19 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor,
 LOSS_CHUNK = 512  # sequence positions per logits chunk
 
 
+def _chunk_nll(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """Summed masked cross-entropy of one chunk's logits, in float32."""
+    logits = torch.einsum("bsd,dv->bsv", x, head).to(torch.float32)
+    picked = logits.gather(-1, labels[..., None])[..., 0]
+    return ((torch.logsumexp(logits, dim=-1) - picked) * mask).sum()
+
+
 def lm_loss(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """Mean cross-entropy, forward only: the causal LM loss (causal token
-    models: position t predicts ``labels[t + 1]``, the last position
-    masked), or every position against its own label (non-causal token
-    models and embeddings mode, hubert's masked-unit proxy).
+    """Mean cross-entropy: the causal LM loss (causal token models:
+    position t predicts ``labels[t + 1]``, the last position masked), or
+    every position against its own label (non-causal token models and
+    embeddings mode, hubert's masked-unit proxy).
 
     ``batch``: ``inputs`` (tokens or embeddings), ``labels`` (B, S) ids
     and an optional ``mask`` broadcastable to (B, S). As in the reference,
@@ -264,7 +293,11 @@ def lm_loss(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     head is a plain product cast to float32, so the loss is float in every
     ``pim_mode``; the sequence is padded to whole ``LOSS_CHUNK`` chunks
     and each chunk's logits are reduced before the next, so the (B, S,
-    vocab) logits never exist at once. Returns a float32 scalar."""
+    vocab) logits never exist at once. While autograd records, each
+    chunk runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint(body)``, whatever ``cfg.remat`` says), so the backward
+    recomputes one chunk's logits at a time too. Returns a float32
+    scalar."""
     x = forward_hidden(params, cfg, batch["inputs"])  # (B, S, D)
     labels = torch.as_tensor(batch["labels"], device=x.device).long()
     mask = batch.get("mask")
@@ -282,14 +315,14 @@ def lm_loss(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     lp = torch.nn.functional.pad(labels, (0, pad))
     mp = torch.nn.functional.pad(mask, (0, pad))
     head = params["embed"]["head"]
+    recording = torch.is_grad_enabled() and (x.requires_grad
+                                             or head.requires_grad)
     tot = torch.zeros((), **f32)
     cnt = torch.zeros((), **f32)
     for c0 in range(0, S + pad, C):
-        logits = torch.einsum("bsd,dv->bsv", xp[:, c0:c0 + C],
-                              head).to(torch.float32)
-        picked = logits.gather(-1, lp[:, c0:c0 + C, None])[..., 0]
-        nll = (torch.logsumexp(logits, dim=-1) - picked) * mp[:, c0:c0 + C]
-        tot = tot + nll.sum()
+        args = (xp[:, c0:c0 + C], head, lp[:, c0:c0 + C], mp[:, c0:c0 + C])
+        tot = tot + (checkpoint(_chunk_nll, *args, use_reentrant=False)
+                     if recording else _chunk_nll(*args))
         cnt = cnt + mp[:, c0:c0 + C].sum()
     return tot / cnt.clamp_min(1.0)
 

@@ -90,8 +90,9 @@ def test_engine_needs_plans_in_pim_modes(model):
 
 def test_imports_are_torch_only():
     """A fresh interpreter imports every repro_torch module (the paper
-    artifacts included) and chip_smoke.py; neither jax, the reference
-    package nor the reference's ``benchmarks`` scripts may load."""
+    artifacts and the training substrate included) and chip_smoke.py;
+    neither jax, the reference package nor the reference's ``benchmarks``
+    scripts may load."""
     code = (
         "import importlib, pkgutil, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
@@ -106,11 +107,14 @@ def test_imports_are_torch_only():
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
         "assert 'repro_torch.serve.paged' in sys.modules\n"
         "assert 'repro_torch.paper.fig15_noise' in sys.modules\n"
+        "for m in ('train.fault_tolerance', 'data.pipeline', "
+        "'launch.train'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 80  # every module was imported
 
 
 def test_launcher_paged_engine_on_cpu():
