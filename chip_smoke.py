@@ -103,6 +103,23 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            CPU and CPU -> card checkpoints restored bit for bit; the
            launcher ``python -m repro_torch.launch.train --reduced
            --resilient`` as a subprocess; ``--phases build,train`` runs it;
+  dist     the distribution layer on a one-rank NCCL group (a FileStore in
+           a temporary directory; destroyed at the phase's end): a 1x1
+           ``("data", "model")`` and a 1x1x1 pod mesh on the card, the
+           production meshes refusing one rank; qwen1.5-0.5b at published
+           size placed under DEFAULT_RULES and SERVE_RULES, its exact plans
+           by ``plan_specs`` and a paged decode state by ``cache_specs``
+           under MULTIPOD_SERVE_RULES, each leaf gathered back bit for bit
+           (placement ms printed); 3 train steps of 8 x 64 tokens under the
+           mesh and without one from one start, losses and parameters
+           equal bit for bit, both median step ms printed;
+           ``compressed_psum`` over "data" on a full-width gradient tree
+           with an error carry equal to ``compress_decompress`` (three
+           leaves also to the CPU's), timed beside its byte bound; the
+           placed parameters (and a reduced AdamW state) saved and restored
+           with ``shardings=`` onto the pod mesh under MULTIPOD_RULES, bit
+           for bit; K1-K4 launches must stay 0; ``--phases dist`` runs it
+           alone (~30 s);
   moe      phi3.5-moe-42b at its published widths, 4 of its 32 layers
            (random bf16 weights from a seed): the same 4 requests through
            ``ContinuousServeEngine`` in ``exact`` (K2 per expert),
@@ -4200,12 +4217,320 @@ def train_launcher() -> None:
         last_line=out.stdout.strip().splitlines()[-1])
 
 
+# ---------------------------------------------------------------- dist
+DIST_STEPS = 3  # run A's shape: TRAIN_BATCH x 64 tokens, one micro-batch
+DIST_SEQ = 64
+
+
+def phase_dist() -> None:
+    """The distribution layer on a one-rank NCCL group (the host has one
+    card; NCCL takes one rank per card): meshes, full-width placements
+    under each rule set, the train step under a mesh against the step
+    without one, ``compressed_psum`` against ``compress_decompress``, and a
+    checkpoint restored onto another mesh, all bit for bit; K1-K4 are not
+    launched."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(d, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            ops.reset_launch_counts()
+            meshes = dist_meshes()
+            dist_place(meshes)
+            grads = dist_step(meshes)
+            dist_compressed(meshes, grads)
+            del grads
+            dist_checkpoint(meshes, d)
+            launches = {k: v for k, v in ops.launch_counts().items() if v}
+            if launches:
+                raise AssertionError(f"kernels launched in dist: {launches}")
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    say("dist", phase_s=round(time.perf_counter() - t0, 3),
+        k1_k4_launches=0)
+
+
+def dist_meshes() -> dict:
+    """A 1x1 ("data", "model") and a 1x1x1 ("pod", "data", "model") mesh
+    on the card; the production meshes must refuse a group of one."""
+    from repro_torch.dist import compat
+    from repro_torch.launch import mesh as lm
+    meshes = {"test": lm.make_test_mesh(1, 1),
+              "pod": compat.make_mesh((1, 1, 1), ("pod", "data", "model"))}
+    refused = []
+    for multi_pod in (False, True):
+        try:
+            lm.make_production_mesh(multi_pod=multi_pod)
+        except ValueError as e:
+            refused.append(str(e))
+    if len(refused) != 2:
+        raise AssertionError("a production mesh was built on one rank")
+    say("dist", meshes={k: (m.device_type, tuple(m.mesh_dim_names),
+                            tuple(m.shape)) for k, m in meshes.items()},
+        production_refused=json.dumps(refused))
+    return meshes
+
+
+def _same_placed(placed, source) -> int:
+    """Leaves checked: every placed leaf's ``full_tensor()`` equals its
+    source in dtype and bits (non-tensor leaves pass through as given)."""
+    import torch
+    from repro_torch.train import _tree
+    n = 0
+    for p, s in zip(_tree.leaves(placed), _tree.leaves(source), strict=True):
+        if not isinstance(s, torch.Tensor):
+            if p is not s:
+                raise AssertionError("a non-tensor leaf was replaced")
+            continue
+        full = p.full_tensor()
+        if not (full.dtype == s.dtype and torch.equal(full, s)):
+            raise AssertionError("a placed leaf differs from its source")
+        n += 1
+    return n
+
+
+def _timed_place(tree, specs, mesh, rules):
+    import torch
+    from repro_torch.dist import sharding as dsh
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with dsh.axis_rules(rules):
+        placed = dsh.place(tree, specs, mesh)
+    torch.cuda.synchronize()
+    return placed, round((time.perf_counter() - t0) * 1e3, 3)
+
+
+def dist_place(meshes: dict) -> None:
+    """qwen1.5-0.5b at full width placed under DEFAULT_RULES and
+    SERVE_RULES, its exact plans (24b ADC) by ``plan_specs``, and a paged
+    decode state by ``cache_specs(paged=True)`` under
+    MULTIPOD_SERVE_RULES; every leaf gathered back bit for bit."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.launch.serve import calibration_tokens
+    from repro_torch.models import pim_compile as pc
+    from repro_torch.models import transformer as T
+    cfg = configs.get(ARCH)
+    params = T.init_params(cfg, seed=0, device="cuda")
+    specs = T.param_specs(cfg)
+    # the group's first collective (NCCL's communicator) and DTensor's
+    # first use, apart from the placements' times
+    one = {"w": params["final_norm"]["scale"]}
+    _, ms = _timed_place(one, {"w": (None,)}, meshes["test"],
+                         dsh.DEFAULT_RULES)
+    say("dist", first_placement_ms=ms, leaves=1)
+    for name in ("DEFAULT_RULES", "SERVE_RULES"):
+        placed, ms = _timed_place(params, specs, meshes["test"],
+                                  getattr(dsh, name))
+        say("dist", place="params", rules=name, params=n_params_of(params),
+            leaves=_same_placed(placed, params), place_ms=ms,
+            equal="bit for bit")
+        del placed
+    exact = dataclasses.replace(cfg, pim_mode="exact")
+    compiled = pc.compile_pim_params(params, exact, calibration_tokens(cfg, 16))
+    if compiled.specs != pc.plan_specs(exact):
+        raise AssertionError("CompiledPim.specs != plan_specs")
+    placed, ms = _timed_place(compiled.plans, compiled.specs, meshes["test"],
+                              dsh.DEFAULT_RULES)
+    say("dist", place="exact plans", adc_bits=exact.pim_adc_bits,
+        leaves=_same_placed(placed, compiled.plans), place_ms=ms,
+        equal="bit for bit")
+    del placed, compiled
+    layout = T.PagedLayout(n_blocks=4 * N_SLOTS, block_size=BLOCK)
+    state = T.init_decode_state(cfg, N_SLOTS, 4 * BLOCK, per_slot_pos=True,
+                                paged=layout, device="cuda")
+    placed, ms = _timed_place(state, T.cache_specs(cfg, paged=True),
+                              meshes["pod"], dsh.MULTIPOD_SERVE_RULES)
+    say("dist", place="paged decode state", rules="MULTIPOD_SERVE_RULES",
+        blocks=layout.n_blocks, leaves=_same_placed(placed, state),
+        place_ms=ms, equal="bit for bit")
+
+
+def dist_step(meshes: dict):
+    """DIST_STEPS train steps of qwen1.5-0.5b at published size under the
+    one-rank mesh (DTensor leaves, gathered, reduced) and without a mesh,
+    from one start and on one batch stream: losses and parameters must be
+    equal bit for bit (each collective is an identity on one rank).
+    Returns the gradients of one more batch, without a mesh."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.models import transformer as T
+    from repro_torch.train import _tree
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+    cfg = dataclasses.replace(configs.get(ARCH), micro_batches=1)
+    ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=DIST_STEPS,
+                           state_dtype=cfg.opt_state_dtype)
+    data = SyntheticLM(vocab_size=TRAIN_DATA_VOCAB, seq_len=DIST_SEQ,
+                       batch_size=TRAIN_BATCH, seed=0)
+    start = T.init_params(cfg, seed=0, device="cuda")
+    batches = [tl.to_device(data.batch(i), start)
+               for i in range(DIST_STEPS + 1)]
+    mesh, specs = meshes["test"], T.param_specs(cfg)
+    runs = {}
+    for run in ("mesh", "plain"):
+        params = _tree.tree_map(torch.clone, start)  # placing aliases
+        state = opt.init_state(ocfg, params)
+        step = tl.make_train_step(cfg, ocfg)
+        losses, dts = [], []
+        with dsh.axis_rules(dsh.DEFAULT_RULES):
+            if run == "mesh":
+                params = dsh.place(params, specs, mesh)
+                state = dsh.place(state, opt.state_specs(specs), mesh)
+            for b in batches[:DIST_STEPS]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if run == "mesh":
+                    with dsh.use_mesh(mesh):
+                        params, state, m = step(params, state, b)
+                else:
+                    params, state, m = step(params, state, b)
+                losses.append(m["loss"].item())
+                dts.append(time.perf_counter() - t0)
+        if run == "mesh":
+            params = _tree.tree_map(lambda t: t.full_tensor(), params)
+        runs[run] = (losses, dts, params)
+        del state
+    (lm_, dm, pm), (lp, dp, pp) = runs["mesh"], runs["plain"]
+    worst = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(_tree.leaves(pm), _tree.leaves(pp)))
+    same = lm_ == lp and all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(_tree.leaves(pm), _tree.leaves(pp), strict=True))
+    say("dist", step=f"{DIST_STEPS} x ({TRAIN_BATCH} x {DIST_SEQ})",
+        leaves=len(_tree.leaves(pp)), losses_mesh=json.dumps(lm_),
+        losses_plain=json.dumps(lp), params_max_abs_diff=worst,
+        equal="bit for bit" if same else "NO",
+        step_ms_median_mesh=round(statistics.median(dm) * 1e3, 3),
+        step_ms_median_plain=round(statistics.median(dp) * 1e3, 3),
+        step_ms_mesh=json.dumps([round(t * 1e3, 3) for t in dm]),
+        step_ms_plain=json.dumps([round(t * 1e3, 3) for t in dp]))
+    if not same:
+        raise AssertionError(
+            f"the one-rank mesh's step differs from the plain step: losses "
+            f"{lm_} vs {lp}, largest parameter difference {worst}")
+    del pm, start
+    _, grads = tl.make_grad_fn(cfg)(pp, batches[DIST_STEPS])
+    return grads
+
+
+def dist_compressed(meshes: dict, grads) -> None:
+    """``compressed_psum`` over "data" of the one-rank mesh on a
+    full-width gradient tree with an error carry: equal to
+    ``compress_decompress`` leaf by leaf, and on three leaves to the same
+    function on the CPU, bit for bit; timed beside its byte bound."""
+    import torch
+    from repro_torch.train import _tree
+    from repro_torch.train import compression as comp
+    err = _tree.tree_map(lambda g: g * 0.01, grads)
+
+    def fn():
+        return comp.compressed_psum(grads, meshes["test"], "data", err)
+    mean, new_err = fn()
+    paths, gs = _tree.flatten(grads)
+    for g, e, m, ne in zip(gs, _tree.leaves(err), _tree.leaves(mean),
+                           _tree.leaves(new_err), strict=True):
+        want, want_err = comp.compress_decompress(g, e)
+        if not (torch.equal(m, want) and torch.equal(ne, want_err)):
+            raise AssertionError("compressed_psum != compress_decompress")
+    by_size = sorted(range(len(gs)), key=lambda i: gs[i].numel())
+    cpu_checked = []
+    for i in (by_size[0], by_size[len(gs) // 2], by_size[-1]):
+        want, want_err = comp.compress_decompress(gs[i].cpu(),
+                                                  _tree.leaves(err)[i].cpu())
+        if not (torch.equal(_tree.leaves(mean)[i].cpu(), want)
+                and torch.equal(_tree.leaves(new_err)[i].cpu(), want_err)):
+            raise AssertionError(f"{paths[i]}: card != CPU")
+        cpu_checked.append(paths[i])
+    del mean, new_err
+    dts = []
+    for _ in range(3):  # host clock to a sync: ~6,000 launches a call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        dts.append((time.perf_counter() - t0) * 1e3)
+    n = sum(g.numel() for g in gs)
+    nbytes = 4 * n * gs[0].element_size()  # read g, e; write mean, error
+    say("dist", compressed_psum="data", leaves=len(gs), elements=n,
+        dtype=str(gs[0].dtype), equal="bit for bit",
+        cpu_equal=json.dumps(cpu_checked), ms_median=round(sorted(dts)[1], 3),
+        ms=json.dumps([round(t, 3) for t in dts]),
+        bound_ms=round(nbytes / HBM_BYTES_PER_S * 1e3, 4), bound_by="bytes")
+
+
+def dist_checkpoint(meshes: dict, d: str) -> None:
+    """A checkpoint of qwen1.5-0.5b's placed parameters (full width) and of
+    a reduced AdamW state, saved from the 1x1 mesh under DEFAULT_RULES and
+    restored with ``shardings=`` onto the 1x1x1 mesh under MULTIPOD_RULES,
+    bit for bit."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.models import transformer as T
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+    reduced = configs.get(ARCH).reduced(vocab_size=64)
+    ocfg = opt.AdamWConfig()
+    small = T.init_params(reduced, seed=0, device="cuda")
+    state = opt.init_state(ocfg, small)
+    tl.make_train_step(reduced, ocfg)(small, state, tl.to_device(
+        SyntheticLM(64, 32, 8, seed=7).batch(0), small))  # moments != 0
+    cfg = configs.get(ARCH)
+    for name, c, tree, specs in (
+            ("params", cfg, T.init_params(cfg, seed=0, device="cuda"),
+             T.param_specs(cfg)),
+            ("reduced adamw state", reduced, state,
+             opt.state_specs(T.param_specs(reduced)))):
+        path = os.path.join(d, name.replace(" ", "_"))
+        with dsh.axis_rules(dsh.DEFAULT_RULES):
+            placed = dsh.place(tree, specs, meshes["test"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(path, 1, placed)
+        save_s = time.perf_counter() - t0
+        with dsh.axis_rules(dsh.MULTIPOD_RULES):
+            sh = dsh.named_shardings(specs, tree, meshes["pod"])
+        t0 = time.perf_counter()
+        back, step, _ = ckpt.restore(path, tree, shardings=sh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if step != 1 or any(t.device_mesh is not meshes["pod"]
+                            for t in _leaves_placed(back)):
+            raise AssertionError(f"{name}: restored off the pod mesh")
+        say("dist", checkpoint=name, leaves=_same_placed(back, tree),
+            n=n_params_of(tree), save_s=round(save_s, 3),
+            restore_s=round(restore_s, 3), onto="1x1x1 pod mesh",
+            rules="MULTIPOD_RULES", equal="bit for bit")
+        del placed, back
+
+
+def _leaves_placed(tree) -> list:
+    from repro_torch.train import _tree
+    return [t for t in _tree.leaves(tree) if hasattr(t, "device_mesh")]
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,serve,telemetry,nonideal,train,"
-                    "moe,hybrid,encoder,decoders,paper,timing",
+                    "dist,moe,hybrid,encoder,decoders,paper,timing",
                     help="comma list of phases to run (default: all)")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -4242,6 +4567,8 @@ def main() -> int:
     ctx.pop("qwen", None)  # free qwen's weights before the larger models
     if "train" in phases:
         phase_train()
+    if "dist" in phases:
+        phase_dist()
     if "moe" in phases:
         phase_moe(ctx, rows)
     if "hybrid" in phases:

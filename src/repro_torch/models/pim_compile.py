@@ -35,7 +35,9 @@ Sites compile in three steps:
 Everything runs on the params' device. Plans come out as ``{"layers":
 [{"core": {...}, "ffn": {...}}, ...], "head": leaf}``, None for an rwkv
 layer; leaf keys match the reference's, and an expert site's leaves carry
-a leading expert axis. ``CompiledPim.report`` prices every site with
+a leading expert axis. ``CompiledPim.specs`` holds the plans' logical
+sharding axes (``plan_specs``; one layer's for ``compile_layer``), built
+from ``transformer.layer_param_specs``. ``CompiledPim.report`` prices every site with
 the §2.5 energy model (``core.energy``): converts/MAC, ADC energy share,
 the slice-count histogram, as the reference's does, value for value.
 """
@@ -86,10 +88,12 @@ class SitePlan:
 
 @dataclasses.dataclass
 class CompiledPim:
-    """Plan tree + the per-site table, and the config they compiled for."""
+    """Plan tree + the per-site table, the config they compiled for, and
+    the plans' logical sharding axes (``plan_specs``)."""
     cfg: ArchConfig
     plans: dict
     sites: tuple[SitePlan, ...]
+    specs: dict | None = None
 
     def site(self, name: str) -> SitePlan:
         for s in self.sites:
@@ -386,7 +390,8 @@ def compile_pim_params(params: dict, cfg: ArchConfig,
     sites.extend(head_sites)
     plans = {"layers": layer_plans,
              "head": {k: v[0] for k, v in head.items()}}
-    return CompiledPim(cfg=cfg, plans=plans, sites=tuple(sites))
+    return CompiledPim(cfg=cfg, plans=plans, sites=tuple(sites),
+                       specs=plan_specs(cfg))
 
 
 def compile_layer(bp: dict, cfg: ArchConfig, layer: int,
@@ -407,4 +412,49 @@ def compile_layer(bp: dict, cfg: ArchConfig, layer: int,
         T.apply_block(bp, cfg, layer, x_cal, positions, plan=taps)
         plans, sites = _compile_position(
             [bp], [taps], cfg, layer % len(cfg.block_pattern))
-    return CompiledPim(cfg=cfg, plans=plans[0], sites=tuple(sites))
+    return CompiledPim(cfg=cfg, plans=plans[0], sites=tuple(sites),
+                       specs=layer_plan_specs(cfg, layer))
+
+
+# ------------------------------------------------------------------ specs
+def _site_specs(ws: tuple, mode: str) -> dict:
+    """Plan-leaf logical axes derived from one weight's spec tuple.
+
+    ``ws`` ends with (in_axis, out_axis); a leading entry is the expert
+    axis of a MoE site. The int8 offset planes keep the float weight's
+    layout; per-column terms keep the output axis; the per-site slice
+    tables (shifts/validity masks) are replicated along the padded slice
+    axis.
+    """
+    lead, out_ax = ws[:-2], ws[-1]
+    common = {"w_q": ws, "w_scale": lead + (out_ax,), "x_scale": lead}
+    if mode in ("fast", "int8"):
+        return dict(common, w_off=ws, centers=lead + (out_ax,),
+                    scale=lead + (out_ax,))
+    # exact: planes (n_slices, n_seg, rows_per_xbar, cols) per instance
+    return dict(common, planes=lead + (None, None, None, out_ax),
+                enc_centers=lead + (None, out_ax),
+                slice_shifts=lead + (None,),
+                slice_valid=lead + (None,))
+
+
+def layer_plan_specs(cfg: ArchConfig, layer: int) -> dict | None:
+    """Logical axes of layer ``layer``'s plan dict (None for an rwkv layer
+    or mode 'off')."""
+    paths = _block_projections(cfg, layer % len(cfg.block_pattern))
+    if cfg.pim_mode == "off" or paths is None:
+        return None
+    ps = T.layer_param_specs(cfg, layer)
+    return {g: {n: _site_specs(ps[g][n], cfg.pim_mode) for n in names}
+            for g, names in paths.items()}
+
+
+def plan_specs(cfg: ArchConfig) -> dict | None:
+    """Logical sharding axes mirroring ``compile_pim_params``'s plans:
+    ``{"layers": [...], "head": ...}``, None in mode 'off'."""
+    if cfg.pim_mode == "off":
+        return None
+    return {"layers": [layer_plan_specs(cfg, layer)
+                       for layer in range(cfg.n_layers)],
+            "head": _site_specs(T.param_specs(cfg)["embed"]["head"],
+                                cfg.pim_mode)}

@@ -20,6 +20,7 @@ Public surface:
   prefill / prefill_chunk / decode_step / insert_request
   init_layer / apply_block / run_layer       -> one layer (fresh / cached)
   PagedLayout / prefill_chunk_paged / insert_request_paged
+  param_specs(cfg) / cache_specs(cfg, paged=) -> logical sharding axes
 
 Decode states hold one cache dict per layer and ``pos``: a Python int
 (lockstep; the host always knows it) or a ``(B,)`` int64 tensor (per-slot,
@@ -156,6 +157,85 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> dict:
     return {"embed": embed, "layers": layers,
             "final_norm": {"scale": torch.ones(
                 d, dtype=getattr(torch, cfg.dtype), device=dev)}}
+
+
+# ------------------------------------------------------------------ specs
+# Logical sharding axes of each leaf, the reference's (``L.init_attention``,
+# ``L.init_mlp``, ``L.init_moe``, ``ssm.init_mamba``, ``ssm.init_rwkv``,
+# ``ssm.init_rwkv_channel_mix``, ``L.init_embedding``), per layer: the
+# reference's stacked spec without its leading repeat ``None``.
+_MLP_SPECS = {"w1": ("fsdp", "tp"), "w3": ("fsdp", "tp"),
+              "w2": ("tp", "fsdp")}
+_MOE_SPECS = {"router": (None, None), "w1": ("experts", "fsdp", "tp"),
+              "w3": ("experts", "fsdp", "tp"),
+              "w2": ("experts", "tp", "fsdp")}
+_MAMBA_SPECS = {
+    "in_proj": ("fsdp", "tp"), "conv_w": (None, "tp"), "conv_b": ("tp",),
+    "x_proj": ("tp", None), "dt_proj": (None, "tp"), "dt_bias": ("tp",),
+    "A_log": ("tp", None), "D": ("tp",), "out_proj": ("tp", "fsdp")}
+_RWKV_SPECS = {
+    "mix": (None, None),
+    "wr": ("fsdp", "tp"), "wk": ("fsdp", "tp"), "wv": ("fsdp", "tp"),
+    "wg": ("fsdp", "tp"), "wo": ("tp", "fsdp"),
+    "decay_base": (None,), "decay_A": (None, None), "decay_B": (None, None),
+    "bonus": ("heads", None), "ln_x": (None,)}
+_RWKV_CHANNEL_MIX_SPECS = {"mix": (None, None), "wk": ("fsdp", "tp"),
+                           "wv": ("tp", "fsdp"), "wr": ("fsdp", None)}
+
+
+def layer_param_specs(cfg: ArchConfig, layer: int) -> dict:
+    """Logical axes of layer ``layer``'s parameter dict."""
+    kind = block_kind(cfg, layer)
+    if kind == "attn":
+        core = {"wq": ("fsdp", "heads"), "wk": ("fsdp", "kv_heads"),
+                "wv": ("fsdp", "kv_heads"), "wo": ("heads", "fsdp")}
+        if cfg.qkv_bias:
+            core.update(bq=("heads",), bk=("kv_heads",), bv=("kv_heads",))
+        if cfg.qk_norm:
+            core.update(q_norm=(None,), k_norm=(None,))
+    else:
+        core = dict(_MAMBA_SPECS if kind == "mamba" else _RWKV_SPECS)
+    if kind == "rwkv":
+        ffn = dict(_RWKV_CHANNEL_MIX_SPECS)
+    else:
+        ffn = dict(_MOE_SPECS if L.is_moe_layer(cfg, layer) else _MLP_SPECS)
+    return {"norm1": {"scale": (None,)}, "core": core,
+            "norm2": {"scale": (None,)}, "ffn": ffn}
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """Logical sharding axes mirroring the ``init_params`` tree, built from
+    tables (no array is allocated, so a 400B config resolves at once)."""
+    return {"embed": {"embed": ("vocab", "fsdp"), "head": ("fsdp", "vocab")},
+            "layers": [layer_param_specs(cfg, layer)
+                       for layer in range(cfg.n_layers)],
+            "final_norm": {"scale": (None,)}}
+
+
+def cache_specs(cfg: ArchConfig, *, paged: bool = False) -> dict:
+    """Logical shardings of the ``init_decode_state`` tree (the KV cache
+    seq-sharded). A paged pool shards its *block* axis on ``cache_batch``
+    (blocks play the role per-slot regions play contiguously); an int8
+    cache's ``k_scale``/``v_scale`` drop the head-dim axis; ``pos`` is
+    replicated."""
+    caches = []
+    for layer in range(cfg.n_layers):
+        kind = block_kind(cfg, layer)
+        if kind == "attn":
+            kv = (("cache_batch", None, "kv_heads", None) if paged
+                  else ("cache_batch", "seq", "kv_heads", None))
+            c = {"k": kv, "v": kv}
+            if cfg.kv_cache_dtype == "int8":
+                c["k_scale"] = c["v_scale"] = kv[:-1]
+        elif kind == "mamba":
+            c = {"h": ("cache_batch", "tp", None),
+                 "conv": ("cache_batch", None, "tp")}
+        else:
+            c = {"h": ("cache_batch", "heads", None, None),
+                 "x_prev": ("cache_batch", None),
+                 "cm_prev": ("cache_batch", None)}
+        caches.append(c)
+    return {"caches": caches, "pos": ()}
 
 
 def init_layer(cfg: ArchConfig, layer: int, *, seed: int = 0,

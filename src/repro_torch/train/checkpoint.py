@@ -14,9 +14,15 @@ leaf is stored as its ``uint16`` bits under the logical dtype
 ``"bfloat16"``. ``restore`` places every leaf on the device and in the
 dtype of the matching leaf of ``tree_like``: the one-card form of the
 reference's elastic re-placement, so a checkpoint written from the card
-restores on the CPU and the other way round. Saves can run on a
-background thread (``AsyncCheckpointer``), which copies the state to the
-host first, so the step loop never waits on the disk.
+restores on the CPU and the other way round. With ``shardings=`` (a tree
+of ``repro_torch.dist.NamedSharding``) ``restore`` re-places every leaf
+as a DTensor on that sharding's mesh instead: elastic restart onto
+another mesh. A tree of DTensors (a placed train state) saves as full
+tensors: every rank calls ``save``, each leaf is gathered, rank 0 writes,
+and a barrier holds the ranks until the checkpoint is published; the
+format does not change. Saves can run on a background thread
+(``AsyncCheckpointer``), which copies the state to the host first, so the
+step loop never waits on the disk.
 """
 
 from __future__ import annotations
@@ -36,6 +42,24 @@ from repro_torch.train import _tree
 _MANIFEST = "manifest.json"
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+def _gathered(tree: Any) -> tuple[Any, bool]:
+    """(``tree`` with each DTensor leaf gathered into a plain tensor — a
+    collective that every rank of its mesh must join — whether any was)."""
+    from torch.distributed.tensor import DTensor
+    flat = _tree.leaves(tree)
+    if not any(isinstance(t, DTensor) for t in flat):
+        return tree, False
+    return _tree.unflatten(tree, [
+        t.full_tensor() if isinstance(t, DTensor) else t for t in flat]), True
+
+
 def _host_array(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
     """(the array to store, its logical dtype name) of a tensor leaf;
     bfloat16 becomes its uint16 bits."""
@@ -48,9 +72,25 @@ def _host_array(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
 
 def save(directory: str, step: int, tree: Any, *,
          extra: dict | None = None) -> str:
-    """Synchronous atomic save. Returns the final checkpoint path."""
-    os.makedirs(directory, exist_ok=True)
+    """Synchronous atomic save. Returns the final checkpoint path. A tree
+    with DTensor leaves is gathered (every rank calls this), written by
+    rank 0, and the ranks meet at a barrier after the publish."""
+    tree, placed = _gathered(tree)
+    final = _write(directory, step, tree, extra)
+    if placed:
+        import torch.distributed as dist
+        dist.barrier()
+    return final
+
+
+def _write(directory: str, step: int, tree: Any,
+           extra: dict | None) -> str:
+    """Write a tree of plain tensors; in a process group only rank 0
+    writes."""
     final = os.path.join(directory, f"step_{step:09d}")
+    if _rank() != 0:
+        return final
+    os.makedirs(directory, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -90,12 +130,13 @@ class AsyncCheckpointer:
 
     def save(self, step: int, tree: Any, *, extra: dict | None = None) -> None:
         self.wait()
-        # snapshot before the next in-place step (a copy on the CPU too)
+        # snapshot before the next in-place step (a copy on the CPU too);
+        # DTensor leaves are gathered here, on the calling thread
         host_tree = _tree.tree_map(
-            lambda t: t.detach().to("cpu", copy=True), tree)
+            lambda t: t.detach().to("cpu", copy=True), _gathered(tree)[0])
         self._thread = threading.Thread(
-            target=save, args=(self.directory, step, host_tree),
-            kwargs={"extra": extra}, daemon=True)
+            target=_write, args=(self.directory, step, host_tree, extra),
+            daemon=True)
         self._thread.start()
 
     def wait(self) -> None:
@@ -120,11 +161,14 @@ def _load_leaf(path: str, i: int, logical: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(directory: str, tree_like: Any, *, step: int | None = None
-            ) -> tuple[Any, int, dict]:
-    """Load a checkpoint into the structure of ``tree_like``, each leaf on
-    the device and in the dtype of ``tree_like``'s leaf at its place.
-    Returns (tree, step, extra)."""
+def restore(directory: str, tree_like: Any, *, step: int | None = None,
+            shardings: Any = None) -> tuple[Any, int, dict]:
+    """Load a checkpoint into the structure of ``tree_like``, each leaf in
+    the dtype of ``tree_like``'s leaf at its place and on its device — or,
+    where ``shardings`` (a tree of ``NamedSharding`` of that structure,
+    refit to the stored shapes) has a sharding, as a DTensor placed by it
+    on its mesh: elastic restart after a topology change. Every rank of
+    the mesh calls it. Returns (tree, step, extra)."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
@@ -141,13 +185,20 @@ def restore(directory: str, tree_like: Any, *, step: int | None = None
                                                      paths_like)) if a != b)
         raise ValueError(f"leaf {bad}: checkpoint has {meta['paths'][bad]!r}"
                          f", expected {paths_like[bad]!r} — structure changed")
+    if shardings is not None:
+        from repro_torch.dist import sharding as dsh
+        shardings = _tree.leaves(dsh.sanitize_shardings(shardings, tree_like))
     leaves = []
     for i, like in enumerate(flat_like):
         t = _load_leaf(path, i, meta["leaves"][i]["dtype"])
         if tuple(t.shape) != tuple(like.shape):
             raise ValueError(f"leaf {i}: shape {tuple(t.shape)} != "
                              f"{tuple(like.shape)}")
-        leaves.append(t.to(device=like.device, dtype=like.dtype))
+        sh = None if shardings is None else shardings[i]
+        if sh is None:
+            leaves.append(t.to(device=like.device, dtype=like.dtype))
+        else:
+            leaves.append(dsh.distribute(t.to(like.dtype), sh))
     return (_tree.unflatten(tree_like, leaves), step,
             meta.get("extra", {}))
 

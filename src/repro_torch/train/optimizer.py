@@ -11,8 +11,9 @@ Unlike the reference's, ``apply_updates`` updates the parameters and the
 moments in place, under ``torch.no_grad()``, as the port's decode state is
 updated in place: a step at full width would otherwise hold two copies of
 the weights and of both moments. It returns the same objects it was given.
-The logical sharding of the state (``state_specs``) waits for the port's
-sharding rules.
+The state's logical shardings (``state_specs``) mirror the parameters';
+placed as DTensors (``repro_torch.dist.place``), the update runs on them
+unchanged, each rank on its shards.
 """
 
 from __future__ import annotations
@@ -109,3 +110,8 @@ def apply_updates(cfg: AdamWConfig, params: Any, grads: Any,
         v.copy_(v32)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def state_specs(param_specs: Any) -> dict:
+    """Optimizer-state logical shardings mirror the parameter shardings."""
+    return {"m": param_specs, "v": param_specs, "step": ()}

@@ -14,6 +14,23 @@ by ``lm_loss``'s checkpointed logits chunks.
 
 Batches stay on the host until the loop moves them to the parameters'
 device; ``train`` times each step to a device synchronisation on the loss.
+
+Under a mesh (``repro_torch.dist.use_mesh``) the step is data-parallel,
+the counterpart of the reference's gradients pinned to the parameter
+shardings (``train_loop.py:36-43``) plus GSPMD's batch-sharded reduction.
+Parameters and optimizer state are DTensors placed by ``param_specs`` /
+``state_specs`` (``dist.place``). Each step gathers full plain leaves,
+takes this rank's slice of the batch along the mesh axes ``"batch"``
+resolves to (``"data"`` under ``DEFAULT_RULES``, ``("pod", "data")``
+under ``MULTIPOD_RULES``), runs the forward and backward above unchanged
+(remat and micro-batches included), and reduces each gradient
+explicitly: a ``Partial("avg")`` over the batch axes redistributed to the
+parameter's placements, a reduce-scatter into an FSDP shard and an
+all-reduce where the leaf is replicated (DTensor's backward of
+``full_tensor()`` reduces nothing: it assumes every rank computed the same
+thing). The loss is averaged over the batch ranks, and AdamW runs on the
+DTensor leaves. Compute is not tensor-parallel: every rank runs the whole
+model on its slice of the batch.
 """
 
 from __future__ import annotations
@@ -25,6 +42,7 @@ from typing import Any, Callable, Iterator
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import sharding as dsh
 from repro_torch.models import transformer as T
 from repro_torch.train import _tree
 from repro_torch.train import optimizer as opt
@@ -33,8 +51,9 @@ from repro_torch.train import optimizer as opt
 def make_grad_fn(cfg: ArchConfig, loss_fn: Callable | None = None
                  ) -> Callable:
     """(params, batch) -> (loss, grads): the train step's gradients, over
-    ``cfg.micro_batches`` micro-batches. ``params`` is not modified (its
-    leaves' ``requires_grad`` included)."""
+    ``cfg.micro_batches`` micro-batches; under a mesh, this rank's part of
+    the data-parallel step (module docstring). ``params`` is not modified
+    (its leaves' ``requires_grad`` included)."""
     loss_fn = loss_fn or (lambda p, b: T.lm_loss(p, cfg, b))
     n_micro = max(1, cfg.micro_batches)
     acc_dt = getattr(torch, cfg.opt_state_dtype)
@@ -49,7 +68,7 @@ def make_grad_fn(cfg: ArchConfig, loss_fn: Callable | None = None
                                     materialize_grads=True)
         return loss.detach(), list(g)
 
-    def grad_fn(params, batch):
+    def local_grad_fn(params, batch):
         if n_micro == 1:
             loss, grads = grads_of(params, batch)
             return loss, _tree.unflatten(params, grads)
@@ -66,7 +85,63 @@ def make_grad_fn(cfg: ArchConfig, loss_fn: Callable | None = None
         grads = [(a / n_micro).to(acc_dt) for a in gsum]
         return lsum / n_micro, _tree.unflatten(params, grads)
 
+    def grad_fn(params, batch):
+        mesh = dsh.active_mesh()
+        if mesh is None:
+            return local_grad_fn(params, batch)
+        return _data_parallel(local_grad_fn, mesh, params, batch)
+
     return grad_fn
+
+
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _batch_dims(mesh) -> list[int]:
+    """The mesh dims that the logical ``"batch"`` axis resolves to under
+    the bound rules (none: every rank takes the whole batch)."""
+    spec = dsh.spec_for(("batch",), mesh)
+    if not spec:
+        return []
+    axes = (spec[0],) if isinstance(spec[0], str) else spec[0]
+    return [mesh.mesh_dim_names.index(a) for a in axes]
+
+
+def _data_parallel(local_grad_fn, mesh, params, batch):
+    """One rank's part of the data-parallel gradient (module docstring):
+    (the loss averaged over the batch ranks, gradients placed as the
+    parameters are; a plain parameter leaf counts as replicated and gets
+    a plain gradient)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    dims = _batch_dims(mesh)
+    n, idx = 1, 0
+    coord = mesh.get_coordinate()
+    for d in dims:  # major first, as the batch dim is sharded
+        n, idx = n * mesh.shape[d], idx * mesh.shape[d] + coord[d]
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n:
+        raise ValueError(f"a batch of {rows} rows does not split over "
+                         f"{n} batch ranks")
+    per = rows // n
+    local_batch = {k: v[idx * per:(idx + 1) * per] for k, v in batch.items()}
+    leaves = _tree.leaves(params)
+    full = [_plain(p) for p in leaves]
+    loss, grads = local_grad_fn(_tree.unflatten(params, full), local_batch)
+    del full
+    reduce = [Partial("avg") if d in dims else Replicate()
+              for d in range(mesh.ndim)]
+    out = []
+    for p, g in zip(leaves, _tree.leaves(grads), strict=True):
+        target = (p.placements if isinstance(p, DTensor)
+                  else [Replicate()] * mesh.ndim)
+        gd = DTensor.from_local(g, mesh, reduce, run_check=False
+                                ).redistribute(mesh, target)
+        out.append(gd if isinstance(p, DTensor) else gd.to_local())
+    loss = DTensor.from_local(loss, mesh, reduce, run_check=False
+                              ).full_tensor()
+    return loss, _tree.unflatten(params, out)
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: opt.AdamWConfig,
@@ -79,6 +154,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: opt.AdamWConfig,
         loss, grads = grad_fn(params, batch)
         new_p, new_o, metrics = opt.apply_updates(opt_cfg, params, grads,
                                                   opt_state)
+        if dsh.active_mesh() is not None:  # plain scalars for the caller
+            metrics = {k: _plain(v) for k, v in metrics.items()}
         return new_p, new_o, dict(metrics, loss=loss)
 
     return train_step

@@ -90,9 +90,10 @@ def test_engine_needs_plans_in_pim_modes(model):
 
 def test_imports_are_torch_only():
     """A fresh interpreter imports every repro_torch module (the paper
-    artifacts and the training substrate included) and chip_smoke.py;
-    neither jax, the reference package nor the reference's ``benchmarks``
-    scripts may load."""
+    artifacts, the training substrate and the distribution layer included)
+    and chip_smoke.py; neither jax, the reference package nor the
+    reference's ``benchmarks`` scripts may load, and no import opens a
+    process group."""
     code = (
         "import importlib, pkgutil, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
@@ -108,8 +109,11 @@ def test_imports_are_torch_only():
         "assert 'repro_torch.serve.paged' in sys.modules\n"
         "assert 'repro_torch.paper.fig15_noise' in sys.modules\n"
         "for m in ('train.fault_tolerance', 'data.pipeline', "
-        "'launch.train'):\n"
+        "'launch.train', 'dist', 'dist.sharding', 'dist.compat', "
+        "'launch.mesh', 'train.compression'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'an import opened a group'\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
