@@ -85,6 +85,32 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            distinct shape times its calls); the launcher with
            ``--device-corner 1sigma``; ``--phases build,serve,nonideal``
            runs it;
+  disagg   the paged engine's disaggregated prefill/decode mode: two
+           processes on ``cuda:0``, a prefill rank and a decode rank of one
+           ``gloo`` group (a FileStore in a temporary directory; NCCL
+           takes one rank per card), slices
+           ``make_disaggregated_meshes((1, 1, 1), (1, 1, 1))``. Each rank
+           builds qwen1.5-0.5b at its published size (bf16, the serve
+           phase's seed) with its pinned exact and fast plans at the 24b
+           ADC; per-leaf checksums of both trees must be equal across the
+           ranks. The serve phase's 4 requests (max_len 32, blocks of 16)
+           in ``disagg-exact`` (K2, a 5-block pool that must evict) and
+           ``disagg-fast`` (K3): launches per rank equal the plans'
+           per-call count times the prefill chunks (prefill rank) or the
+           decode steps (decode rank); the first engine call's kernel
+           calls on each rank (338 K2 / 169 K3) held bit for bit against
+           the plain version; handoff bytes and ms per request beside
+           bytes / 3.35 TB/s, median decode step ms, evictions; tokens
+           equal to the one-process paged and continuous engines' on the
+           same trace, run on the decode rank after the disaggregated
+           runs (and to the serve phase's, when it ran);
+  examples the port's last three examples as subprocesses on the card
+           (``python -m repro_torch.examples.<name>``, through
+           ``runpy``): quickstart (Algorithm 1 through K1, a slicing
+           chosen, ``forward_exact`` through K2 with converts saved > 0,
+           ``forward_fast`` through K3, rel errors, ResNet18), serve_quantized
+           (K3 on the LM head, its rel error) and pim_accuracy_demo
+           (Table 4's keys, K1 and K2); wall times and launches printed;
   train    training on the card, no kernel on its path (``pim_mode``
            off; every kernel's launch count must stay 0): one
            ``make_grad_fn`` step of reduced qwen1.5-0.5b and reduced
@@ -247,6 +273,10 @@ three fast runs, K1 in chameleon's Algorithm 1 compile),
 ``decoders_max_abs_err`` and ``decoders_ms``, ``decoders_bound_ms``,
 ``decoders_bound_by`` and ``decoders_library_ms`` for one decode step of
 each model (K1: chameleon's search shape), summed over the models.
+With the disagg phase they add ``disagg_launches`` (both ranks' K2 in
+disagg-exact and K3 in disagg-fast; K1 and K4: 0) and
+``disagg_max_abs_err`` (its comparisons); with the examples phase,
+``examples_launches`` (the three examples' runs together).
 With the paper phase they add ``paper_launches`` (the artifacts' runs),
 ``paper_max_abs_err`` (its comparisons) and ``paper_ms``,
 ``paper_plain_ms``, ``paper_bound_ms``, ``paper_bound_by`` and
@@ -3167,6 +3197,15 @@ def phase_timing(ctx: dict, rows: list) -> list:
                 hybrid_bound_ms=h.get("bound_ms"),
                 hybrid_bound_by=h.get("bound_by"),
                 hybrid_library_ms=h.get("library_ms"))
+        if "disagg_launches" in ctx:  # the disagg phase's two ranks
+            out[-1].update(
+                disagg_launches=ctx["disagg_launches"].get(name, 0),
+                disagg_max_abs_err=max(
+                    (r["max_abs_err"] for r in rows if r["kernel"] == name
+                     and str(r.get("site", "")).startswith("disagg")),
+                    default=None))
+        if "examples_launches" in ctx:  # the examples' subprocesses
+            out[-1]["examples_launches"] = ctx["examples_launches"][name]
         if "paper_launches" in ctx:  # the paper phase's artifacts
             p = ctx["paper_kernels"].get(name)
             b = p and bound(p["bytes"], p["ops"])
@@ -4525,12 +4564,369 @@ def _leaves_placed(tree) -> list:
     return [t for t in _tree.leaves(tree) if hasattr(t, "device_mesh")]
 
 
+# ------------------------------------------------------------- disagg
+DISAGG_WORLD = 2  # a prefill rank and a decode rank, both on cuda:0
+DISAGG_TIMEOUT_S = 600
+# the disaggregated runs: (name, pim_mode, pool blocks or None = no
+# pressure, the kernel of the mode)
+DISAGG_RUNS = (("disagg-exact", "exact", 5, "fused_spec_crossbar"),
+               ("disagg-fast", "fast", None, "centered_int8_matmul"))
+
+
+def phase_disagg(ctx: dict, rows: list) -> None:
+    """The paged engine's disaggregated prefill/decode mode on two ranks
+    of one ``gloo`` group (spawned processes on ``cuda:0``; NCCL takes one
+    rank per card), qwen1.5-0.5b at its published size; each rank's
+    results come back as JSON and are checked and printed here."""
+    import multiprocessing
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp = multiprocessing.get_context("spawn")
+        procs = [mp.Process(target=disagg_rank, args=(rank, d))
+                 for rank in range(DISAGG_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DISAGG_TIMEOUT_S
+        try:
+            for p in procs:
+                p.join(max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        res = []
+        for rank, p in enumerate(procs):
+            path = Path(d) / f"rank{rank}.json"
+            if not path.exists():
+                raise AssertionError(f"disagg rank {rank}: exit code "
+                                     f"{p.exitcode}, no result")
+            res.append(json.loads(path.read_text()))
+    for rank, r in enumerate(res):
+        if "traceback" in r:
+            raise AssertionError(f"disagg rank {rank} raised:\n"
+                                 f"{r['traceback']}")
+    for rank, r in enumerate(res):
+        for line in r["lines"]:
+            say("disagg", rank=rank, **line)
+        rows += r["rows"]
+    if res[0]["checksums"] != res[1]["checksums"]:
+        raise AssertionError("the ranks' params or plans differ")
+    launches = {}
+    for name, _, _, kernel in DISAGG_RUNS:
+        toks = [r["tokens"][name] for r in res]
+        ref = res[1]["reference"][name]
+        if not (toks[0] == toks[1] == ref["paged"] == ref["continuous"]):
+            raise AssertionError(f"{name}: disaggregated tokens {toks}, "
+                                 f"one-process paged {ref['paged']}, "
+                                 f"continuous {ref['continuous']}")
+        serve = ctx.get("qwen", {}).get("tokens", {}).get(
+            name.split("-")[1])
+        if serve is not None and serve != toks[0]:
+            raise AssertionError(f"{name}: tokens differ from the serve "
+                                 "phase's continuous engine's")
+        launches[kernel] = launches.get(kernel, 0) + sum(
+            r["launches"][name][kernel] for r in res)
+    ctx["disagg_launches"] = launches
+    say("disagg", ok=True, world=DISAGG_WORLD, backend="gloo",
+        phase_s=round(time.perf_counter() - t0, 3),
+        launches=json.dumps(launches),
+        checksummed_leaves=len(res[0]["checksums"]),
+        tokens_equal="disaggregated == one-process paged == continuous "
+        "(run on the decode rank)" + (" == serve phase" if "qwen" in ctx
+                                      else ""))
+
+
+def disagg_rank(rank: int, d: str) -> None:
+    """One rank of the disagg phase, in its own process: open the group,
+    serve, write ``rank<rank>.json`` (a traceback if anything raised)."""
+    import datetime
+    import traceback
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(os.path.join(d, "store"),
+                                         DISAGG_WORLD),
+            rank=rank, world_size=DISAGG_WORLD,
+            timeout=datetime.timedelta(seconds=DISAGG_TIMEOUT_S // 2))
+        try:
+            res = disagg_serve(rank)
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        res = {"traceback": traceback.format_exc()}
+    Path(d, f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def leaf_checksums(tree) -> list:
+    """Two wrapping int64 sums per tensor leaf over its bytes read as
+    int64 words (zero-padded), one of them position-weighted: equal trees
+    give equal lists."""
+    import torch
+    from repro_torch.train import _tree
+    out = []
+    for path, t in zip(*_tree.flatten(tree)):
+        if not isinstance(t, torch.Tensor):
+            continue
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        if b.numel() % 8:
+            b = torch.cat([b, b.new_zeros(-b.numel() % 8)])
+        w = b.view(torch.int64)
+        pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
+        out.append([path, int(w.sum()), int((w * pos).sum())])
+    return out
+
+
+def record_first(kernel: str, n: int) -> tuple:
+    """Wrap ``kernel``'s launcher so that its first ``n`` calls keep their
+    operands and results; returns (the record, the undo)."""
+    from repro_torch.kernels import fused_spec_crossbar as fs
+    from repro_torch.kernels import int8_matmul as im
+    mod = {"fused_spec_crossbar": fs, "centered_int8_matmul": im}[kernel]
+    orig, log = mod.launch, []
+
+    def launch(*args, **kw):
+        out = orig(*args, **kw)
+        if len(log) < n:
+            log.append((args, kw, out))
+        return out
+    mod.launch = launch
+    return log, lambda: setattr(mod, "launch", orig)
+
+
+def disagg_serve(rank: int) -> dict:
+    """A rank's part: qwen1.5-0.5b at published size (bf16, the serve
+    phase's seed) with its pinned exact and fast plans at the 24b ADC,
+    checksummed; the serve phase's 4 requests through the disaggregated
+    ``PagedServeEngine`` in each of ``DISAGG_RUNS`` (launches counted, the
+    first engine call's kernel calls recorded and held bit for bit
+    against the plain version, handoffs and decode steps timed); on the
+    decode rank, the same trace through the one-process paged and
+    continuous engines."""
+    import dataclasses
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.kernels import fused_spec_crossbar as fs
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch.serve import calibration_tokens
+    from repro_torch.models import pim
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ContinuousServeEngine, PagedServeEngine
+    cfg0 = configs.get(ARCH)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg0, seed=0, device="cuda")
+    calib = calibration_tokens(cfg0, 16)
+    cfgs, plans = {}, {}
+    for _, mode, _, _ in DISAGG_RUNS:
+        cfgs[mode] = dataclasses.replace(cfg0, pim_mode=mode)
+        plans[mode] = pim.compile_pim_params(params, cfgs[mode], calib).plans
+    checksums = leaf_checksums({"params": params, "plans": plans})
+    torch.cuda.synchronize()
+    lines = [dict(scope="model", arch=ARCH, dtype=cfg0.dtype,
+                  layers=cfg0.n_layers, setup_s=round(
+                      time.perf_counter() - t0, 3),
+                  checksummed_leaves=len(checksums))]
+    pm, dm = lm.make_disaggregated_meshes((1, 1, 1), (1, 1, 1))
+    reqs = serve_requests(cfg0.vocab_size)
+    max_len = BLOCK * -(-(max(len(r.prompt) for r in reqs) + 8 + 1)
+                        // BLOCK)
+    out = dict(checksums=checksums, lines=lines, rows=[], tokens={},
+               launches={}, reference={})
+    for name, mode, n_blocks, kernel in DISAGG_RUNS:
+        kw = dict(n_slots=N_SLOTS, max_len=max_len, prefill_chunk=64,
+                  block_size=BLOCK, plans=plans[mode])
+        if n_blocks is not None:
+            kw["n_blocks"] = n_blocks
+        eng = PagedServeEngine(cfgs[mode], params, prefill_mesh=pm,
+                               decode_mesh=dm, **kw)
+        n_proj = len(step_calls(cfgs[mode], plans[mode]))
+        per_call = PER_CALL[mode]
+        log, undo = record_first(kernel, per_call[kernel] * n_proj)
+        steps = []
+        decode = eng._decode_split
+
+        def timed(live, *a, _decode=decode):
+            t = time.perf_counter()
+            _decode(live, *a)
+            if live:
+                steps.append(time.perf_counter() - t)
+        eng._decode_split = timed
+        dist.barrier()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        try:
+            outs = eng.run(reqs)
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        serve_s = time.perf_counter() - t1
+        launches = ops.launch_counts()
+        st = eng.stats
+        calls = st.prefill_chunks if eng.role == "prefill" \
+            else st.decode_steps
+        want = {k: per_call.get(k, 0) * n_proj * calls for k in launches}
+        if launches != want:
+            raise AssertionError(f"{name} {eng.role}: launches {launches}, "
+                                 f"want {want}")
+        if st.blocks_in_use != 0 or (n_blocks is not None
+                                     and st.evictions < 1):
+            raise AssertionError(f"{name}: {st}")
+        if (eng.state is None) != (eng.role == "prefill"):
+            raise AssertionError(f"{name}: the pool is on the wrong slice")
+        mod = fs if kernel == "fused_spec_crossbar" else im
+        mine = []
+        for i, (args, kwa, got) in enumerate(log):
+            row = compare(kernel, got, mod.plain(*args, **kwa),
+                          site=f"disagg.{name}.{eng.role}.call{i}",
+                          B=args[0].shape[0], R=args[0].shape[1],
+                          C=(got[0] if isinstance(got, tuple)
+                             else got).shape[-1])
+            mine.append(row)
+        del log
+        out["rows"] += mine
+        out["tokens"][name] = [o.tokens.tolist() for o in outs]
+        out["launches"][name] = launches
+        n_h = max(eng.handoffs, 1)
+        lines.append(dict(
+            mode=name, role=eng.role, serve_s=round(serve_s, 3),
+            tokens=sum(len(o.tokens) for o in outs),
+            prefill_chunks=st.prefill_chunks, decode_steps=st.decode_steps,
+            evictions=st.evictions, admission_waits=st.admission_waits,
+            launches=json.dumps({k: v for k, v in launches.items() if v}),
+            launches_per_call=json.dumps(
+                {k: v / max(calls, 1) for k, v in launches.items() if v}),
+            handoffs=eng.handoffs,
+            handoff_bytes_per_request=eng.handoff_bytes / n_h,
+            handoff_ms_per_request=1e3 * eng.handoff_seconds / n_h,
+            handoff_bound_ms=1e3 * eng.handoff_bytes / n_h
+            / HBM_BYTES_PER_S,
+            decode_step_ms_median=1e3 * statistics.median(steps),
+            decode_step_ms_min=1e3 * min(steps),
+            prefill_s=round(st.prefill_seconds, 3),
+            decode_s=round(st.decode_seconds, 3),
+            checked_calls=len(mine), max_abs_err=max(
+                r["max_abs_err"] for r in mine),
+            pool_on_rank=eng.state is not None))
+        del eng, outs
+        torch.cuda.empty_cache()
+    if rank == DISAGG_WORLD - 1:  # the decode rank: one-process engines
+        t1 = time.perf_counter()
+        for name, mode, n_blocks, _ in DISAGG_RUNS:
+            kw = dict(n_slots=N_SLOTS, max_len=max_len, prefill_chunk=64,
+                      plans=plans[mode])
+            paged_kw = dict(kw, block_size=BLOCK)
+            if n_blocks is not None:
+                paged_kw["n_blocks"] = n_blocks
+            out["reference"][name] = {
+                "paged": [o.tokens.tolist() for o in PagedServeEngine(
+                    cfgs[mode], params, **paged_kw).run(reqs)],
+                "continuous": [o.tokens.tolist() for o in
+                               ContinuousServeEngine(cfgs[mode], params,
+                                                     **kw).run(reqs)]}
+        lines.append(dict(scope="one-process paged and continuous "
+                          "engines on the same trace (reference tokens)",
+                          seconds=round(time.perf_counter() - t1, 3)))
+    lines.append(dict(scope="rank total", rank_s=round(
+        time.perf_counter() - t0, 3)))
+    return out
+
+
+# ----------------------------------------------------------- examples
+EXAMPLES = ("quickstart", "serve_quantized", "pim_accuracy_demo")
+# run a module as ``python -m`` does, then print the kernels' launches
+EXAMPLE_RUNNER = ("import json, runpy, sys\n"
+                  "from repro_torch.kernels import ops\n"
+                  "runpy.run_module(sys.argv.pop(1), run_name='__main__', "
+                  "alter_sys=True)\n"
+                  "print('launches ' + json.dumps(ops.launch_counts()))\n")
+
+
+def phase_examples(ctx: dict) -> None:
+    """The port's three last examples as subprocesses on the card
+    (``python -m repro_torch.examples.<name>``): their key lines checked,
+    their wall times and launches printed."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    launches = {}
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", EXAMPLE_RUNNER,
+             f"repro_torch.examples.{name}"], capture_output=True, text=True,
+            timeout=600, cwd=ROOT, env=env)
+        wall_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"example {name} failed:\n{proc.stderr}")
+        text = proc.stdout
+        ran = json.loads(text.rsplit("launches ", 1)[1])
+        checks = check_example(name, text, ran)
+        launches[name] = ran
+        say("examples", example=name, wall_s=round(wall_s, 3),
+            launches=json.dumps({k: v for k, v in ran.items() if v}),
+            **checks)
+    ctx["examples_launches"] = {
+        k: sum(ran[k] for ran in launches.values())
+        for k in launches[EXAMPLES[0]]}
+    say("examples", ok=True, launches=json.dumps(ctx["examples_launches"]))
+
+
+def check_example(name: str, text: str, launches: dict) -> dict:
+    """The key lines of one example's output; raises on a missing one."""
+    def find(pattern):
+        m = re.search(pattern, text)
+        if m is None:
+            raise AssertionError(f"{name}: no line matches {pattern!r}:\n"
+                                 f"{text}")
+        return m
+    if name == "quickstart":
+        chose = find(r"chose \(([\d, ]+)\) \((\d+) slices/weight\), "
+                     r"measured error ([\d.]+)")
+        conv = find(r"ADC converts (\d+) vs recovery-only (\d+) \((\d+)% "
+                    r"saved\), speculation failure rate ([\d.]+)%")
+        rel = re.findall(r"rel error vs float: ([\d.]+)", text)
+        find(r"\(CUDA kernel on .*H100")
+        find(r"converts/MAC [\d.]+ -> [\d.]+; energy")
+        if not (int(conv[1]) < int(conv[2]) and len(rel) == 2):
+            raise AssertionError(f"quickstart: {conv.group(0)}, {rel}")
+        need = ("fused_crossbar", "fused_spec_crossbar",
+                "centered_int8_matmul")
+        out = dict(slicing=chose[1].replace(" ", ""),
+                   converts=int(conv[1]), recovery_only=int(conv[2]),
+                   failure_rate_pct=float(conv[4]),
+                   exact_rel_err=float(rel[0]), fast_rel_err=float(rel[1]))
+    elif name == "serve_quantized":
+        find(r"bf16 engine: \(8, 16\) tokens for 8 requests")
+        rel = find(r"LM head \(CUDA kernel on .*\): rel err ([\d.]+)")
+        need = ("centered_int8_matmul",)
+        out = dict(head_rel_err=float(rel[1]))
+    else:
+        keys = [line.split(" ", 1)[0] for line in text.splitlines()
+                if not line.startswith("launches ")]
+        want = ["float_accuracy", "center", "zero",
+                "paper_table4_drops_center_vs_zero"]
+        if keys != want:
+            raise AssertionError(f"pim_accuracy_demo printed {keys}")
+        need = ("fused_crossbar", "fused_spec_crossbar")
+        out = dict(table4_keys=json.dumps(keys))
+    missing = [k for k in need if launches.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"{name} launched no {missing}")
+    return out
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,serve,telemetry,nonideal,train,"
-                    "dist,moe,hybrid,encoder,decoders,paper,timing",
+                    default="build,kernels,serve,telemetry,nonideal,disagg,"
+                    "examples,train,dist,moe,hybrid,encoder,decoders,paper,"
+                    "timing",
                     help="comma list of phases to run (default: all)")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -4564,6 +4960,10 @@ def main() -> int:
         phase_telemetry(ctx)
     if "nonideal" in phases:
         phase_nonideal(ctx)
+    if "disagg" in phases:
+        phase_disagg(ctx, rows)
+    if "examples" in phases:
+        phase_examples(ctx)
     ctx.pop("qwen", None)  # free qwen's weights before the larger models
     if "train" in phases:
         phase_train()

@@ -1,5 +1,5 @@
 """Worker side of the port's multi-rank tests (``test_torch_dist_ranks.py``,
-``test_torch_compression.py``).
+``test_torch_compression.py``, ``test_torch_disagg.py``).
 
 ``spawn(task, world, tmp, payload)`` starts ``world`` processes by the
 ``spawn`` method, each one rank of a ``gloo`` process group over a
@@ -332,4 +332,144 @@ def task_compression(rank: int, payload: dict, tmp: Path) -> dict:
                 coordinate=tuple(square.get_coordinate()))
 
 
-TASKS = {"dist": task_dist, "compression": task_compression}
+def decisions(eng, step) -> dict:
+    """Run one iteration of a paged engine; log what its scheduler decided
+    in it (either package's engine)."""
+    before = set(eng.active_uids)
+    n_ev = eng.stats.evictions
+    finished = sorted(o.uid for o in step())
+    now = set(eng.active_uids)
+    return dict(admitted=sorted(now - before),
+                left=sorted(before - now - set(finished)),
+                finished=finished, evictions=eng.stats.evictions - n_ev,
+                queue=[r.uid for r in eng.queue],
+                waits=eng.stats.admission_waits,
+                hits=eng.stats.prefix_block_hits,
+                in_use=eng.stats.blocks_in_use,
+                tables=np.asarray(eng.tables).tolist(),
+                free=list(eng.alloc.free))
+
+
+def counts(tel) -> dict:
+    """A telemetry registry's counters and gauges, and its histograms'
+    observation counts (their sums are host times)."""
+    out = {}
+    for name, m in tel.registry.snapshot().items():
+        if m["type"] == "histogram":
+            out[name] = [(s["labels"], s["count"]) for s in m["series"]]
+        else:
+            out[name] = [(s["labels"], s["value"]) for s in m["series"]]
+    return out
+
+
+def _host_state(eng) -> dict:
+    """What every rank of a disaggregated engine must agree on, and where
+    its device state lives."""
+    stats = {k: v for k, v in eng.stats.snapshot().items()
+             if not k.endswith("_seconds")}
+    return dict(role=eng.role, stats=stats, tables=eng.tables.tolist(),
+                free=list(eng.alloc.free), pool=eng.state is not None,
+                handoffs=eng.handoffs, handoff_bytes=eng.handoff_bytes)
+
+
+def task_disagg(rank: int, payload: dict, tmp: Path) -> dict:
+    """The disaggregated paged engine on 4 ranks, slices (1, 1, 2) +
+    (1, 1, 2): each of ``payload["runs"]`` served (tokens, host state,
+    staged states seen on decode ranks), a pressure trace logged an
+    iteration at a time, a first decode rank that misses an iteration
+    (the others must fail on the group's timeout), and meshes that leave
+    rank 3 in neither slice."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch import mesh as lm
+    from repro_torch.models import convert, pim
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import ServeTelemetry
+    from repro_torch.serve import PagedServeEngine
+    pm, dm = lm.make_disaggregated_meshes((1, 1, 2), (1, 1, 2),
+                                          device_type="cpu")
+    out: dict = {"rank": rank}
+    models: dict = {}
+    for name, run in payload["runs"].items():
+        if run["arch"] not in models:
+            arch = run["arch"]
+            cfg = configs.get(arch).reduced(dtype="float32",
+                                            kv_cache_dtype="float32")
+            params = (T.init_params(cfg, seed=0, device="cpu")
+                      if arch not in payload["np_params"] else
+                      convert.params_from_reference(
+                          copy.deepcopy(payload["np_params"][arch]), cfg,
+                          "cpu"))
+            models[arch] = cfg, params
+        cfg, params = models[run["arch"]]
+        cfg = dataclasses.replace(cfg, pim_mode=run["mode"])
+        plans = (None if run["mode"] == "off" else
+                 pim.prepare_pim_params(params, cfg, payload["calib"]))
+        tel = ServeTelemetry(engine="paged") if run.get("telemetry") \
+            else None
+        eng = PagedServeEngine(cfg, params, plans=plans, prefill_mesh=pm,
+                               decode_mesh=dm, telemetry=tel, **run["kw"])
+        for r in run["requests"]:
+            eng.submit(r)
+        log, outs, staged = [], [], set()
+
+        def step():
+            done = eng.step()
+            outs.extend(done)
+            return done
+        while eng.has_work:
+            log.append(decisions(eng, step))
+            staged |= {s.state1 is not None for s in eng.slots if s}
+            if len(log) > 500:
+                raise RuntimeError(f"{name}: no drain in 500 iterations")
+        out[name] = dict(tokens={o.uid: o.tokens for o in outs},
+                         reasons={o.uid: o.finish_reason for o in outs},
+                         log=log, staged=sorted(staged),
+                         metrics=None if tel is None else counts(tel),
+                         **_host_state(eng))
+        del eng
+    out["timeout"] = _missed_iteration(rank, pm, dm, models, payload)
+    pm1, dm1 = lm.make_disaggregated_meshes((1, 1, 1), (1, 1, 2),
+                                            device_type="cpu")
+    cfg, params = models[next(iter(payload["runs"].values()))["arch"]]
+    try:
+        eng = PagedServeEngine(cfg, params, n_slots=2, max_len=16,
+                               block_size=4, prefill_mesh=pm1,
+                               decode_mesh=dm1)
+        out["neither"] = eng.role
+    except ValueError as e:
+        out["neither"] = str(e)
+    return out
+
+
+def _missed_iteration(rank, pm, dm, models, payload) -> dict:
+    """Every rank but the first decode rank (rank 2) steps an engine whose
+    groups time out after 3 s; rank 2 skips the iteration. Each other rank
+    must raise within the timeout's order instead of hanging."""
+    import datetime
+    import time
+    from repro_torch.serve import PagedServeEngine
+    from repro_torch.serve import paged
+    cfg, params = models[next(iter(payload["runs"].values()))["arch"]]
+    saved = paged.GROUP_TIMEOUT
+    paged.GROUP_TIMEOUT = datetime.timedelta(seconds=3)
+    try:
+        eng = PagedServeEngine(cfg, params, n_slots=2, max_len=16,
+                               prefill_chunk=8, block_size=4,
+                               prefill_mesh=pm, decode_mesh=dm)
+    finally:
+        paged.GROUP_TIMEOUT = saved
+    eng.submit(payload["runs"]["off"]["requests"][0])
+    t0 = time.perf_counter()
+    if rank == 2:
+        return dict(error=None, seconds=0.0)
+    try:
+        eng.step()
+        err = None
+    except RuntimeError as e:
+        err = type(e).__name__ + ": " + str(e).splitlines()[0]
+    return dict(error=err, seconds=time.perf_counter() - t0)
+
+
+TASKS = {"dist": task_dist, "compression": task_compression,
+         "disagg": task_disagg}

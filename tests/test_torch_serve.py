@@ -90,9 +90,10 @@ def test_engine_needs_plans_in_pim_modes(model):
 
 def test_imports_are_torch_only():
     """A fresh interpreter imports every repro_torch module (the paper
-    artifacts, the training substrate and the distribution layer included)
-    and chip_smoke.py; neither jax, the reference package nor the
-    reference's ``benchmarks`` scripts may load, and no import opens a
+    artifacts, the training substrate, the distribution layer and the
+    examples included) and chip_smoke.py; neither jax, the reference
+    package nor the reference's ``benchmarks`` scripts may load, and
+    neither an import nor a paged engine built without meshes opens a
     process group."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -110,10 +111,19 @@ def test_imports_are_torch_only():
         "assert 'repro_torch.paper.fig15_noise' in sys.modules\n"
         "for m in ('train.fault_tolerance', 'data.pipeline', "
         "'launch.train', 'dist', 'dist.sharding', 'dist.compat', "
-        "'launch.mesh', 'train.compression'):\n"
+        "'launch.mesh', 'train.compression', 'examples.quickstart', "
+        "'examples.serve_quantized', 'examples.pim_accuracy_demo'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized(), 'an import opened a group'\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.models import transformer as T\n"
+        "from repro_torch.serve import PagedServeEngine\n"
+        "cfg = configs.get('yi-6b').reduced()\n"
+        "eng = PagedServeEngine(cfg, T.init_params(cfg, seed=0, "
+        "device='cpu'), max_len=16, block_size=4)\n"
+        "assert eng.role is None and not eng.staged_prefill\n"
+        "assert not dist.is_initialized(), 'the engine opened a group'\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
