@@ -104,9 +104,9 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            equal to the one-process paged and continuous engines' on the
            same trace, run on the decode rank after the disaggregated
            runs (and to the serve phase's, when it ran);
-  examples the port's last three examples as subprocesses on the card
-           (``python -m repro_torch.examples.<name>``, through
-           ``runpy``): quickstart (Algorithm 1 through K1, a slicing
+  examples the port's last three examples as subprocesses on the card,
+           all three at once (``python -m repro_torch.examples.<name>``,
+           through ``runpy``): quickstart (Algorithm 1 through K1, a slicing
            chosen, ``forward_exact`` through K2 with converts saved > 0,
            ``forward_fast`` through K3, rel errors, ResNet18), serve_quantized
            (K3 on the LM head, its rel error) and pim_accuracy_demo
@@ -146,6 +146,25 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            with ``shardings=`` onto the pod mesh under MULTIPOD_RULES, bit
            for bit; K1-K4 launches must stay 0; ``--phases dist`` runs it
            alone (~30 s);
+  dryrun   the dry run (``repro_torch.launch.dryrun``): the cells of
+           jamba-1.5-large-398b, phi3.5-moe-42b and qwen1.5-0.5b on both
+           meshes (20 of the 62; the whole sweep takes longer than this
+           script may, ``--all`` runs it) on fake tensors and fake
+           256/512-rank groups, as ``python -m repro_torch.launch.dryrun
+           --arch ... --jobs N`` in a subprocess on the host's cores, every
+           cell ``ok``, one line per cell (GiB per device, fits, the three
+           roofline terms, the bound), the fits count and the bounds'
+           histogram; meanwhile
+           qwen1.5-0.5b's per-rank programs of ``decode_32k`` and
+           ``prefill_32k`` on the 16x16 mesh (8 sequences against a
+           32,768-position cache; 2 x 32,768 prompt tokens) run for real
+           on the card (weights from seed 0, zeroed caches and tokens,
+           bf16): ``FlopCounterMode``'s count must equal the sweep's
+           ``hlo_flops_per_device``, ``max_memory_allocated`` must lie
+           within 15% of its ``per_device_bytes``, and the median of 10
+           timed runs is printed beside ``compute_s``, ``memory_s`` and
+           the roofline fraction reached; K1-K4 launches must stay 0;
+           ``--phases dryrun`` runs it alone;
   moe      phi3.5-moe-42b at its published widths, 4 of its 32 layers
            (random bf16 weights from a seed): the same 4 requests through
            ``ContinuousServeEngine`` in ``exact`` (K2 per expert),
@@ -288,10 +307,12 @@ each (K3 and K4: 0 launches, null). The last line is ``{"ok": true,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -337,6 +358,19 @@ ENCODER_ROWS = ENCODER_BATCH * ENCODER_SEQ  # rows every projection gets
 # are 68.6, 65.5 and 222.4 GB in bf16)
 DECODERS = (("chameleon-34b", 4, True), ("qwen2.5-32b", 4, False),
             ("qwen1.5-110b", 2, False))
+# the dry run's per-rank programs held against the card (qwen1.5-0.5b,
+# 16x16 mesh), its timed runs, the peak-memory tolerance, the archs swept
+# on both meshes (the longest cells first), the sweep's worker processes
+# (the host's cores less the main process's) and its limit. The
+# whole sweep, all 62 cells, takes longer than this script may (rwkv6-3b's
+# train cells alone take minutes): run it by hand with
+# ``python -m repro_torch.launch.dryrun --all --jobs N``
+DRYRUN_PROGRAMS = ("decode_32k", "prefill_32k")
+DRYRUN_ARCHS = ("jamba-1.5-large-398b", "phi3.5-moe-42b", ARCH)
+DRYRUN_RUNS = 10
+DRYRUN_MEM_TOL = 0.15
+DRYRUN_JOBS = max(1, min(6, (os.cpu_count() or 2) - 2))
+DRYRUN_SWEEP_TIMEOUT = 900
 
 
 def say(phase: str, **fields) -> None:
@@ -2695,12 +2729,12 @@ def device_us(e) -> float:
 def device_profile(eng, reqs) -> dict:
     """Serve ``reqs`` under ``torch.profiler``: every kernel's device time
     summed by name (CUPTI records), the launches, and the six kernels that
-    took the most."""
+    took the most. Only device activity is recorded: host-op records cost
+    more to process than the run itself."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.run(reqs)
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -2738,8 +2772,7 @@ def k1_compile_device_time(params, cfg, calib) -> dict:
     from repro_torch.models import pim
     n0 = fx.KERNEL.launches
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         compiled = pim.compile_pim_params(params, cfg, calib)
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -4004,8 +4037,8 @@ def phase_train() -> None:
     t0 = time.perf_counter()
     train_card_vs_cpu()
     train_full_width()
-    train_restart()
-    train_launcher()
+    with train_launcher():  # a subprocess beside the restart checks
+        train_restart()
     launches = {k: v for k, v in ops.launch_counts().items() if v}
     if launches:
         raise AssertionError(f"kernels launched while training: {launches}")
@@ -4151,8 +4184,7 @@ def train_step_breakdown(cfg, ocfg, state, batch, step_s: float) -> dict:
     t2 = time.perf_counter()
     del grads
     step = tl.make_train_step(cfg, ocfg)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step(state.params, state.opt_state, batch)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
@@ -4235,9 +4267,12 @@ def train_restart() -> None:
         leaves=len(_tree.leaves(card)), bf16_leaves=n_bf16)
 
 
-def train_launcher() -> None:
+@contextlib.contextmanager
+def train_launcher():
     """``python -m repro_torch.launch.train --reduced --resilient`` as a
-    subprocess on the card."""
+    subprocess on the card, running while the context's body runs (its
+    ``launch_s`` then includes their sharing of the card); checked when
+    the body ends."""
     import tempfile
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     with tempfile.TemporaryDirectory() as d:
@@ -4245,15 +4280,21 @@ def train_launcher() -> None:
                ARCH, "--reduced", "--steps", "20", "--ckpt-dir", d,
                "--ckpt-every", "5", "--resilient"]
         t0 = time.perf_counter()
-        out = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=600, cwd=ROOT, env=env)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, cwd=ROOT,
+                                env=env)
+        try:
+            yield
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
         launch_s = time.perf_counter() - t0
-    if out.returncode != 0 or "done at step 20" not in out.stdout:
-        raise AssertionError(f"launcher rc {out.returncode}: "
-                             f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
-    say("train", launcher=" ".join(cmd[2:]), rc=out.returncode,
+    if proc.returncode != 0 or "done at step 20" not in stdout:
+        raise AssertionError(f"launcher rc {proc.returncode}: "
+                             f"{stdout[-2000:]} {stderr[-2000:]}")
+    say("train", launcher=" ".join(cmd[2:]), rc=proc.returncode,
         launch_s=round(launch_s, 3),
-        last_line=out.stdout.strip().splitlines()[-1])
+        last_line=stdout.strip().splitlines()[-1])
 
 
 # ---------------------------------------------------------------- dist
@@ -4573,6 +4614,184 @@ DISAGG_RUNS = (("disagg-exact", "exact", 5, "fused_spec_crossbar"),
                ("disagg-fast", "fast", None, "centered_int8_matmul"))
 
 
+@contextlib.contextmanager
+def dryrun_sweep():
+    """The dry run's cells of ``DRYRUN_ARCHS`` on both meshes, as ``python
+    -m repro_torch.launch.dryrun`` in a subprocess of its own session
+    writing into a temporary directory, at the lowest CPU priority (the
+    card's host work comes first); killed with its workers if it still
+    runs when the context exits. -> (process, reports directory, log
+    path)."""
+    import signal
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "reports")
+        log_path = os.path.join(d, "sweep.log")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH"))
+            if p))
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 ",".join(DRYRUN_ARCHS), "--jobs", str(DRYRUN_JOBS),
+                 "--out", out],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+                start_new_session=True, preexec_fn=lambda: os.nice(19))
+            try:
+                yield proc, out, log_path
+            finally:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+
+
+def phase_dryrun() -> None:
+    """The sweep in a subprocess while qwen1.5-0.5b's decode_32k and
+    prefill_32k per-rank programs run for real on the card; then each
+    program is held against its cell's report (module docstring); K1-K4
+    are not launched."""
+    import torch
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    total = torch.cuda.get_device_properties(0).total_memory
+    with dryrun_sweep() as (proc, out, log_path):
+        measured = {s: dryrun_on_card(s) for s in DRYRUN_PROGRAMS}
+        waited = time.perf_counter()
+        rc = proc.wait(timeout=DRYRUN_SWEEP_TIMEOUT)
+        sweep_s = round(time.perf_counter() - t0, 1)
+        with open(log_path) as f:
+            tail = f.read()[-4000:]
+        if rc != 0:
+            raise AssertionError(f"the dry-run sweep exited {rc}:\n{tail}")
+        with open(os.path.join(out, "summary.json")) as f:
+            reports = json.load(f)
+    dryrun_sweep_lines(reports)
+    for name in DRYRUN_PROGRAMS:
+        (r,) = [r for r in reports if r["arch"] == ARCH
+                and r["shape"] == name and not r["multi_pod"]]
+        dryrun_held(name, r, measured[name], smi, total)
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    if launches:
+        raise AssertionError(f"kernels launched in dryrun: {launches}")
+    say("dryrun", phase_s=round(time.perf_counter() - t0, 3),
+        sweep_s=sweep_s, sweep_wait_s=round(sweep_s - (waited - t0), 1),
+        jobs=DRYRUN_JOBS, k1_k4_launches=0)
+
+
+def dryrun_on_card(shape_name: str) -> dict:
+    """qwen1.5-0.5b's per-rank program of ``shape_name`` on the 16x16
+    mesh, run for real on the card: the dry run's own ``rank_program``
+    (weights from seed 0, zeroed inputs and caches), one warm-up under
+    ``FlopCounterMode`` with the peak of allocated bytes above what the
+    process held before, then ``DRYRUN_RUNS`` runs timed by CUDA events."""
+    import gc
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import configs
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.dist.compat import AbstractMesh
+    from repro_torch.launch import dryrun
+    cfg = configs.get(ARCH)
+    shape = {s.name: s for s in configs.ALL_SHAPES}[shape_name]
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    with dsh.axis_rules(dryrun.cell_rules(shape, multi_pod=False)):
+        step, args = dryrun.rank_program(cfg, shape, mesh, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        with FlopCounterMode(display=False) as fc:
+            step(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = []
+        for _ in range(DRYRUN_RUNS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = step(*args)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+            del out
+    rows = args[-1][next(iter(args[-1]))].shape[0]
+    del step, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flops": fc.get_total_flops(), "peak": peak, "ms": ms,
+            "rows": rows}
+
+
+def dryrun_sweep_lines(reports: list) -> None:
+    """One line per swept cell; every cell must be ``ok``; the fits count
+    and the bounds' histogram."""
+    from repro_torch import configs
+    want = 2 * sum(len(configs.runnable_shapes(configs.get(a)))
+                   for a in DRYRUN_ARCHS)
+    if len(reports) != want:
+        raise AssertionError(f"the sweep gave {len(reports)} cells, not "
+                             f"{want}")
+    bad = [(r["arch"], r["shape"], r["multi_pod"], r.get("error"))
+           for r in reports if r["status"] != "ok"]
+    if bad:
+        raise AssertionError(f"dry-run cells not ok: {bad}")
+    bounds: dict = {}
+    for r in reports:
+        say("dryrun", cell=f"{r['arch']}/{r['shape']}/"
+            f"{'2x16x16' if r['multi_pod'] else '16x16'}",
+            gib=r["per_device_gib"], fits=r["fits_hbm"],
+            compute_s=f"{r['compute_s']:.4e}",
+            memory_s=f"{r['memory_s']:.4e}",
+            collective_s=f"{r['collective_s']:.4e}",
+            bound=r["bottleneck"],
+            useful=f"{r['useful_flops_ratio']:.4f}",
+            fake_s=r["compile_seconds"])
+        bounds[r["bottleneck"]] = bounds.get(r["bottleneck"], 0) + 1
+    say("dryrun", cells=len(reports),
+        fits=sum(r["fits_hbm"] for r in reports),
+        bounds=json.dumps(bounds, sort_keys=True))
+
+
+def dryrun_held(name: str, report: dict, m: dict, smi: str,
+                total: int) -> None:
+    """One per-rank program's card run against its cell's report: flops
+    equal, peak allocated bytes within ``DRYRUN_MEM_TOL``."""
+    from repro_torch.launch import dryrun
+    if dryrun.HBM_PER_CHIP > total:
+        raise AssertionError(f"HBM_PER_CHIP {dryrun.HBM_PER_CHIP} exceeds "
+                             f"the card's total_memory {total}")
+    if m["flops"] != report["hlo_flops_per_device"]:
+        raise AssertionError(
+            f"{name}: FlopCounterMode counted {m['flops']} on the card, the "
+            f"dry run {report['hlo_flops_per_device']}")
+    ratio = m["peak"] / report["per_device_bytes"]
+    med = statistics.median(m["ms"])
+    bound_s = max(report["compute_s"], report["memory_s"])
+    say("dryrun", program=f"{ARCH}/{name}/16x16", rows=m["rows"],
+        flops=m["flops"], dryrun_flops=report["hlo_flops_per_device"],
+        max_memory_allocated=m["peak"],
+        per_device_bytes=report["per_device_bytes"],
+        ratio=f"{ratio:.4f}", median_ms=f"{med:.3f}",
+        runs=json.dumps([round(x, 3) for x in m["ms"]]),
+        compute_s=f"{report['compute_s']:.4e}",
+        memory_s=f"{report['memory_s']:.4e}",
+        roofline_reached=f"{bound_s / (med / 1e3):.4f}",
+        total_memory=total, card=json.dumps(smi))
+    if abs(ratio - 1) > DRYRUN_MEM_TOL:
+        raise AssertionError(
+            f"{name}: max_memory_allocated {m['peak']} is not within "
+            f"{DRYRUN_MEM_TOL:.0%} of the dry run's per_device_bytes "
+            f"{report['per_device_bytes']} (ratio {ratio:.4f})")
+
+
 def phase_disagg(ctx: dict, rows: list) -> None:
     """The paged engine's disaggregated prefill/decode mode on two ranks
     of one ``gloo`` group (spawned processes on ``cuda:0``; NCCL takes one
@@ -4850,30 +5069,38 @@ EXAMPLE_RUNNER = ("import json, runpy, sys\n"
 
 def phase_examples(ctx: dict) -> None:
     """The port's three last examples as subprocesses on the card
-    (``python -m repro_torch.examples.<name>``): their key lines checked,
-    their wall times and launches printed."""
+    (``python -m repro_torch.examples.<name>``), run at once: their key
+    lines checked, the three's wall time and each one's launches
+    printed."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     launches = {}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", EXAMPLE_RUNNER, f"repro_torch.examples.{name}"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=env) for name in EXAMPLES}  # all three at once
+    try:
+        outs = {name: p.communicate(timeout=600)
+                for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            p.kill()
+    wall_s = time.perf_counter() - t0
     for name in EXAMPLES:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-c", EXAMPLE_RUNNER,
-             f"repro_torch.examples.{name}"], capture_output=True, text=True,
-            timeout=600, cwd=ROOT, env=env)
-        wall_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"example {name} failed:\n{proc.stderr}")
-        text = proc.stdout
+        text, err = outs[name]
+        if procs[name].returncode != 0:
+            raise AssertionError(f"example {name} failed:\n{err}")
         ran = json.loads(text.rsplit("launches ", 1)[1])
         checks = check_example(name, text, ran)
         launches[name] = ran
-        say("examples", example=name, wall_s=round(wall_s, 3),
+        say("examples", example=name,
             launches=json.dumps({k: v for k, v in ran.items() if v}),
             **checks)
     ctx["examples_launches"] = {
         k: sum(ran[k] for ran in launches.values())
         for k in launches[EXAMPLES[0]]}
-    say("examples", ok=True, launches=json.dumps(ctx["examples_launches"]))
+    say("examples", ok=True, wall_s=round(wall_s, 3),
+        launches=json.dumps(ctx["examples_launches"]))
 
 
 def check_example(name: str, text: str, launches: dict) -> dict:
@@ -4925,8 +5152,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,serve,telemetry,nonideal,disagg,"
-                    "examples,train,dist,moe,hybrid,encoder,decoders,paper,"
-                    "timing",
+                    "examples,train,dist,dryrun,moe,hybrid,encoder,decoders,"
+                    "paper,timing",
                     help="comma list of phases to run (default: all)")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -4948,39 +5175,33 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows: list = []
-    if "build" in phases:
-        phase_build()
-    if "kernels" in phases:
-        phase_kernels(rows)
     ctx: dict = {}
     kernels = None
-    if "serve" in phases:
-        phase_serve(ctx)
-    if "telemetry" in phases:
-        phase_telemetry(ctx)
-    if "nonideal" in phases:
-        phase_nonideal(ctx)
-    if "disagg" in phases:
-        phase_disagg(ctx, rows)
-    if "examples" in phases:
-        phase_examples(ctx)
+
+    def run(name, fn, *a):
+        if name not in phases:
+            return None
+        t0 = time.perf_counter()
+        out = fn(*a)
+        say("main", ran=name, wall_s=round(time.perf_counter() - t0, 1))
+        return out
+    run("build", phase_build)
+    run("kernels", phase_kernels, rows)
+    run("serve", phase_serve, ctx)
+    run("telemetry", phase_telemetry, ctx)
+    run("nonideal", phase_nonideal, ctx)
+    run("disagg", phase_disagg, ctx, rows)
+    run("examples", phase_examples, ctx)
     ctx.pop("qwen", None)  # free qwen's weights before the larger models
-    if "train" in phases:
-        phase_train()
-    if "dist" in phases:
-        phase_dist()
-    if "moe" in phases:
-        phase_moe(ctx, rows)
-    if "hybrid" in phases:
-        phase_hybrid(ctx, rows)
-    if "encoder" in phases:
-        phase_encoder(ctx, rows)
-    if "decoders" in phases:
-        phase_decoders(ctx, rows)
-    if "paper" in phases:
-        phase_paper(ctx, rows)
-    if "timing" in phases:
-        kernels = phase_timing(ctx, rows)
+    run("train", phase_train)
+    run("dist", phase_dist)
+    run("dryrun", phase_dryrun)
+    run("moe", phase_moe, ctx, rows)
+    run("hybrid", phase_hybrid, ctx, rows)
+    run("encoder", phase_encoder, ctx, rows)
+    run("decoders", phase_decoders, ctx, rows)
+    run("paper", phase_paper, ctx, rows)
+    kernels = run("timing", phase_timing, ctx, rows)
     print(smi, flush=True)  # again, within the tail a log keeps
     if kernels is not None:
         print(json.dumps({"kernels": kernels}), flush=True)

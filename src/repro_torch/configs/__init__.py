@@ -18,7 +18,15 @@ hubert-xlarge (frame-embedding inputs), which run ``forward`` and
 the reference's do (no decode).
 """
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import (
+    ALL_SHAPES,
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    TRAIN_4K,
+    ArchConfig,
+    InputShape,
+)
 from repro_torch.configs.chameleon_34b import CONFIG as CHAMELEON_34B
 from repro_torch.configs.hubert_xlarge import CONFIG as HUBERT_XLARGE
 from repro_torch.configs.jamba_1_5_large_398b import CONFIG as JAMBA15_LARGE
@@ -31,7 +39,11 @@ from repro_torch.configs.raella_bert_large import CONFIG as RAELLA_BERT_LARGE
 from repro_torch.configs.rwkv6_3b import CONFIG as RWKV6_3B
 from repro_torch.configs.yi_6b import CONFIG as YI_6B
 
-__all__ = ["ArchConfig", "ASSIGNED", "REGISTRY", "get"]
+__all__ = [
+    "ALL_SHAPES", "DECODE_32K", "LONG_500K", "PREFILL_32K", "TRAIN_4K",
+    "ArchConfig", "InputShape", "REGISTRY", "ASSIGNED", "get",
+    "runnable_shapes",
+]
 
 REGISTRY: dict[str, ArchConfig] = {
     c.name: c for c in (PHI35_MOE, LLAMA4_MAVERICK, JAMBA15_LARGE,
@@ -48,3 +60,18 @@ def get(name: str) -> ArchConfig:
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(REGISTRY)}")
     return REGISTRY[name]
+
+
+def runnable_shapes(cfg: ArchConfig) -> tuple[InputShape, ...]:
+    """The dry run's input shapes for ``cfg``, under the reference's two
+    skip rules:
+    - encoder-only archs have no decode step -> skip decode shapes;
+    - long_500k requires sub-quadratic attention -> SSM/hybrid only."""
+    shapes = []
+    for s in ALL_SHAPES:
+        if s.kind == "decode" and not cfg.causal:
+            continue  # encoder-only: no autoregressive step
+        if s.name == "long_500k" and cfg.family not in ("ssm", "hybrid"):
+            continue  # pure full-attention archs skip 500k decode
+        shapes.append(s)
+    return tuple(shapes)

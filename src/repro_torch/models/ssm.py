@@ -29,10 +29,17 @@ rounding (exact products, an order-free sum but for ties).
 
 RWKV6 follows the Finch formulation with the reference's simplification: a
 single learned token-shift lerp per projection and a LoRA decay.
+
+Both scans loop through ``_scan``. A cost count may set ``SCAN_LOOP`` to a
+loop of its own (``launch.hlo_analysis`` runs a few trips and counts a
+middle one once more for every trip it skips, as the reference's HLO
+count scales a while body by its trip count); left at None, every trip
+runs.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -43,6 +50,26 @@ from repro_torch.models import layers as L
 
 ROW_TILE = 64
 RWKV_LORA = 64  # rank of the decay LoRA
+
+# (trip, h, n) -> (h, ys stacked on dim 1), where trip(h, t) -> (h, y_t);
+# None runs every trip (module docstring)
+SCAN_LOOP = None
+
+
+def _scan(step, h, xs: tuple) -> tuple:
+    """``h, y_t = step(h, *(x[:, t] for x in xs))`` over the positions of
+    ``xs`` (each (B, S, ...)) -> (the last carry, the y_t stacked on dim
+    1)."""
+    def trip(h, t):
+        return step(h, *(x[:, t] for x in xs))
+    n = xs[0].shape[1]
+    if SCAN_LOOP is not None:
+        return SCAN_LOOP(trip, h, n)
+    ys = []
+    for t in range(n):
+        h, y = trip(h, t)
+        ys.append(y)
+    return h, torch.stack(ys, dim=1)
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -155,12 +182,9 @@ def mamba_scan(params: dict, cfg: ArchConfig, x: torch.Tensor, state: dict,
     -> (new state, y (B, S, d)). A zero state is a fresh sequence."""
     xc, z, dt_full, bmat, cmat, new_conv = _mamba_preprocess(
         params, cfg, x, conv_state=state["conv"], plans=plans)
-    h, ys = state["h"], []
-    for t in range(x.shape[1]):
-        h, y = _mamba_step(params, cfg, h, xc[:, t], bmat[:, t], cmat[:, t],
-                           dt_full[:, t])
-        ys.append(y)
-    y = torch.stack(ys, dim=1).to(x.dtype) * F.silu(z)
+    h, y = _scan(functools.partial(_mamba_step, params, cfg), state["h"],
+                 (xc, bmat, cmat, dt_full))
+    y = y.to(x.dtype) * F.silu(z)
     out = L.pim_matmul(y, params["out_proj"],
                        L.plan_leaf(plans, "out_proj"), cfg)
     return {"h": h, "conv": new_conv}, out
@@ -249,11 +273,9 @@ def rwkv_time_mix_scan(params: dict, cfg: ArchConfig, x: torch.Tensor,
     x_prev = torch.cat([state["x_prev"][:, None].to(x.dtype), x[:, :-1]],
                        dim=1)
     rh, kh, vh, wh, g = _rwkv_project(params, cfg, x, x_prev)
-    h, ys = state["h"], []
-    for t in range(S):
-        h, y = _rwkv_step(params, h, rh[:, t], kh[:, t], vh[:, t], wh[:, t])
-        ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(B, S, d).to(x.dtype)
+    h, y = _scan(functools.partial(_rwkv_step, params), state["h"],
+                 (rh, kh, vh, wh))
+    y = y.reshape(B, S, d).to(x.dtype)
     # group-norm-like scale, then the silu(g) gate (Finch output path)
     y = _rms_scale(y, cfg.norm_eps) * params["ln_x"] * F.silu(g)
     return dict(state, h=h, x_prev=x[:, -1]), _mm(y, params["wo"])

@@ -4,7 +4,8 @@ logging.
 Port of ``repro.train.train_loop``. ``make_train_step`` is the one train
 step: one ``torch.autograd.grad`` of the loss over the parameter leaves per
 micro-batch, then ``optimizer.apply_updates`` in place. With
-``cfg.micro_batches > 1`` the batch splits on its leading axis, the
+``cfg.micro_batches > 1`` the batch splits on its leading axis (into one
+row each where it holds fewer rows than micro-batches), the
 gradients accumulate in ``cfg.opt_state_dtype`` and are divided by the
 micro-batch count, and the loss is the micro-batches' mean, as the
 reference's ``lax.scan`` does; with one micro-batch the gradients keep the
@@ -48,6 +49,18 @@ from repro_torch.train import _tree
 from repro_torch.train import optimizer as opt
 
 
+# (micro_step, n) -> None, calling micro_step(i) for the micro-batches
+# i < n in order; None calls every one. A cost count may set a loop of its
+# own (``launch.hlo_analysis`` runs two and counts the second once more for
+# each later one: micro-batches are alike in shape).
+MICRO_LOOP = None
+
+
+def _each(micro_step: Callable, n: int) -> None:
+    for i in range(n):
+        micro_step(i)
+
+
 def make_grad_fn(cfg: ArchConfig, loss_fn: Callable | None = None
                  ) -> Callable:
     """(params, batch) -> (loss, grads): the train step's gradients, over
@@ -72,18 +85,24 @@ def make_grad_fn(cfg: ArchConfig, loss_fn: Callable | None = None
         if n_micro == 1:
             loss, grads = grads_of(params, batch)
             return loss, _tree.unflatten(params, grads)
-        mb = next(iter(batch.values())).shape[0] // n_micro
+        rows = next(iter(batch.values())).shape[0]
+        # a rank's slice may hold fewer rows than micro-batches (256 rows
+        # over 32 batch ranks in 16 micro-batches): one row each then
+        n = min(n_micro, rows)
+        mb = rows // n
         gsum = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
                 for p in _tree.leaves(params)]
-        lsum = None
-        for i in range(n_micro):
+        lsum = [None]
+
+        def micro_step(i):
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             loss, g = grads_of(params, micro)
             for a, b in zip(gsum, g):
                 a.add_(b.to(acc_dt))
-            lsum = loss if lsum is None else lsum + loss
-        grads = [(a / n_micro).to(acc_dt) for a in gsum]
-        return lsum / n_micro, _tree.unflatten(params, grads)
+            lsum[0] = loss if lsum[0] is None else lsum[0] + loss
+        (MICRO_LOOP or _each)(micro_step, n)
+        grads = [(a / n).to(acc_dt) for a in gsum]
+        return lsum[0] / n, _tree.unflatten(params, grads)
 
     def grad_fn(params, batch):
         mesh = dsh.active_mesh()

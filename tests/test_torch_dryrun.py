@@ -1,0 +1,495 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) and its cost counter
+(``repro_torch.launch.hlo_analysis``) against the reference's, on the CPU.
+
+- The input shapes, their skip rules, ``input_specs`` and
+  ``batch_logical`` equal the reference's for every arch.
+- The counter: the reference's ``TestHloAnalysis`` cases as eager loops
+  count the reference's flops on its jitted scans; ``roofline_terms``
+  equals the reference's function over the H100's constants; one
+  all-gather and one all-reduce on a fake 4-rank group carry the
+  reference's ring bytes; a sampled recurrent scan counts the flops and
+  bytes of a run of every trip, forward and backward.
+- Flops of reduced qwen1.5-0.5b and yi-6b's prefill, decode and train step
+  against the reference's ``hlo.analyze`` on a one-device jit.
+- qwen1.5-0.5b's three single-pod cells, from the port's CLI and the
+  reference's, both in subprocesses: the report fields that must agree,
+  the key sets, each cell's flops against its per-rank program run alone
+  without a mesh, serve cells' zero collectives, and the train cell's
+  all-gather bytes from its placed parameters.
+- One 512-rank cell, one cell per model family at published width, a
+  110B cell that reports >200 GB per device while allocating nothing, and
+  the CLI's failure path.
+"""
+
+import dataclasses
+import json
+import os
+import resource
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro import configs as ref_configs
+from repro.launch import hlo_analysis as rhlo
+from repro.models import transformer as RT
+from repro.train import optimizer as ropt
+from repro.train import train_loop as rtl
+from repro_torch import configs
+from repro_torch.dist import sharding as dsh
+from repro_torch.dist.compat import AbstractMesh
+from repro_torch.launch import dryrun
+from repro_torch.launch import hlo_analysis as hlo
+from repro_torch.models import transformer as T
+from repro_torch.train import optimizer as opt
+from repro_torch.train import train_loop as tl
+
+from _torch_parity import one_thread  # noqa: F401  (autouse fixture)
+
+ROOT = Path(__file__).resolve().parents[1]
+QWEN = "qwen1.5-0.5b"
+QWEN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+SAME = ("arch", "shape", "kind", "multi_pod", "n_chips", "status",
+        "params_total", "params_active", "model_flops_per_device")
+
+
+def _astuples(shapes) -> list:
+    return [dataclasses.astuple(s) for s in shapes]
+
+
+# ------------------------------------------------------------ (a), (b)
+def test_shapes_and_skip_rules_equal_the_reference():
+    assert _astuples(configs.ALL_SHAPES) == _astuples(ref_configs.ALL_SHAPES)
+    assert sorted(configs.REGISTRY) == sorted(ref_configs.REGISTRY)
+    pairs = 0
+    for name in configs.REGISTRY:
+        assert _astuples(configs.runnable_shapes(configs.get(name))) == \
+            _astuples(ref_configs.runnable_shapes(ref_configs.get(name))), \
+            name
+        if name in configs.ASSIGNED:
+            pairs += len(configs.runnable_shapes(configs.get(name)))
+    assert configs.ASSIGNED == ref_configs.ASSIGNED
+    assert pairs == 31  # x 2 meshes = the sweep's 62 cells
+
+
+def test_input_specs_equal_the_reference():
+    from repro.launch import dryrun as rdry
+    for name in configs.ASSIGNED:
+        cfg, rcfg = configs.get(name), ref_configs.get(name)
+        for shape, rshape in zip(configs.runnable_shapes(cfg),
+                                 ref_configs.runnable_shapes(rcfg)):
+            got = dryrun.input_specs(cfg, shape)
+            want = rdry.input_specs(rcfg, rshape)
+            assert sorted(got) == sorted(want)
+            for k in want:
+                assert got[k].device.type == "meta"
+                assert tuple(got[k].shape) == tuple(want[k].shape)
+                assert str(got[k].dtype).removeprefix("torch.") == \
+                    str(want[k].dtype)
+            assert dryrun.batch_logical(cfg, shape) == \
+                rdry.batch_logical(rcfg, rshape), (name, shape.name)
+
+
+# ------------------------------------------------------------ (c) counter
+def test_loop_flops_equal_the_reference_scans():
+    """The reference's TestHloAnalysis cases: a loop of 5 and nested
+    loops of 3 x 2 matmuls, run eagerly, count the flops the reference
+    counts on its jitted scans (and the closed form)."""
+    def f(x, ws):
+        def body(c, w):
+            return jnp.tanh(c @ w), None
+        return jax.lax.scan(body, x, ws)[0]
+    ref = rhlo.analyze(jax.jit(f).lower(
+        jax.ShapeDtypeStruct((64, 128), jnp.float32),
+        jax.ShapeDtypeStruct((5, 128, 128), jnp.float32)).compile().as_text())
+
+    def g(x, ws):
+        for w in ws:
+            x = torch.tanh(x @ w)
+        return x
+    _, costs, peak = hlo.analyze(g, torch.ones(64, 128),
+                                 torch.ones(5, 128, 128))
+    assert costs.flops == ref.flops == 5 * 2 * 64 * 128 * 128
+    assert peak >= (64 * 128 + 5 * 128 * 128) * 4
+
+    def f2(x, ws):
+        def outer(c, pair):
+            return jax.lax.scan(lambda ci, w: (ci @ w, None), c, pair)[0], \
+                None
+        return jax.lax.scan(outer, x, ws)[0]
+    ref = rhlo.analyze(jax.jit(f2).lower(
+        jax.ShapeDtypeStruct((32, 64), jnp.float32),
+        jax.ShapeDtypeStruct((3, 2, 64, 64), jnp.float32)).compile().as_text())
+
+    def g2(x, ws):
+        for pair in ws:
+            for w in pair:
+                x = x @ w
+        return x
+    _, costs, _ = hlo.analyze(g2, torch.ones(32, 64),
+                              torch.ones(3, 2, 64, 64))
+    assert costs.flops == ref.flops == 6 * 2 * 32 * 64 * 64
+
+
+def test_roofline_terms_are_the_reference_formula(monkeypatch):
+    t = hlo.roofline_terms(hlo.PEAK_FLOPS_BF16, 0.0, 0.0)
+    assert t["bottleneck"] == "compute"
+    assert t["roofline_fraction"] == pytest.approx(1.0)
+    t = hlo.roofline_terms(1e12, hlo.HBM_BW * 2, 0.0)
+    assert t["bottleneck"] == "memory"
+    monkeypatch.setattr(rhlo, "PEAK_FLOPS_BF16", hlo.PEAK_FLOPS_BF16)
+    monkeypatch.setattr(rhlo, "HBM_BW", hlo.HBM_BW)
+    monkeypatch.setattr(rhlo, "ICI_BW", hlo.LINK_BW)
+    for args in ((3.4e14, 2.66e13, 2.4e9), (3.3e10, 2.4e11, 0.0),
+                 (1e15, 1e12, 5e11), (0.0, 0.0, 0.0)):
+        assert hlo.roofline_terms(*args) == rhlo.roofline_terms(*args)
+    assert hlo.PEAK_FLOPS_BF16 == 989e12
+    assert hlo.HBM_BW == 3.35e12
+    assert hlo.LINK_BW == 450e9
+    assert dryrun.HBM_PER_CHIP == 80 * 10 ** 9
+
+
+@pytest.fixture
+def fake_group():
+    """Rank 0 of a fake 4-rank process group, destroyed after the test."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_collective_bytes_on_a_fake_group(fake_group):
+    """Shard -> Replicate is one all-gather of payload (s - 1) / s, Partial
+    -> Replicate one all-reduce of 2 payload (s - 1) / s, each counted at
+    the local shapes; a DTensor product counts its local flops."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard, distribute_tensor)
+    mesh = init_device_mesh("cpu", (4,))
+    with FakeTensorMode():
+        x = distribute_tensor(torch.zeros(64, 32), mesh, [Shard(0)])
+        _, c, _ = hlo.analyze(DTensor.full_tensor, x)
+        payload = 64 * 32 * 4
+        assert c.coll_bytes == {"all-gather": payload * 3 / 4}
+        assert c.coll_counts == {"all-gather": 1}
+        p = DTensor.from_local(torch.zeros(64, 32), mesh, [Partial()],
+                               run_check=False)
+        _, c, _ = hlo.analyze(lambda t: t.redistribute(mesh, [Replicate()]),
+                              p)
+        assert c.coll_bytes == {"all-reduce": 2 * payload * 3 / 4}
+        stats = hlo.collective_stats(DTensor.full_tensor, x)
+        assert stats.total_bytes == payload * 3 / 4
+        w = distribute_tensor(torch.zeros(32, 16), mesh, [Replicate()])
+        _, c, _ = hlo.analyze(torch.matmul, x, w)
+        assert c.flops == 2 * 16 * 32 * 16  # rank 0's 16 rows, not 64
+        assert c.total_coll_bytes == 0
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])
+def test_sampled_scan_counts_every_trip(arch, monkeypatch):
+    """A recurrent prefill and a rematerialized train step over 12
+    positions: the sampled scans (5 trips run) count the flops and bytes
+    of a run of all 12 trips, and their flops equal FlopCounterMode's on
+    the plain run."""
+    cfg = configs.get(arch).reduced(remat=True)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    x = torch.zeros((2, 12), dtype=torch.int32)
+    batch = {"inputs": x, "labels": x}
+    ocfg = opt.AdamWConfig()
+
+    def runs():
+        with torch.no_grad():
+            pre = hlo.analyze(T.prefill, params, cfg, x)
+        train = hlo.analyze(tl.make_train_step(cfg, ocfg), _clone(params),
+                            opt.init_state(ocfg, params), batch)
+        return pre, train
+    sampled = runs()
+    monkeypatch.setattr(hlo, "SCAN_TRIPS", 12)
+    full = runs()
+    for (_, s, speak), (_, f, fpeak) in zip(sampled, full):
+        assert s.flops == f.flops
+        assert s.hbm_bytes == f.hbm_bytes
+        assert abs(speak - fpeak) <= 0.1 * fpeak
+    with FlopCounterMode(display=False) as fc, torch.no_grad():
+        T.prefill(params, cfg, x)
+    assert fc.get_total_flops() == sampled[0][1].flops
+
+
+def _clone(tree):
+    return torch.utils._pytree.tree_map(
+        lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
+
+
+# ------------------------------------------------------------ (d) flops
+# Measured port / reference flop ratios at these sizes (B=2, S=512):
+# qwen1.5-0.5b prefill 1.0, decode 1.0, train 1.0;
+# yi-6b prefill 1.0, decode 1.0, train 1.0.
+@pytest.mark.parametrize("arch", [QWEN, "yi-6b"])
+def test_reduced_flops_against_the_reference(arch):
+    B, S = 2, 512
+    cfg, rcfg = configs.get(arch).reduced(), ref_configs.get(arch).reduced()
+    rparams = RT.init_params(rcfg, jax.random.key(0))[0]
+    toks = jnp.zeros((B, S), jnp.int32)
+
+    def ref_flops(fn, *args):
+        return rhlo.analyze(jax.jit(fn).lower(*args).compile().as_text()
+                            ).flops
+    rstate = RT.init_decode_state(rcfg, B, S)
+    rocfg = ropt.AdamWConfig()
+    ref = {"prefill": ref_flops(lambda p, t: RT.prefill(p, rcfg, t),
+                                rparams, toks),
+           "decode": ref_flops(
+               lambda p, s, t: RT.decode_step(p, rcfg, s, t), rparams,
+               rstate, toks[:, :1]),
+           "train": ref_flops(rtl.make_train_step(rcfg, rocfg), rparams,
+                              ropt.init_state(rocfg, rparams),
+                              {"inputs": toks, "labels": toks})}
+    params = T.init_params(cfg, seed=0, device="cpu")
+    x = torch.zeros((B, S), dtype=torch.int32)
+    with torch.no_grad():
+        got = {"prefill": hlo.analyze(T.prefill, params, cfg, x)[1].flops,
+               "decode": hlo.analyze(
+                   T.decode_step, params, cfg,
+                   T.init_decode_state(cfg, B, S, device="cpu"),
+                   x[:, :1])[1].flops}
+    ocfg = opt.AdamWConfig()
+    got["train"] = hlo.analyze(
+        tl.make_train_step(cfg, ocfg), params, opt.init_state(ocfg, params),
+        {"inputs": x, "labels": x})[1].flops
+    for k, tol in (("prefill", 0.02), ("decode", 0.02), ("train", 0.05)):
+        assert got[k] == pytest.approx(ref[k], rel=tol), (k, got[k] / ref[k])
+
+
+# ------------------------------------------------------------ (e), (h)
+@pytest.fixture(scope="module")
+def qwen_runs(tmp_path_factory):
+    """qwen1.5-0.5b's three single-pod cells from the reference's dry run
+    and the port's CLI, each in a subprocess, started together; meanwhile
+    the per-rank programs' flops, each run alone without a mesh under
+    ``FlopCounterMode``. -> (reference reports, port reports, port exit
+    code, port output directory, port output, flops alone)."""
+    ref_out = tmp_path_factory.mktemp("ref_dryrun")
+    port_out = tmp_path_factory.mktemp("port_dryrun")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
+    args = ["--arch", QWEN, "--single-pod-only"]
+    ref = subprocess.Popen(
+        [sys.executable, "-m", "repro.launch.dryrun", *args, "--out",
+         str(ref_out)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    port = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--device",
+         "cpu", "--out", str(port_out)], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        alone = _flops_alone()
+        ref_log = ref.communicate(timeout=300)[0]
+        port_log = port.communicate(timeout=300)[0]
+    finally:
+        for p in (ref, port):
+            p.kill()
+    assert ref.returncode == 0, ref_log[-3000:]
+
+    def reports(d):
+        return {s: json.loads((d / f"{QWEN}_{s}_sp.json").read_text())
+                for s in QWEN_SHAPES}
+    return (reports(ref_out), reports(port_out), port.returncode,
+            port_out, port_log, alone)
+
+
+def _flops_alone() -> dict:
+    """FlopCounterMode's count of each qwen cell's per-rank program with
+    plain (fake) tensors and no mesh: 16 of the 256 train rows on full
+    weights, 2 of 32 prompts, 8 of 128 decoding sequences."""
+    cfg = configs.get(QWEN)
+    ocfg = opt.AdamWConfig(state_dtype=cfg.opt_state_dtype)
+    out = {}
+    with FakeTensorMode():
+        params = T.init_params(cfg, seed=0, device="cpu")
+        programs = {
+            "train_4k": (tl.make_train_step(cfg, ocfg), params,
+                         opt.init_state(ocfg, params),
+                         {k: torch.zeros((16, 4096), dtype=torch.int32)
+                          for k in ("inputs", "labels")}),
+            "prefill_32k": (dryrun.make_prefill_step(cfg), params,
+                            {"inputs": torch.zeros((2, 32768),
+                                                   dtype=torch.int32)}),
+            "decode_32k": (dryrun.make_serve_step(cfg), params,
+                           T.init_decode_state(cfg, 8, 32768, device="cpu"),
+                           {"tokens": torch.zeros((8, 1),
+                                                  dtype=torch.int32)})}
+        for name, (step, *args) in programs.items():
+            with FlopCounterMode(display=False) as fc, \
+                    torch.enable_grad() if name == "train_4k" \
+                    else torch.no_grad():
+                step(*args)
+            out[name] = fc.get_total_flops()
+    return out
+
+
+def test_qwen_cells_agree_with_the_reference(qwen_runs):
+    ref, port, rc, _, log, alone = qwen_runs
+    assert rc == 0, log[-3000:]
+    assert "dry-run: 3 ok / 0 failed / 0 skipped, 3 cells" in log
+    for s in QWEN_SHAPES:
+        r, p = ref[s], port[s]
+        assert {k: p[k] for k in SAME} == {k: r[k] for k in SAME}, s
+        assert set(p) == set(r) - {"xla_cost_analysis_flops_loop_once"}
+        assert p["hlo_flops_per_device"] == alone[s], s
+        assert p["n_chips"] == 256
+    for s in ("prefill_32k", "decode_32k"):
+        assert port[s]["collective_bytes_per_device"] == 0
+        assert port[s]["collective_breakdown"] == {}
+    # the data-parallel step's redundant compute: ~16x the reference's
+    # per-device flops (every rank runs the whole model)
+    assert 10 < (port["train_4k"]["hlo_flops_per_device"]
+                 / ref["train_4k"]["hlo_flops_per_device"]) < 20
+
+
+def test_qwen_train_gathers_its_placed_parameters(qwen_runs):
+    """The train cell's all-gather link bytes are the sum, over the
+    parameter leaves as ``place`` shards them, of each gather step's
+    result bytes x (s - 1) / s: every sharded mesh dim is gathered once,
+    16 ranks a dim."""
+    port = qwen_runs[1]["train_4k"]
+    cfg = configs.get(QWEN)
+    sizes = {"data": 16, "model": 16}
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    link = []
+
+    def gathered(axes, leaf):
+        spec = dsh.fit_spec_to_shape(dsh.spec_for(axes, mesh), leaf.shape,
+                                     mesh)
+        groups = [sizes[a] for e in spec if e is not None
+                  for a in ((e,) if isinstance(e, str) else e)]
+        size = leaf.numel() * leaf.element_size() / np.prod(groups)
+        for s in groups:  # one gather per sharded mesh dim
+            size *= s
+            link.append(size * (s - 1) / s)
+    with FakeTensorMode(), dsh.axis_rules(dsh.DEFAULT_RULES):
+        dsh.map_specs(gathered, T.param_specs(cfg),
+                      T.init_params(cfg, seed=0, device="cpu"))
+    want = sum(link)
+    assert port["collective_breakdown"]["all-gather"] == pytest.approx(
+        want, rel=1e-12)
+    assert port["collective_bytes_per_device"] > want  # + grad reductions
+
+
+def test_cli_writes_the_reference_file_names(qwen_runs):
+    out = qwen_runs[3]
+    assert sorted(p.name for p in out.iterdir()) == sorted(
+        [f"{QWEN}_{s}_sp.json" for s in QWEN_SHAPES] + ["summary.json"])
+    summary = json.loads((out / "summary.json").read_text())
+    assert [r["shape"] for r in summary] == list(QWEN_SHAPES)
+    assert all(r["status"] == "ok" for r in summary)
+
+
+def test_cli_failing_cell_exits_1(monkeypatch, tmp_path, capsys):
+    def boom(*a, **k):
+        raise RuntimeError("injected")
+    monkeypatch.setattr(dryrun, "dryrun_cell", boom)
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", QWEN, "--shape", "decode_32k",
+                     "--single-pod-only", "--device", "cpu",
+                     "--out", str(tmp_path)])
+    assert e.value.code == 1
+    assert "dry-run: 0 ok / 1 failed / 0 skipped, 1 cells" in \
+        capsys.readouterr().out
+    (r,) = json.loads((tmp_path / "summary.json").read_text())
+    assert r["status"] == "FAILED" and "injected" in r["error"]
+
+
+def test_no_group_is_left_open(monkeypatch):
+    r = dryrun.dryrun_cell(QWEN, "decode_32k", multi_pod=True,
+                           device="cpu", verbose=False)
+    assert not dist.is_initialized()
+    assert r["status"] == "ok" and r["n_chips"] == 512
+    assert r["collective_bytes_per_device"] == 0
+
+    def boom(*a, **k):
+        raise RuntimeError("injected")
+    monkeypatch.setattr(dryrun, "rank_program", boom)
+    with pytest.raises(RuntimeError, match="injected"):
+        dryrun.dryrun_cell(QWEN, "decode_32k", multi_pod=False,
+                           device="cpu", verbose=False)
+    assert not dist.is_initialized()
+    skipped = dryrun.dryrun_cell(QWEN, "long_500k", multi_pod=False,
+                                 device="cpu", verbose=False)
+    assert skipped["status"] == "skipped"
+
+
+# ------------------------------------------------------------ (f), (g)
+@pytest.mark.parametrize("arch,shape", [
+    ("phi3.5-moe-42b", "decode_32k"),
+    ("jamba-1.5-large-398b", "long_500k"),
+    ("rwkv6-3b", "long_500k"),
+    ("hubert-xlarge", "prefill_32k"),
+])
+def test_one_cell_per_family_at_published_width(arch, shape):
+    r = dryrun.dryrun_cell(arch, shape, multi_pod=False, device="cpu",
+                           verbose=False)
+    assert r["status"] == "ok"
+    assert r["hlo_flops_per_device"] > 0 and r["per_device_bytes"] > 0
+    cfg = configs.get(arch)
+    # serving holds the whole plain weights on every rank
+    assert r["per_device_bytes"] > 2 * cfg.param_count() * 0.99
+    assert r["collective_bytes_per_device"] == 0
+
+
+def test_110b_decode_reports_without_allocating():
+    before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    r = dryrun.dryrun_cell("qwen1.5-110b", "decode_32k", multi_pod=False,
+                           device="cpu", verbose=False)
+    grown = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss - before
+    assert r["per_device_bytes"] > 200e9 and not r["fits_hbm"]
+    assert grown * 1024 < 2e9  # ru_maxrss is in KiB
+
+
+def test_train_step_with_more_micro_batches_than_rows():
+    """A rank's slice with fewer rows than micro-batches (llama4's 256
+    rows over the multi-pod mesh's 32 batch ranks in 16 micro-batches)
+    takes one row a micro-batch: the step equals the step with as many
+    micro-batches as rows, bit for bit."""
+    base = configs.get(QWEN).reduced()
+    x = torch.randint(0, base.vocab_size, (2, 8),
+                      generator=torch.Generator().manual_seed(0))
+    batch = {"inputs": x, "labels": x}
+    ocfg = opt.AdamWConfig()
+    outs = []
+    for n in (4, 2):
+        cfg = dataclasses.replace(base, micro_batches=n)
+        p = T.init_params(cfg, seed=0, device="cpu")
+        p, _, m = tl.make_train_step(cfg, ocfg)(p, opt.init_state(ocfg, p),
+                                                batch)
+        outs.append((m["loss"], torch.utils._pytree.tree_leaves(p)))
+    assert torch.equal(outs[0][0], outs[1][0])
+    for a, b in zip(outs[0][1], outs[1][1], strict=True):
+        assert torch.equal(a, b)
+
+
+def test_sampled_micro_batches_count_every_one(monkeypatch):
+    """A train step in 4 micro-batches: running 2 and counting the second
+    twice more gives the flops, bytes and peak of running all 4."""
+    cfg = dataclasses.replace(configs.get(QWEN).reduced(), micro_batches=4)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    x = torch.zeros((4, 16), dtype=torch.int32)
+    ocfg = opt.AdamWConfig()
+
+    def run():
+        return hlo.analyze(tl.make_train_step(cfg, ocfg), _clone(params),
+                           opt.init_state(ocfg, params),
+                           {"inputs": x, "labels": x})
+    _, sampled, speak = run()
+    monkeypatch.setattr(hlo, "MICRO_STEPS", 4)
+    _, full, fpeak = run()
+    assert sampled == full
+    assert speak == fpeak

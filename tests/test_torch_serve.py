@@ -90,9 +90,10 @@ def test_engine_needs_plans_in_pim_modes(model):
 
 def test_imports_are_torch_only():
     """A fresh interpreter imports every repro_torch module (the paper
-    artifacts, the training substrate, the distribution layer and the
-    examples included) and chip_smoke.py; neither jax, the reference
-    package nor the reference's ``benchmarks`` scripts may load, and
+    artifacts, the training substrate, the distribution layer, the
+    examples and the dry run included) and chip_smoke.py; neither jax,
+    the reference package nor the reference's ``benchmarks`` scripts may
+    load, and
     neither an import nor a paged engine built without meshes opens a
     process group."""
     code = (
@@ -112,7 +113,8 @@ def test_imports_are_torch_only():
         "for m in ('train.fault_tolerance', 'data.pipeline', "
         "'launch.train', 'dist', 'dist.sharding', 'dist.compat', "
         "'launch.mesh', 'train.compression', 'examples.quickstart', "
-        "'examples.serve_quantized', 'examples.pim_accuracy_demo'):\n"
+        "'examples.serve_quantized', 'examples.pim_accuracy_demo', "
+        "'launch.dryrun', 'launch.hlo_analysis'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized(), 'an import opened a group'\n"
