@@ -144,8 +144,24 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            leaves also to the CPU's), timed beside its byte bound; the
            placed parameters (and a reduced AdamW state) saved and restored
            with ``shardings=`` onto the pod mesh under MULTIPOD_RULES, bit
-           for bit; K1-K4 launches must stay 0; ``--phases dist`` runs it
-           alone (~30 s);
+           for bit (the partitioned program on one rank: every
+           collective an identity, the loss on its plain path); K1-K4
+           launches must stay 0; ``--phases dist`` runs it alone (~30 s);
+  tp       the partitioned train step and prefill (``dist.parallel``:
+           FSDP, tensor and sequence parallel): 4 processes on ``cuda:0``
+           in one ``gloo`` group (a FileStore in a temporary directory),
+           mesh (2, 2) under DEFAULT_RULES, qwen1.5-0.5b at its published
+           size from seed 0 with ``pim_mode`` off: 2 train steps in float32
+           of 8 x 64 tokens (the train phase's ``SyntheticLM``), losses,
+           grad norms and the gathered parameters held against the
+           one-process run on the card to the train phase's card-vs-CPU
+           tolerances; a prefill in bf16 of 4 x 256 tokens, the ranks'
+           logits blocks (rows x vocab shards) and cache blocks (rows x
+           sequence blocks) assembled within ``TP_PREFILL_RTOL`` of the
+           one-process prefill. Per rank and step: collectives by op,
+           their bytes, the bytes staged through host memory (gloo's
+           all-gather on CUDA, ``parallel.GLOO_DEVICE_OPS``) and the step
+           ms; K1-K4 launches must stay 0 on every rank;
   dryrun   the dry run (``repro_torch.launch.dryrun``): the cells of
            jamba-1.5-large-398b, phi3.5-moe-42b and qwen1.5-0.5b on both
            meshes (20 of the 62; the whole sweep takes longer than this
@@ -155,11 +171,14 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            cell ``ok``, one line per cell (GiB per device, fits, the three
            roofline terms, the bound), the fits count and the bounds'
            histogram; meanwhile
-           qwen1.5-0.5b's per-rank programs of ``decode_32k`` and
-           ``prefill_32k`` on the 16x16 mesh (8 sequences against a
-           32,768-position cache; 2 x 32,768 prompt tokens) run for real
-           on the card (weights from seed 0, zeroed caches and tokens,
-           bf16): ``FlopCounterMode``'s count must equal the sweep's
+           qwen1.5-0.5b's per-rank programs of ``decode_32k``,
+           ``prefill_32k`` and ``train_4k`` on the 16x16 mesh (8 sequences
+           against a 32,768-position cache; 2 x 32,768 prompt tokens; 16 x
+           4,096 train tokens) run for real on the card (weights from seed
+           0, zeroed caches and tokens, bf16; prefill and train are the
+           partitioned programs, run as rank 0 of a fake 256-rank group
+           destroyed afterwards, train with grad enabled):
+           ``FlopCounterMode``'s count must equal the sweep's
            ``hlo_flops_per_device``, ``max_memory_allocated`` must lie
            within 15% of its ``per_device_bytes``, and the median of 10
            timed runs is printed beside ``compute_s``, ``memory_s`` and
@@ -365,7 +384,7 @@ DECODERS = (("chameleon-34b", 4, True), ("qwen2.5-32b", 4, False),
 # whole sweep, all 62 cells, takes longer than this script may (rwkv6-3b's
 # train cells alone take minutes): run it by hand with
 # ``python -m repro_torch.launch.dryrun --all --jobs N``
-DRYRUN_PROGRAMS = ("decode_32k", "prefill_32k")
+DRYRUN_PROGRAMS = ("decode_32k", "prefill_32k", "train_4k")
 DRYRUN_ARCHS = ("jamba-1.5-large-398b", "phi3.5-moe-42b", ARCH)
 DRYRUN_RUNS = 10
 DRYRUN_MEM_TOL = 0.15
@@ -4606,6 +4625,310 @@ def _leaves_placed(tree) -> list:
 
 
 # ------------------------------------------------------------- disagg
+TP_WORLD = 4          # processes on cuda:0, one gloo group
+TP_MESH = (2, 2)      # ("data", "model")
+TP_STEPS = 2          # of TRAIN_BATCH x TP_SEQ tokens (the train phase's A)
+TP_SEQ = 64
+TP_PROMPTS, TP_PROMPT_LEN = 4, 256
+TP_TIMEOUT_S = 600
+# float32 train, held to the train phase's card-vs-CPU tolerances: loss
+# relative, grad norm relative (tests' NORM_RTOL), parameters' relative
+# global norm
+TP_LOSS_RTOL, TP_NORM_RTOL, TP_PARAM_RTOL = 1e-5, 1e-4, 1e-3
+# bf16 prefill: the assembled logits' and caches' relative global-norm
+# error against the one-process prefill (bf16's unit roundoff is 3.9e-3;
+# the partitioned sums round their partial products once more)
+TP_PREFILL_RTOL = 3e-2
+
+
+def phase_tp() -> None:
+    """The partitioned train step and prefill (``dist.parallel``) on
+    ``TP_WORLD`` processes on ``cuda:0`` in one ``gloo`` group, mesh
+    ``TP_MESH`` under DEFAULT_RULES (module docstring): each rank's
+    collectives, bytes, host-staged bytes and step ms printed; the
+    gathered result held against the one-process run on the card; K1-K4
+    are not launched."""
+    import multiprocessing
+    import tempfile
+    import torch
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as d:
+        mp = multiprocessing.get_context("spawn")
+        procs = [mp.Process(target=tp_rank, args=(rank, d))
+                 for rank in range(TP_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        try:
+            for p in procs:
+                p.join(max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        res = []
+        for rank, p in enumerate(procs):
+            path = Path(d) / f"rank{rank}.pt"
+            if not path.exists():
+                crash = (Path(d) / f"rank{rank}.crash").read_text()[-3000:]
+                raise AssertionError(f"tp rank {rank}: exit code "
+                                     f"{p.exitcode}, no result\n{crash}")
+            res.append(torch.load(path, weights_only=False))
+    for rank, r in enumerate(res):
+        if "traceback" in r:
+            raise AssertionError(f"tp rank {rank} raised:\n{r['traceback']}")
+    ranks_s = round(time.perf_counter() - t0, 3)
+    for rank, r in enumerate(res):
+        for line in r["lines"]:
+            say("tp", rank=rank, **line)
+        if r["launches"]:
+            raise AssertionError(f"tp rank {rank} launched {r['launches']}")
+    tp_hold_train(res)
+    tp_hold_prefill(res)
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    if launches:
+        raise AssertionError(f"kernels launched in tp: {launches}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    say("tp", ok=True, world=TP_WORLD, mesh=json.dumps(TP_MESH),
+        backend="gloo", ranks_s=ranks_s,
+        phase_s=round(time.perf_counter() - t0, 3), k1_k4_launches=0)
+
+
+def tp_rank(rank: int, d: str) -> None:
+    """One rank of the tp phase, in its own process: open the group, run
+    ``tp_run``, save ``rank<rank>.pt`` (a traceback if anything raised)."""
+    import datetime
+    import faulthandler
+    import traceback
+    import torch
+    import torch.distributed as dist
+    crash = open(os.path.join(d, f"rank{rank}.crash"), "w")
+    faulthandler.enable(file=crash)  # a fatal signal's Python stack
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(os.path.join(d, "store"), TP_WORLD),
+            rank=rank, world_size=TP_WORLD,
+            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S // 2))
+        try:
+            res = tp_run(rank)
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        res = {"traceback": traceback.format_exc()}
+    torch.save(res, os.path.join(d, f"rank{rank}.pt"))
+
+
+def tp_data():
+    """The tp phase's optimizer config, train batches (the train phase's
+    run A source) and prompts, alike in every process."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train import optimizer as opt
+    cfg = configs.get(ARCH)
+    ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=TP_STEPS,
+                           state_dtype=cfg.opt_state_dtype)
+    data = SyntheticLM(vocab_size=TRAIN_DATA_VOCAB, seq_len=TP_SEQ,
+                       batch_size=TRAIN_BATCH, seed=0)
+    batches = [data.batch(i) for i in range(TP_STEPS)]
+    prompts = torch.randint(0, cfg.vocab_size, (TP_PROMPTS, TP_PROMPT_LEN),
+                            generator=torch.Generator().manual_seed(0))
+    return ocfg, batches, prompts
+
+
+def tp_run(rank: int) -> dict:
+    """qwen1.5-0.5b at its published size from seed 0, ``pim_mode`` off:
+    ``TP_STEPS`` partitioned train steps in float32, then a partitioned
+    prefill of the rank's rows of ``TP_PROMPTS`` x ``TP_PROMPT_LEN``
+    tokens in bf16. Returns the lines to print, rank 0's gathered
+    parameters, and the rank's logits and cache blocks with its place in
+    the mesh."""
+    import dataclasses
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch import configs
+    from repro_torch.dist import compat, parallel
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.train import _tree
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+    ops.reset_launch_counts()
+    mesh = compat.make_mesh(TP_MESH, ("data", "model"), device_type="cuda")
+    ocfg, batches, prompts = tp_data()
+
+    def staged(st):  # the ops this group stages through host memory
+        return json.dumps(sorted(op for op in st.by_op
+                                 if op not in parallel.GLOO_DEVICE_OPS))
+    out: dict = {"lines": [], "losses": [], "norms": []}
+    cfg = dataclasses.replace(configs.get(ARCH), dtype="float32")
+    specs = T.param_specs(cfg)
+    with dsh.axis_rules(dsh.DEFAULT_RULES), dsh.use_mesh(mesh):
+        start = T.init_params(cfg, seed=0, device="cuda")
+        p = dsh.place(start, specs, mesh)
+        s = dsh.place(opt.init_state(ocfg, start), opt.state_specs(specs),
+                      mesh)
+        del start
+        step = tl.make_train_step(cfg, ocfg)
+        for i, b in enumerate(batches):
+            b = tl.to_device(b, p)
+            parallel.STATS.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, s, m = step(p, s, b)
+            loss = m["loss"].item()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            st = parallel.STATS
+            out["losses"].append(loss)
+            out["norms"].append(float(m["grad_norm"]))
+            out["lines"].append(dict(
+                program="train", dtype=cfg.dtype, step=i,
+                rows=f"{TRAIN_BATCH}x{TP_SEQ}", loss=loss,
+                collectives=st.calls, by_op=json.dumps(st.by_op),
+                bytes=st.bytes, host_staged_bytes=st.staged_bytes,
+                step_ms=round(dt * 1e3, 3), host_staged_ops=staged(st)))
+        # gathered on a host mesh of the same group: gloo's all-gather
+        # takes no CUDA tensor (parallel.GLOO_DEVICE_OPS)
+        host = compat.make_mesh(TP_MESH, ("data", "model"),
+                                device_type="cpu")
+        paths, flat = _tree.flatten(p)
+        full = [DTensor.from_local(t.to_local().cpu(), host, t.placements,
+                                   run_check=False, shape=t.shape,
+                                   stride=t.stride()).full_tensor()
+                for t in flat]  # every rank takes part
+        if rank == 0:
+            out["params"] = dict(zip(paths, full))
+        del p, s, full, flat
+        cfg16 = configs.get(ARCH)
+        placed = dsh.place(T.init_params(cfg16, seed=0, device="cuda"),
+                           T.param_specs(cfg16), mesh)
+        part = T.partition(placed, cfg16)
+        rows = TP_PROMPTS // part.n_batch
+        mine = prompts[part.batch_index * rows:
+                       (part.batch_index + 1) * rows].to("cuda")
+        parallel.STATS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, state = T.prefill(placed, cfg16, mine)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        st = parallel.STATS
+        out["lines"].append(dict(
+            program="prefill", dtype=cfg16.dtype,
+            rows=f"{rows}x{TP_PROMPT_LEN}", collectives=st.calls,
+            by_op=json.dumps(st.by_op), bytes=st.bytes,
+            host_staged_bytes=st.staged_bytes, step_ms=round(dt * 1e3, 3),
+            host_staged_ops=staged(st), heads=json.dumps(part.heads),
+            logits_shape=json.dumps(list(logits.shape)),
+            cache_shape=json.dumps(list(state["caches"][0]["k"].shape))))
+        out["prefill"] = dict(
+            logits=logits.cpu(), batch_index=part.batch_index,
+            model_rank=part.model.rank,
+            caches=[{k: v.cpu() for k, v in c.items()}
+                    for c in state["caches"]])
+    out["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+    return out
+
+
+def tp_hold_train(res: list) -> None:
+    """The ranks' losses and grad norms agree; against the one-process
+    float32 run on the card, the train phase's tolerances."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.train import _tree
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+    for r in res[1:]:
+        if r["losses"] != res[0]["losses"]:
+            raise AssertionError(f"tp: the ranks' losses differ: "
+                                 f"{[x['losses'] for x in res]}")
+    cfg = dataclasses.replace(configs.get(ARCH), dtype="float32")
+    ocfg, batches, _ = tp_data()
+    params = T.init_params(cfg, seed=0, device="cuda")
+    state = opt.init_state(ocfg, params)
+    step = tl.make_train_step(cfg, ocfg)
+    losses, norms = [], []
+    for b in batches:
+        params, state, m = step(params, state, tl.to_device(b, params))
+        losses.append(m["loss"].item())
+        norms.append(float(m["grad_norm"]))
+    del state
+    got = res[0]["params"]
+    paths, flat = _tree.flatten(params)
+    num = sum(float(((got[k].cuda().double() - t.double()) ** 2).sum())
+              for k, t in zip(paths, flat))
+    den = sum(float((t.double() ** 2).sum()) for t in flat)
+    param_rel = (num / den) ** 0.5
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(res[0]["losses"], losses))
+    norm_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(res[0]["norms"], norms))
+    say("tp", held="train", dtype=cfg.dtype, losses=json.dumps(
+        res[0]["losses"]), losses_one_process=json.dumps(losses),
+        grad_norms=json.dumps(res[0]["norms"]),
+        grad_norms_one_process=json.dumps(norms),
+        loss_rel=f"{loss_rel:.3e}", grad_norm_rel=f"{norm_rel:.3e}",
+        params_rel=f"{param_rel:.3e}")
+    if not (loss_rel <= TP_LOSS_RTOL and norm_rel <= TP_NORM_RTOL
+            and param_rel < TP_PARAM_RTOL):
+        raise AssertionError("tp: the partitioned step differs from the "
+                             "one-process step")
+    del params, flat
+
+
+def tp_hold_prefill(res: list) -> None:
+    """The ranks' logits blocks (rows x vocab shards) and cache blocks
+    (rows x sequence blocks) assembled against the one-process bf16
+    prefill on the card, within ``TP_PREFILL_RTOL``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    cfg = configs.get(ARCH)
+    _, _, prompts = tp_data()
+    params = T.init_params(cfg, seed=0, device="cuda")
+    with torch.no_grad():
+        want, state = T.prefill(params, cfg, prompts.to("cuda"))
+    del params
+    logits = torch.full(want.shape, float("nan"), dtype=want.dtype)
+    caches = [{k: torch.full(v.shape, float("nan"), dtype=v.dtype)
+               for k, v in c.items()} for c in state["caches"]]
+    for r in res:
+        pf = r["prefill"]
+        rows, nv = pf["logits"].shape[0], pf["logits"].shape[-1]
+        b0, v0 = pf["batch_index"] * rows, pf["model_rank"] * nv
+        logits[b0:b0 + rows, :, v0:v0 + nv] = pf["logits"]
+        for got, c in zip(caches, pf["caches"]):
+            for k, blk in c.items():
+                s0 = pf["model_rank"] * blk.shape[1]
+                got[k][b0:b0 + rows, s0:s0 + blk.shape[1]] = blk
+
+    def rel(a, b):
+        a, b = a.double(), b.cpu().double()
+        return float((a - b).norm() / b.norm()), float((a - b).abs().max())
+    lrel, labs = rel(logits, want)
+    crel = max(rel(got[k], c[k])[0] for got, c in zip(caches,
+                                                      state["caches"])
+               for k in c)
+    say("tp", held="prefill", dtype=cfg.dtype,
+        prompts=f"{TP_PROMPTS}x{TP_PROMPT_LEN}", logits_rel=f"{lrel:.3e}",
+        logits_max_abs=f"{labs:.3e}", caches_rel=f"{crel:.3e}",
+        tol=TP_PREFILL_RTOL)
+    if not (lrel <= TP_PREFILL_RTOL and crel <= TP_PREFILL_RTOL):
+        raise AssertionError("tp: the partitioned prefill differs from the "
+                             "one-process prefill")
+
+
 DISAGG_WORLD = 2  # a prefill rank and a decode rank, both on cuda:0
 DISAGG_TIMEOUT_S = 600
 # the disaggregated runs: (name, pim_mode, pool blocks or None = no
@@ -4646,8 +4969,9 @@ def dryrun_sweep():
 
 
 def phase_dryrun() -> None:
-    """The sweep in a subprocess while qwen1.5-0.5b's decode_32k and
-    prefill_32k per-rank programs run for real on the card; then each
+    """The sweep in a subprocess while qwen1.5-0.5b's decode_32k,
+    prefill_32k and train_4k per-rank programs run for real on the card
+    (the last two partitioned); then each
     program is held against its cell's report (module docstring); K1-K4
     are not launched."""
     import torch
@@ -4688,42 +5012,65 @@ def dryrun_on_card(shape_name: str) -> dict:
     mesh, run for real on the card: the dry run's own ``rank_program``
     (weights from seed 0, zeroed inputs and caches), one warm-up under
     ``FlopCounterMode`` with the peak of allocated bytes above what the
-    process held before, then ``DRYRUN_RUNS`` runs timed by CUDA events."""
+    process held before, then ``DRYRUN_RUNS`` runs timed by CUDA events.
+    The partitioned programs (train, prefill) run as rank 0 of a fake
+    256-rank group (its collectives move nothing; the group is destroyed
+    afterwards), the train step with grad enabled; decode reads the
+    mesh's axis sizes only."""
+    import contextlib
     import gc
     import torch
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch import configs
     from repro_torch.dist import sharding as dsh
     from repro_torch.dist.compat import AbstractMesh
     from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import transformer as T
     cfg = configs.get(ARCH)
     shape = {s.name: s for s in configs.ALL_SHAPES}[shape_name]
-    mesh = AbstractMesh((16, 16), ("data", "model"))
+    partitioned = shape.kind != "decode" and T.partitioned(cfg)
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
-    with dsh.axis_rules(dryrun.cell_rules(shape, multi_pod=False)):
-        step, args = dryrun.rank_program(cfg, shape, mesh, "cuda")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with torch.no_grad():
-        with FlopCounterMode(display=False) as fc:
-            step(*args)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - base
-        ms = []
-        for _ in range(DRYRUN_RUNS):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            out = step(*args)
-            b.record()
+    if partitioned:
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=256)
+    try:
+        if partitioned:
+            mesh = make_production_mesh(device_type="cuda")
+            within = dsh.use_mesh(mesh)
+        else:
+            mesh = AbstractMesh((16, 16), ("data", "model"))
+            within = contextlib.nullcontext()
+        with dsh.axis_rules(dryrun.cell_rules(shape, multi_pod=False)):
+            step, args = dryrun.rank_program(cfg, shape, mesh, "cuda")
             torch.cuda.synchronize()
-            ms.append(a.elapsed_time(b))
-            del out
-    rows = args[-1][next(iter(args[-1]))].shape[0]
-    del step, args
+            torch.cuda.reset_peak_memory_stats()
+            with within, torch.set_grad_enabled(shape.kind == "train"):
+                with FlopCounterMode(display=False) as fc:
+                    step(*args)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+                ms = []
+                for _ in range(DRYRUN_RUNS):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    out = step(*args)
+                    b.record()
+                    torch.cuda.synchronize()
+                    ms.append(a.elapsed_time(b))
+                    del out
+        first = args[-1][next(iter(args[-1]))]
+        rows = getattr(first, "_local_tensor", first).shape[0]
+        del step, args, first
+    finally:
+        if partitioned:
+            dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
     return {"flops": fc.get_total_flops(), "peak": peak, "ms": ms,
@@ -5152,7 +5499,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,serve,telemetry,nonideal,disagg,"
-                    "examples,train,dist,dryrun,moe,hybrid,encoder,decoders,"
+                    "examples,train,dist,tp,dryrun,moe,hybrid,encoder,"
+                    "decoders,"
                     "paper,timing",
                     help="comma list of phases to run (default: all)")
     args = ap.parse_args()
@@ -5195,6 +5543,7 @@ def main() -> int:
     ctx.pop("qwen", None)  # free qwen's weights before the larger models
     run("train", phase_train)
     run("dist", phase_dist)
+    run("tp", phase_tp)
     run("dryrun", phase_dryrun)
     run("moe", phase_moe, ctx, rows)
     run("hybrid", phase_hybrid, ctx, rows)

@@ -374,13 +374,15 @@ def named_shardings(specs: Any, tree: Any, mesh) -> Any:
 
 def distribute(leaf: torch.Tensor, sharding: NamedSharding):
     """``leaf`` (the same values on every rank) as a DTensor placed by
-    ``sharding``, on the mesh's device type. The local block may share
-    ``leaf``'s storage (``distribute_tensor`` copies nothing it need not),
-    so an in-place update of one can show in the other."""
+    ``sharding``, on the mesh's device type. Each rank cuts its own block
+    from its copy (``src_data_rank=None``): nothing is sent, so a group
+    whose backend lacks a device scatter (``gloo`` on the card) places as
+    NCCL does. A replicated local block shares ``leaf``'s storage, so an
+    in-place update of one can show in the other."""
     from torch.distributed.tensor import distribute_tensor
     mesh = sharding.mesh
     return distribute_tensor(leaf.detach().to(mesh.device_type), mesh,
-                             sharding.placements)
+                             sharding.placements, src_data_rank=None)
 
 
 def place(tree: Any, specs: Any, mesh) -> Any:

@@ -13,20 +13,30 @@ flops, bytes, collectives and peak live bytes at the rank's local shapes.
 
 The step is what the port runs on one rank:
 
-  - train cells: parameters from ``transformer.init_params`` placed as
-    DTensors by ``param_specs`` (``dist.place``), the AdamW state by
-    ``state_specs``, and ``train_loop.make_train_step`` under the mesh:
-    data parallel, each rank gathering the full weights and running the
-    whole model on its slice of the batch. Only the step is counted, not
-    the placement.
-  - serve cells (prefill, decode): one plain copy of the weights per rank,
-    as the engines hold them, and the rank's block of the inputs and
-    caches along the batch: ``batch_logical`` / ``cache_specs`` resolved
-    under the cell's rules and fitted to the shape, so ``long_500k``'s
-    batch of 1 stays whole and a decode rank decodes the sequences whose
-    caches it holds. Sequence and head axes stay whole: the port has no
-    sequence- or tensor-parallel serve step. The step is
-    ``transformer.prefill`` or ``transformer.decode_step``.
+  - train and prefill cells of the configs whose every layer is attention
+    plus a dense MLP (``transformer.partitioned``: qwen1.5-0.5b, yi-6b,
+    qwen2.5-32b, qwen1.5-110b, chameleon-34b, hubert-xlarge): the
+    partitioned programs (``dist.parallel``), the counterpart of the
+    reference's ``jax.jit(..., in_shardings=params_sh)``. Parameters are
+    placed as DTensors by ``param_specs`` under the cell's rules
+    (``dist.place``), the AdamW state by ``state_specs``; the train step
+    (``train_loop.make_train_step`` under the mesh) is FSDP, tensor and
+    sequence parallel on the rank's slice of the batch, and the prefill
+    (``transformer.prefill``) is tensor and sequence parallel on the
+    rank's rows, returning the rank's blocks of the logits and caches.
+  - train cells of the other configs (MoE, mamba, rwkv): the data-parallel
+    step, each rank gathering the full weights and running the whole
+    model on its slice of the batch.
+  - their prefill cells and every decode cell: one plain copy of the
+    weights per rank, as the engines hold them, and the rank's block of
+    the inputs and caches along the batch: ``batch_logical`` /
+    ``cache_specs`` resolved under the cell's rules and fitted to the
+    shape, so ``long_500k``'s batch of 1 stays whole and a decode rank
+    decodes the sequences whose caches it holds. Sequence and head axes
+    stay whole. The step is ``transformer.prefill`` or
+    ``transformer.decode_step``.
+
+Only the step is counted, not the placement.
 
 Fake tensors live on the card's device type unless ``--device`` names
 another (``cpu`` in the tests). Reports carry the reference's keys, per
@@ -126,6 +136,21 @@ def _fake(meta: torch.Tensor, dev, rows: int | None = None) -> torch.Tensor:
     return torch.zeros(shp, dtype=meta.dtype, device=dev)
 
 
+def _placed_rows(meta: torch.Tensor, dev, mesh):
+    """``meta``'s batch as a DTensor placed along its rows by the axes
+    ``"batch"`` resolves to: the rank holds its rows only."""
+    from torch.distributed.tensor import DTensor
+    rows = meta.shape[0]
+    spec = dsh.fit_spec_to_shape(dsh.spec_for(("batch",), mesh), (rows,),
+                                 mesh)
+    n = _batch_ranks("batch", rows, mesh)
+    return DTensor.from_local(
+        _fake(meta, dev, rows // n), mesh,
+        dsh.NamedSharding(mesh, spec).placements, run_check=False,
+        shape=meta.shape, stride=torch.empty(meta.shape,
+                                             device="meta").stride())
+
+
 # ------------------------------------------------------------- step builders
 def make_prefill_step(cfg: ArchConfig):
     def prefill_step(params, batch):
@@ -153,13 +178,19 @@ def rank_program(cfg: ArchConfig, shape: InputShape, mesh, dev):
         state = dsh.place(opt.init_state(opt_cfg, params),
                           opt.state_specs(pspecs), mesh)
         params = dsh.place(params, pspecs, mesh)
-        batch = {k: _fake(v, dev) for k, v in batch.items()}
+        if T.partitioned(cfg):  # each rank holds its rows, placed
+            batch = {k: _placed_rows(v, dev, mesh)
+                     for k, v in batch.items()}
+        else:
+            batch = {k: _fake(v, dev) for k, v in batch.items()}
         return make_train_step(cfg, opt_cfg), (params, state, batch)
     if shape.kind == "prefill":
         n = _batch_ranks(batch_logical(cfg, shape)["inputs"][0],
                          shape.global_batch, mesh)
         batch = {"inputs": _fake(batch["inputs"], dev,
                                  shape.global_batch // n)}
+        if T.partitioned(cfg):
+            params = dsh.place(params, T.param_specs(cfg), mesh)
         return make_prefill_step(cfg), (params, batch)
     # every cache leaf leads with the one logical axis of its sequences
     (lead,) = {axes[0] for c in T.cache_specs(cfg)["caches"]

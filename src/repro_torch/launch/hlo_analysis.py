@@ -25,7 +25,15 @@ global product). Per op:
     ``all-reduce``, ``reduce-scatter``, ``all-to-all`` and
     ``collective-permute`` (a broadcast), with the reference's ring factors
     (``_collective_link_bytes``) over the op's group size; the payload is
-    the result's bytes.
+    the result's bytes. The autograd variants
+    (``all_gather_tensor_autograd`` and the like, and
+    ``dist.parallel``'s collectives) dispatch these same ops in the
+    forward and in the backward, so each is counted once in each (torch
+    2.11 and 2.13 dispatch nothing else: ``tools/gloo_cuda_probe.py``); a
+    ``_c10d_functional_autograd`` op, where a torch dispatches one, counts
+    as its kind, and the ops it runs beneath it are not seen (a dispatch
+    mode is off inside its own handler). ``_wrap_tensor_autograd`` moves
+    no bytes.
   - peak live bytes: the storages alive on the device, the arguments'
     included, from entry to exit (rounded up to 512 bytes on CUDA, as the
     caching allocator rounds).
@@ -194,8 +202,9 @@ _SKIP = frozenset((
     "aten.storage_offset.default", "aten.sym_storage_offset.default",
     "aten.numel.default", "aten.sym_numel.default", "aten.dim.default",
     "prim.layout.default", "prim.device.default"))  # metadata queries
-_NO_BYTES = frozenset(("_c10d_functional.wait_tensor", "aten._unsafe_view",
-                       "aten.lift_fresh"))
+_NO_BYTES = frozenset(("_c10d_functional.wait_tensor",
+                       "_c10d_functional._wrap_tensor_autograd",
+                       "aten._unsafe_view", "aten.lift_fresh"))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,6 +17,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import adc as adc_lib
@@ -284,26 +285,37 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ------------------------------------------------------------------ attention
+def _head_proj(params: dict, cfg: ArchConfig, x: torch.Tensor, name: str,
+               positions: torch.Tensor, plans=None) -> torch.Tensor:
+    """One of q/k/v (``name``): ``x @ w{name}`` plus its bias, as (B, S,
+    heads, hd) with the heads counted from the weight's width; q and k
+    also normed (``qk_norm``) and rotated."""
+    B, S, _ = x.shape
+    t = pim_matmul(x, params["w" + name], plan_leaf(plans, "w" + name), cfg)
+    if cfg.qkv_bias:
+        t = t + params["b" + name]
+    t = t.reshape(B, S, -1, cfg.resolved_head_dim)
+    if name == "v":
+        return t
+    if cfg.qk_norm:
+        t = rmsnorm({"scale": params[name + "_norm"]}, t, cfg.norm_eps)
+    return rope(t, positions, cfg.rope_theta)
+
+
 def qkv_project(params: dict, cfg: ArchConfig, x: torch.Tensor,
                 positions: torch.Tensor, plans=None):
-    """x (B, S, D) -> q (B,S,H,hd), k/v (B,S,K,hd), RoPE applied."""
-    B, S, _ = x.shape
-    nh, nk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = pim_matmul(x, params["wq"], plan_leaf(plans, "wq"), cfg)
-    k = pim_matmul(x, params["wk"], plan_leaf(plans, "wk"), cfg)
-    v = pim_matmul(x, params["wv"], plan_leaf(plans, "wv"), cfg)
-    if cfg.qkv_bias:
-        q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
-    q = q.reshape(B, S, nh, hd)
-    k = k.reshape(B, S, nk, hd)
-    v = v.reshape(B, S, nk, hd)
-    if cfg.qk_norm:
-        q = rmsnorm({"scale": params["q_norm"]}, q, cfg.norm_eps)
-        k = rmsnorm({"scale": params["k_norm"]}, k, cfg.norm_eps)
-    return (rope(q, positions, cfg.rope_theta),
-            rope(k, positions, cfg.rope_theta), v)
+    """x (B, S, D) -> q (B,S,H,hd), k/v (B,S,K,hd), RoPE applied. The head
+    counts are the weights' widths over ``hd``: a partitioned rank's
+    ``wq``/``wk`` hold its own heads (``dist.parallel``)."""
+    return tuple(_head_proj(params, cfg, x, n, positions, plans)
+                 for n in "qkv")
+
+
+def kv_project(params: dict, cfg: ArchConfig, x: torch.Tensor,
+               positions: torch.Tensor):
+    """The K/V half of ``qkv_project`` (a partitioned prefill's cache
+    block: every K/V head of the rank's positions)."""
+    return tuple(_head_proj(params, cfg, x, n, positions) for n in "kv")
 
 
 def _kv_limit(kv_len, device):
@@ -316,6 +328,30 @@ def _kv_limit(kv_len, device):
     return t if t.ndim == 0 else t[:, None]
 
 
+def _attend_chunk(qg, k, v, m, l, acc, c0: int, chunk: int,
+                  q_positions, limit, causal: bool):
+    """One KV chunk's step of ``chunked_attention``'s online softmax:
+    (m, l, acc) after the chunk at ``c0``."""
+    kb = k[:, c0:c0 + chunk].to(torch.float32)
+    vb = v[:, c0:c0 + chunk].to(torch.float32)
+    kpos = c0 + torch.arange(kb.shape[1], device=qg.device)
+    valid = kpos[None, :] < limit  # (B|1, chunk)
+    mask = valid[:, None, None, None, :]
+    if causal:
+        cm = kpos[None, None, :] <= q_positions[:, :, None]
+        mask = mask & cm[:, :, None, None, :]
+    s = torch.einsum("bqkgd,bckd->bqkgc", qg, kb) * (qg.shape[-1] ** -0.5)
+    s = torch.where(mask, s, -torch.inf)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+    p = torch.exp(s - m_safe[..., None])
+    p = torch.where(mask, p, 0.0)
+    corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum("bqkgc,bckd->bqkgd", p, vb)
+    return m_new, l, acc
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       q_positions: torch.Tensor, kv_len,
                       causal: bool, chunk: int = ATTN_CHUNK) -> torch.Tensor:
@@ -324,10 +360,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, Sq, H, D); k, v: (B, Sk, K, D) with H = K * G.
     q_positions: (B, Sq) global positions of the queries (causal mask).
     kv_len: number of valid KV entries (int or (B,)) — masks cache padding.
+    While autograd records over more than one chunk, each chunk's step runs
+    under ``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint(body)``: the backward recomputes a chunk's scores
+    instead of keeping every chunk's.
     """
     B, Sq, H, D = q.shape
     _, Sk, K, _ = k.shape
-    G = H // K
+    G = H // max(K, 1)  # a partitioned rank may hold no heads
     limit = _kv_limit(kv_len, q.device)
     if Sq == 1:  # decode: one query, one softmax over the whole cache
         qg1 = q.reshape(B, K, G, D).to(torch.float32)
@@ -339,51 +379,51 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = torch.einsum("bkgc,bckd->bkgd", p, v.to(torch.float32))
         return out.reshape(B, 1, H, D).to(q.dtype)
     qg = q.reshape(B, Sq, K, G, D).to(torch.float32)
-    scale = D ** -0.5
     m = torch.full((B, Sq, K, G), -torch.inf, device=q.device)
     l = torch.zeros((B, Sq, K, G), device=q.device)
     acc = torch.zeros((B, Sq, K, G, D), device=q.device)
+    remat = Sk > chunk and torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     for c0 in range(0, Sk, chunk):
-        kb = k[:, c0:c0 + chunk].to(torch.float32)
-        vb = v[:, c0:c0 + chunk].to(torch.float32)
-        kpos = c0 + torch.arange(kb.shape[1], device=q.device)
-        valid = kpos[None, :] < limit  # (B|1, chunk)
-        mask = valid[:, None, None, None, :]
-        if causal:
-            cm = kpos[None, None, :] <= q_positions[:, :, None]
-            mask = mask & cm[:, :, None, None, :]
-        s = torch.einsum("bqkgd,bckd->bqkgc", qg, kb) * scale
-        s = torch.where(mask, s, -torch.inf)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-        p = torch.exp(s - m_safe[..., None])
-        p = torch.where(mask, p, 0.0)
-        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bqkgc,bckd->bqkgd", p, vb)
-        m = m_new
+        args = (qg, k, v, m, l, acc, c0, chunk, q_positions, limit, causal)
+        m, l, acc = (checkpoint(_attend_chunk, *args, use_reentrant=False)
+                     if remat else _attend_chunk(*args))
     out = acc / l.clamp_min(1e-20)[..., None]
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
 def attention_block(params: dict, cfg: ArchConfig, x: torch.Tensor,
-                    positions: torch.Tensor, plans=None) -> torch.Tensor:
-    """Full-sequence attention (prefill / forward)."""
+                    positions: torch.Tensor, plans=None,
+                    part=None) -> torch.Tensor:
+    """Full-sequence attention (prefill / forward). Under a partition
+    (``dist.parallel.Partition``) ``x`` is this rank's sequence block and
+    ``params`` its heads' weights: the sequence is all-gathered before the
+    column-parallel ``wq``/``wk``/``wv``, and the row-parallel ``wo``'s
+    partial sums are reduce-scattered back onto the block."""
+    if part is not None:
+        x = part.gather_seq(x)
     B, S, _ = x.shape
     q, k, v = qkv_project(params, cfg, x, positions, plans)
     out = chunked_attention(q, k, v, q_positions=positions, kv_len=S,
                             causal=cfg.causal)
-    return pim_matmul(out.reshape(B, S, -1), params["wo"],
-                      plan_leaf(plans, "wo"), cfg)
+    y = pim_matmul(out.reshape(B, S, -1), params["wo"],
+                   plan_leaf(plans, "wo"), cfg)
+    return y if part is None else part.scatter_seq(y)
 
 
 # ------------------------------------------------------------------ mlp
 def mlp_block(params: dict, cfg: ArchConfig, x: torch.Tensor,
-              plans=None) -> torch.Tensor:
+              plans=None, part=None) -> torch.Tensor:
+    """The gated MLP; under a partition, column-parallel ``w1``/``w3`` on
+    the gathered sequence and a row-parallel ``w2`` reduce-scattered onto
+    the rank's block (``attention_block``)."""
+    if part is not None:
+        x = part.gather_seq(x)
     a = act_fn(cfg.activation)
     h = a(pim_matmul(x, params["w1"], plan_leaf(plans, "w1"), cfg)) \
         * pim_matmul(x, params["w3"], plan_leaf(plans, "w3"), cfg)
-    return pim_matmul(h, params["w2"], plan_leaf(plans, "w2"), cfg)
+    y = pim_matmul(h, params["w2"], plan_leaf(plans, "w2"), cfg)
+    return y if part is None else part.scatter_seq(y)
 
 
 # ------------------------------------------------------------------ moe
@@ -531,8 +571,23 @@ def moe_block(params: dict, cfg: ArchConfig, x: torch.Tensor,
 
 
 # ------------------------------------------------------------------ embedding
-def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+def embed(params: dict, tokens: torch.Tensor, part=None) -> torch.Tensor:
+    """Token ids (B, S) -> (B, S, D). Under a partition, with the table's
+    vocab sharded: a masked lookup of this rank's rows over the whole
+    sequence, reduce-scattered onto the rank's sequence block; with the
+    vocab whole, a lookup of the block's tokens."""
+    table = params["embed"]
+    if part is None:
+        return table[tokens]
+    v0, n = part.vocab_start(table.shape[0]), table.shape[0]
+    if v0 == 0 and n == part.cfg.vocab_size:
+        return table[part.seq_block(tokens)]
+    ids = tokens.long() - v0
+    inside = (ids >= 0) & (ids < n)
+    rows = table[ids.clamp(0, n - 1)]
+    return part.scatter_seq(torch.where(inside[..., None], rows,
+                                        torch.zeros((), dtype=rows.dtype,
+                                                    device=rows.device)))
 
 
 def lm_head(params: dict, cfg: ArchConfig, x: torch.Tensor,

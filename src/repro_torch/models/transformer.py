@@ -55,6 +55,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import parallel
+from repro_torch.dist import sharding as dsh
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
@@ -65,11 +67,14 @@ def block_kind(cfg: ArchConfig, layer: int) -> str:
 
 
 def ffn_block(bp: dict, cfg: ArchConfig, layer: int, x: torch.Tensor,
-              plan=None) -> torch.Tensor:
+              plan=None, part=None) -> torch.Tensor:
     """Layer ``layer``'s FFN: ``moe_block`` where the config puts a MoE
-    FFN, else the gated MLP (an rwkv layer's channel-mix: ``run_layer``)."""
-    fn = L.moe_block if L.is_moe_layer(cfg, layer) else L.mlp_block
-    return fn(bp["ffn"], cfg, x, plans=L.plan_leaf(plan, "ffn"))
+    FFN, else the gated MLP (an rwkv layer's channel-mix: ``run_layer``),
+    tensor-parallel under a partition."""
+    if L.is_moe_layer(cfg, layer):
+        return L.moe_block(bp["ffn"], cfg, x, plans=L.plan_leaf(plan, "ffn"))
+    return L.mlp_block(bp["ffn"], cfg, x, plans=L.plan_leaf(plan, "ffn"),
+                       part=part)
 
 
 def _init_carry(cfg: ArchConfig, kind: str, batch: int, device) -> dict:
@@ -257,26 +262,32 @@ def _head_plan(plans):
 
 
 def apply_block(bp: dict, cfg: ArchConfig, layer: int, x: torch.Tensor,
-                positions: torch.Tensor, plan=None) -> torch.Tensor:
+                positions: torch.Tensor, plan=None,
+                part=None) -> torch.Tensor:
     """One layer over a fresh sequence (forward, calibration capture):
-    ``run_layer`` from a zero carry, attention over this call's K/V."""
+    ``run_layer`` from a zero carry, attention over this call's K/V. Under
+    a partition (``dist.parallel.Partition``) ``x`` is the rank's sequence
+    block, ``bp`` the rank's weights and ``positions`` the whole
+    sequence's."""
     kind = block_kind(cfg, layer)
     cache = {} if kind == "attn" else _init_carry(cfg, kind, x.shape[0],
                                                   x.device)
 
     def attend(bp, cache, h, core_plan):
         return L.attention_block(bp["core"], cfg, h, positions,
-                                 plans=core_plan)
-    return run_layer(bp, cfg, layer, x, cache, plan, attend)
+                                 plans=core_plan, part=part)
+    return run_layer(bp, cfg, layer, x, cache, plan, attend, part)
 
 
 def run_layer(bp: dict, cfg: ArchConfig, layer: int, x: torch.Tensor,
-              cache: dict, plan, attend) -> torch.Tensor:
+              cache: dict, plan, attend, part=None) -> torch.Tensor:
     """One layer of a prefill chunk or a decode step, continuing from the
     layer's cache and updating it in place. ``attend(bp, cache, h, plan)``
     runs an attention layer's core on the normed input ``h``; the recurrent
     kinds continue their carries, as the reference's ``_decode_block`` and
-    ``_prefill_repeat_body`` do, rwkv's channel-mix from ``cm_prev``."""
+    ``_prefill_repeat_body`` do, rwkv's channel-mix from ``cm_prev``. Under
+    a partition the norms and residuals act on the rank's sequence block
+    and the FFN is tensor-parallel."""
     kind = block_kind(cfg, layer)
     core_plan = L.plan_leaf(plan, "core")
     h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
@@ -291,20 +302,25 @@ def run_layer(bp: dict, cfg: ArchConfig, layer: int, x: torch.Tensor,
     x = x + h
     h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
     if kind != "rwkv":
-        return x + ffn_block(bp, cfg, layer, h, plan)
+        return x + ffn_block(bp, cfg, layer, h, plan, part)
     x_prev = torch.cat([cache["cm_prev"][:, None].to(h.dtype), h[:, :-1]],
                        dim=1)
     cache["cm_prev"] = h[:, -1]
     return x + S.rwkv_channel_mix(bp["ffn"], cfg, h, x_prev)
 
 
-def embed_inputs(params: dict, cfg: ArchConfig,
-                 inputs: torch.Tensor) -> torch.Tensor:
+def embed_inputs(params: dict, cfg: ArchConfig, inputs: torch.Tensor,
+                 part=None) -> torch.Tensor:
     """Token ids (B, S) through the embedding table, or (embeddings mode)
-    frame embeddings (B, S, D) cast to ``cfg.dtype``."""
+    frame embeddings (B, S, D) cast to ``cfg.dtype``; under a partition,
+    the rank's sequence block of either (``layers.embed``)."""
     if cfg.input_mode == "tokens":
-        return L.embed(params["embed"], inputs)
-    return inputs.to(getattr(torch, cfg.dtype))
+        table = params["embed"]
+        if part is not None:
+            table = {"embed": part.weight(table["embed"], "embed/embed")}
+        return L.embed(table, inputs, part)
+    x = inputs.to(getattr(torch, cfg.dtype))
+    return x if part is None else part.seq_block(x)
 
 
 def _records(tree) -> bool:
@@ -316,7 +332,7 @@ def _records(tree) -> bool:
 
 
 def forward_hidden(params: dict, cfg: ArchConfig, inputs: torch.Tensor,
-                   plans=None) -> torch.Tensor:
+                   plans=None, part=None) -> torch.Tensor:
     """Full-sequence forward to final hidden states (B, S, D).
 
     With ``cfg.remat``, while autograd records (grad enabled and some
@@ -324,20 +340,29 @@ def forward_hidden(params: dict, cfg: ArchConfig, inputs: torch.Tensor,
     ``torch.utils.checkpoint`` and is recomputed in the backward, as the
     reference's ``jax.checkpoint`` per repeat and per block: only the
     layers' inputs stay alive. Otherwise (serving under ``no_grad``) the
-    layers run as they are."""
-    x = embed_inputs(params, cfg, inputs)
-    B, S = x.shape[0], x.shape[1]
+    layers run as they are.
+
+    Under a partition ``params`` are the rank's local blocks and the
+    result is the rank's sequence block (B, S / |model|, D); each layer's
+    weights are gathered inside the function that ``checkpoint`` wraps,
+    so the backward gathers them again (``dist.parallel``)."""
+    x = embed_inputs(params, cfg, inputs, part)
+    B, S = x.shape[0], inputs.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
     remat = cfg.remat and torch.is_grad_enabled() and _records(params)
     with L.suspend_pim_stats():
         for layer, (bp, plan) in enumerate(zip(params["layers"],
                                                _layer_plans(cfg, plans))):
-            if remat:
-                x = checkpoint(apply_block, bp, cfg, layer, x, positions,
-                               plan, use_reentrant=False)
-            else:
-                x = apply_block(bp, cfg, layer, x, positions, plan)
-    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            def layer_fn(bp, x, layer=layer, plan=plan):
+                if part is not None:
+                    bp = part.weights(bp, f"layers/{layer}")
+                return apply_block(bp, cfg, layer, x, positions, plan, part)
+            x = (checkpoint(layer_fn, bp, x, use_reentrant=False) if remat
+                 else layer_fn(bp, x))
+    norm = params["final_norm"]
+    if part is not None:
+        norm = part.weights(norm, "final_norm")
+    return L.rmsnorm(norm, x, cfg.norm_eps)
 
 
 def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor,
@@ -361,7 +386,27 @@ def _chunk_nll(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
     return ((torch.logsumexp(logits, dim=-1) - picked) * mask).sum()
 
 
-def lm_loss(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+def _chunk_nll_vocab_parallel(x: torch.Tensor, head: torch.Tensor,
+                              labels: torch.Tensor, mask: torch.Tensor,
+                              v0: int, group) -> torch.Tensor:
+    """``_chunk_nll`` on this rank's vocab block ``[v0, v0 + head
+    columns)`` of the logits: an all-reduce of the max, of the sum of
+    exps and of the picked logit over ``group`` (Megatron's vocab-parallel
+    cross-entropy); every rank of the group returns the same sum."""
+    logits = torch.einsum("bsd,dv->bsv", x, head).to(torch.float32)
+    top = parallel.all_reduce(logits.detach().amax(dim=-1), group, "max")
+    sum_exp = parallel.all_reduce(
+        torch.exp(logits - top[..., None]).sum(dim=-1), group)
+    ids = labels - v0
+    inside = (ids >= 0) & (ids < logits.shape[-1])
+    picked = logits.gather(-1, ids.clamp(0, logits.shape[-1] - 1)[..., None])
+    picked = parallel.all_reduce(
+        torch.where(inside, picked[..., 0], 0.0), group)
+    return ((torch.log(sum_exp) + top - picked) * mask).sum()
+
+
+def lm_loss(params: dict, cfg: ArchConfig, batch: dict,
+            part=None) -> torch.Tensor:
     """Mean cross-entropy: the causal LM loss (causal token models:
     position t predicts ``labels[t + 1]``, the last position masked), or
     every position against its own label (non-causal token models and
@@ -377,11 +422,19 @@ def lm_loss(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     chunk runs under ``torch.utils.checkpoint`` (the reference's
     ``jax.checkpoint(body)``, whatever ``cfg.remat`` says), so the backward
     recomputes one chunk's logits at a time too. Returns a float32
-    scalar."""
-    x = forward_hidden(params, cfg, batch["inputs"])  # (B, S, D)
+    scalar.
+
+    Under a partition (the rank's local blocks and rows, ``train_loop``):
+    with the head's vocab sharded, the hidden states' sequence is
+    all-gathered and the cross-entropy is vocab-parallel
+    (``_chunk_nll_vocab_parallel``); with it whole, each rank takes its
+    sequence block's positions and the sums are all-reduced over the
+    model axis. Either way every rank of the model axis returns its rows'
+    loss."""
+    x = forward_hidden(params, cfg, batch["inputs"], part=part)  # (B, S, D)
     labels = torch.as_tensor(batch["labels"], device=x.device).long()
     mask = batch.get("mask")
-    B, S = x.shape[:2]
+    B, S = labels.shape
     f32 = dict(dtype=torch.float32, device=x.device)
     mask = torch.ones((B, S), **f32) if mask is None else torch.as_tensor(
         mask, **f32).expand(B, S)
@@ -389,21 +442,35 @@ def lm_loss(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
         labels = torch.cat([labels[:, 1:], labels.new_zeros((B, 1))], dim=1)
         mask = mask * (torch.arange(S, device=x.device) < S - 1).to(
             torch.float32)[None, :]
+    head = params["embed"]["head"]
+    nll, extra, across = _chunk_nll, (), None
+    if part is not None:
+        head = part.weight(head, "embed/head")
+        if head.shape[1] < cfg.vocab_size:
+            x = part.gather_seq(x)
+            nll = _chunk_nll_vocab_parallel
+            extra = (part.vocab_start(head.shape[1]), part.model)
+        else:
+            labels, mask = part.seq_block(labels), part.seq_block(mask)
+            S, across = labels.shape[1], part.model
     C = min(LOSS_CHUNK, S)
     pad = -(-S // C) * C - S
     xp = torch.nn.functional.pad(x, (0, 0, 0, pad))
     lp = torch.nn.functional.pad(labels, (0, pad))
     mp = torch.nn.functional.pad(mask, (0, pad))
-    head = params["embed"]["head"]
     recording = torch.is_grad_enabled() and (x.requires_grad
                                              or head.requires_grad)
     tot = torch.zeros((), **f32)
     cnt = torch.zeros((), **f32)
     for c0 in range(0, S + pad, C):
-        args = (xp[:, c0:c0 + C], head, lp[:, c0:c0 + C], mp[:, c0:c0 + C])
-        tot = tot + (checkpoint(_chunk_nll, *args, use_reentrant=False)
-                     if recording else _chunk_nll(*args))
+        args = (xp[:, c0:c0 + C], head, lp[:, c0:c0 + C], mp[:, c0:c0 + C],
+                *extra)
+        tot = tot + (checkpoint(nll, *args, use_reentrant=False)
+                     if recording else nll(*args))
         cnt = cnt + mp[:, c0:c0 + C].sum()
+    if across is not None:
+        tot, cnt = parallel.all_reduce(tot, across), \
+            parallel.all_reduce(cnt, across)
     return tot / cnt.clamp_min(1.0)
 
 
@@ -639,13 +706,105 @@ def _store_span(cache: dict, k: torch.Tensor, v: torch.Tensor,
         cache[name][:, pos0:pos0 + val.shape[1]] = val
 
 
+def partitioned(cfg: ArchConfig) -> bool:
+    """Whether the partitioned train and prefill programs cover ``cfg``:
+    every layer attention plus a dense MLP. MoE expert parallelism and the
+    recurrent blocks over ``tp``/``heads`` are not partitioned yet."""
+    return all(block_kind(cfg, layer) == "attn"
+               and not L.is_moe_layer(cfg, layer)
+               for layer in range(cfg.n_layers))
+
+
+def partition(params: dict, cfg: ArchConfig):
+    """The ``dist.parallel.Partition`` of ``params`` when they are DTensors
+    on the active mesh (what turns the partitioned programs on), else
+    None. Raises where the partitioned program cannot run: a config it
+    does not cover, or ``pim_mode`` other than ``"off"`` (the reference
+    runs its meshed programs in float)."""
+    if not parallel.placed(params):
+        return None
+    if not partitioned(cfg):
+        raise ValueError(
+            f"{cfg.name}: the partitioned programs cover layers of "
+            "attention and a dense MLP; MoE and recurrent layers are not "
+            "partitioned yet")
+    if cfg.pim_mode != "off":
+        raise ValueError(
+            f"pim_mode={cfg.pim_mode!r} under a partition: the partitioned "
+            "programs run in float (pim_mode='off'), as the reference's "
+            "meshed programs do")
+    return parallel.Partition(dsh.active_mesh(), cfg, param_specs(cfg),
+                              params)
+
+
+def _prefill_partitioned(part, params: dict, cfg: ArchConfig,
+                         inputs: torch.Tensor, max_len, plans):
+    """``prefill`` under a partition: ``inputs`` are this rank's rows of
+    the prompts; returns this rank's block of the last-position logits
+    (its vocab shard) and of the state, caches ``(rows, S / |model|, K,
+    hd)``: the layout that ``cache_specs`` resolves to under the bound
+    rules (``cache_batch`` over the batch axes, ``seq`` over the model
+    axis), the reference's ``out_shardings``. Each rank writes every K/V
+    head of its own positions, projected with the whole ``wk``/``wv``."""
+    S = inputs.shape[1]
+    if max_len not in (None, S) or plans is not None:
+        raise ValueError("a partitioned prefill fills caches of the prompt's "
+                         "length and takes no plans")
+    local = parallel.local(params)
+    x = embed_inputs(local, cfg, inputs, part)
+    B = x.shape[0]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    block = part.seq_block(positions)
+    caches = []
+    with L.suspend_pim_stats():
+        for layer, bp in enumerate(local["layers"]):
+            path = f"layers/{layer}"
+            kv_w = {k: part.whole(t, f"{path}/core/{k}")
+                    for k, t in bp["core"].items() if k in _KV_LEAVES}
+            cache: dict = {}
+
+            def attend(bp, cache, h, core_plan, kv_w=kv_w):
+                k, v = L.kv_project(kv_w, cfg, h, block)
+                cache.update(_cache_entries(cfg, k, v))
+                return L.attention_block(bp["core"], cfg, h, positions,
+                                         part=part)
+            x = run_layer(part.weights(bp, path), cfg, layer, x, cache, None,
+                          attend, part)
+            caches.append(cache)
+    x = L.rmsnorm(part.weights(local["final_norm"], "final_norm"), x,
+                  cfg.norm_eps)
+    last = parallel.all_gather(x[:, -1:].contiguous(), 1, part.model)[:, -1:]
+    head = part.weight(local["embed"]["head"], "embed/head")
+    logits = L.lm_head({"head": head}, cfg, last.contiguous())
+    return logits, {"caches": caches, "pos": S}
+
+
+_KV_LEAVES = ("wk", "wv", "bk", "bv", "k_norm")
+
+
+def _cache_entries(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """K/V as a cache of ``cfg.kv_cache_dtype`` stores them."""
+    dt = getattr(torch, cfg.kv_cache_dtype)
+    if dt == torch.int8:
+        return _kv_entries({"k_scale": None}, k, v)
+    return {"k": k.to(dt), "v": v.to(dt)}
+
+
 def prefill(params: dict, cfg: ArchConfig, inputs: torch.Tensor,
             max_len: int | None = None,
             plans=None) -> tuple[torch.Tensor, dict]:
     """Process a prompt (tokens (B, S) or embeddings (B, S, D)), returning
     last-position logits and a filled decode state (caches sized to
     ``max_len``, default the prompt). Attention reads this call's raw
-    K/V; an int8 cache stores their codes."""
+    K/V; an int8 cache stores their codes.
+
+    With ``params`` placed as DTensors on the active mesh the prefill is
+    partitioned (``_prefill_partitioned``): ``inputs`` are the rank's
+    rows, and the logits and state are the rank's blocks."""
+    part = partition(params, cfg)
+    if part is not None:
+        return _prefill_partitioned(part, params, cfg, inputs, max_len,
+                                    plans)
     x = embed_inputs(params, cfg, inputs)
     B, S = x.shape[0], x.shape[1]
     state = init_decode_state(cfg, B, max_len or S, device=x.device)

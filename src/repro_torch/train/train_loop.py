@@ -16,22 +16,29 @@ by ``lm_loss``'s checkpointed logits chunks.
 Batches stay on the host until the loop moves them to the parameters'
 device; ``train`` times each step to a device synchronisation on the loss.
 
-Under a mesh (``repro_torch.dist.use_mesh``) the step is data-parallel,
-the counterpart of the reference's gradients pinned to the parameter
-shardings (``train_loop.py:36-43``) plus GSPMD's batch-sharded reduction.
-Parameters and optimizer state are DTensors placed by ``param_specs`` /
-``state_specs`` (``dist.place``). Each step gathers full plain leaves,
-takes this rank's slice of the batch along the mesh axes ``"batch"``
-resolves to (``"data"`` under ``DEFAULT_RULES``, ``("pod", "data")``
-under ``MULTIPOD_RULES``), runs the forward and backward above unchanged
-(remat and micro-batches included), and reduces each gradient
-explicitly: a ``Partial("avg")`` over the batch axes redistributed to the
-parameter's placements, a reduce-scatter into an FSDP shard and an
-all-reduce where the leaf is replicated (DTensor's backward of
-``full_tensor()`` reduces nothing: it assumes every rank computed the same
-thing). The loss is averaged over the batch ranks, and AdamW runs on the
-DTensor leaves. Compute is not tensor-parallel: every rank runs the whole
-model on its slice of the batch.
+Under a mesh (``repro_torch.dist.use_mesh``), with parameters and
+optimizer state placed as DTensors by ``param_specs`` / ``state_specs``
+(``dist.place``), the step is partitioned: the counterpart of the
+reference's step jitted with ``in_shardings`` (GSPMD's FSDP, tensor and
+sequence parallelism). Each rank takes its slice of the batch along the
+mesh axes ``"batch"`` resolves to (``"data"`` under ``DEFAULT_RULES``,
+``("pod", "data")`` under ``MULTIPOD_RULES``): a slice of the whole batch,
+or the local blocks of a batch placed along its rows (``_local_rows``).
+It runs ``lm_loss`` on its parameters' local blocks under a
+``dist.parallel.Partition`` (remat and micro-batches included): there is
+no ``full_tensor()`` of the parameters.
+The collectives' backward leaves each gradient as a local block in its
+parameter's placements; ``Partition.reduce_grad`` sums it over the mesh
+dims on which the parameter is replicated, it is divided by the batch
+ranks, and ``DTensor.from_local`` wraps it. The loss is averaged over the
+batch ranks, and AdamW runs on the DTensor leaves.
+
+Configs that the partitioned program does not cover yet
+(``transformer.partitioned``: MoE and recurrent layers) keep the
+data-parallel step (``_data_parallel``): each rank gathers full plain
+leaves, runs the whole model on its slice of the batch, and reduces each
+gradient to its parameter's placements (a ``Partial("avg")`` over the
+batch axes redistributed).
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from typing import Any, Callable, Iterator
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import parallel
 from repro_torch.dist import sharding as dsh
 from repro_torch.models import transformer as T
 from repro_torch.train import _tree
@@ -65,13 +73,14 @@ def make_grad_fn(cfg: ArchConfig, loss_fn: Callable | None = None
                  ) -> Callable:
     """(params, batch) -> (loss, grads): the train step's gradients, over
     ``cfg.micro_batches`` micro-batches; under a mesh, this rank's part of
-    the data-parallel step (module docstring). ``params`` is not modified
-    (its leaves' ``requires_grad`` included)."""
+    the partitioned (or data-parallel) step (module docstring). ``params``
+    is not modified (its leaves' ``requires_grad`` included)."""
+    custom = loss_fn is not None
     loss_fn = loss_fn or (lambda p, b: T.lm_loss(p, cfg, b))
     n_micro = max(1, cfg.micro_batches)
     acc_dt = getattr(torch, cfg.opt_state_dtype)
 
-    def grads_of(params, batch):
+    def grads_of(params, batch, loss_fn):
         # leaves that alias the parameters' storage and record autograd
         flat = [p.detach().requires_grad_(True)
                 for p in _tree.leaves(params)]
@@ -81,9 +90,9 @@ def make_grad_fn(cfg: ArchConfig, loss_fn: Callable | None = None
                                     materialize_grads=True)
         return loss.detach(), list(g)
 
-    def local_grad_fn(params, batch):
+    def local_grad_fn(params, batch, loss_fn=loss_fn):
         if n_micro == 1:
-            loss, grads = grads_of(params, batch)
+            loss, grads = grads_of(params, batch, loss_fn)
             return loss, _tree.unflatten(params, grads)
         rows = next(iter(batch.values())).shape[0]
         # a rank's slice may hold fewer rows than micro-batches (256 rows
@@ -96,7 +105,7 @@ def make_grad_fn(cfg: ArchConfig, loss_fn: Callable | None = None
 
         def micro_step(i):
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            loss, g = grads_of(params, micro)
+            loss, g = grads_of(params, micro, loss_fn)
             for a, b in zip(gsum, g):
                 a.add_(b.to(acc_dt))
             lsum[0] = loss if lsum[0] is None else lsum[0] + loss
@@ -108,9 +117,65 @@ def make_grad_fn(cfg: ArchConfig, loss_fn: Callable | None = None
         mesh = dsh.active_mesh()
         if mesh is None:
             return local_grad_fn(params, batch)
+        if T.partitioned(cfg) and parallel.placed(params):
+            if custom:
+                raise ValueError("the partitioned step computes lm_loss; "
+                                 "a custom loss_fn is not partitioned")
+            return _partitioned(local_grad_fn, cfg, params, batch)
         return _data_parallel(local_grad_fn, mesh, params, batch)
 
     return grad_fn
+
+
+def _rows(batch: dict, n: int, idx: int) -> dict:
+    """Rank ``idx`` of ``n`` batch ranks' rows of ``batch``."""
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n:
+        raise ValueError(f"a batch of {rows} rows does not split over "
+                         f"{n} batch ranks")
+    per = rows // n
+    return {k: v[idx * per:(idx + 1) * per] for k, v in batch.items()}
+
+
+def _local_rows(batch: dict, part) -> dict:
+    """This rank's rows of ``batch``: the local blocks of DTensors placed
+    along their rows over the batch axes (the reference's batch
+    ``in_shardings`` without the sequence split), or a slice of the whole
+    batch."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    placed = [isinstance(v, DTensor) for v in batch.values()]
+    if not any(placed):
+        return _rows(batch, part.n_batch, part.batch_index)
+    for k, v in batch.items():
+        want = tuple(Shard(0) if d in part.batch_dims else Replicate()
+                     for d in range(part.mesh.ndim))
+        if not isinstance(v, DTensor) or tuple(v.placements) != want:
+            raise ValueError(f"batch[{k!r}]: a placed batch is sharded "
+                             f"along its rows over the batch axes, {want}")
+    return {k: v.to_local() for k, v in batch.items()}
+
+
+def _partitioned(local_grad_fn, cfg, params, batch):
+    """One rank's part of the partitioned gradient (module docstring):
+    (the loss averaged over the batch ranks, gradients placed as the
+    parameters are)."""
+    from torch.distributed.tensor import DTensor
+    part = T.partition(params, cfg)
+    paths, leaves = _tree.flatten(params)
+    loss, grads = local_grad_fn(
+        parallel.local(params), _local_rows(batch, part),
+        lambda p, b: T.lm_loss(p, cfg, b, part=part))
+    out = []
+    for path, p, g in zip(paths, leaves, _tree.leaves(grads), strict=True):
+        g = part.reduce_grad(g, path)
+        if part.n_batch > 1:
+            g = g / part.n_batch
+        out.append(DTensor.from_local(g, p.device_mesh, p.placements,
+                                      run_check=False, shape=p.shape,
+                                      stride=p.stride()))
+    for d in part.batch_dims:
+        loss = parallel.all_reduce(loss, part.groups[d])
+    return loss / part.n_batch, _tree.unflatten(params, out)
 
 
 def _plain(t: torch.Tensor) -> torch.Tensor:
@@ -139,12 +204,7 @@ def _data_parallel(local_grad_fn, mesh, params, batch):
     coord = mesh.get_coordinate()
     for d in dims:  # major first, as the batch dim is sharded
         n, idx = n * mesh.shape[d], idx * mesh.shape[d] + coord[d]
-    rows = next(iter(batch.values())).shape[0]
-    if rows % n:
-        raise ValueError(f"a batch of {rows} rows does not split over "
-                         f"{n} batch ranks")
-    per = rows // n
-    local_batch = {k: v[idx * per:(idx + 1) * per] for k, v in batch.items()}
+    local_batch = _rows(batch, n, idx)
     leaves = _tree.leaves(params)
     full = [_plain(p) for p in leaves]
     loss, grads = local_grad_fn(_tree.unflatten(params, full), local_batch)

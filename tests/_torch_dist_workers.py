@@ -471,5 +471,107 @@ def _missed_iteration(rank, pm, dm, models, payload) -> dict:
     return dict(error=err, seconds=time.perf_counter() - t0)
 
 
+def _as_torch(batch: dict) -> dict:
+    return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+
+
+def task_tp(rank: int, payload: dict, tmp: Path) -> dict:
+    """The partitioned train step and prefill on 4 ranks, for each of
+    ``payload["runs"]`` (a 2-axis mesh under DEFAULT_RULES, a 3-axis pod
+    mesh under MULTIPOD_RULES): 2 steps from the reference's weights on the
+    payload's batches (losses, grad norms, the gathered parameters and
+    each gradient's placements, on rank 0), then a prefill of the rank's
+    rows of the payload's prompts (the rank's logits and cache blocks, its
+    coordinate, and a partitioned prefill's refusal of ``pim_mode``)."""
+    import dataclasses
+    from torch.distributed.tensor import DTensor
+    from repro_torch import configs
+    from repro_torch.dist import compat
+    from repro_torch.dist import parallel
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.models import convert
+    from repro_torch.models import transformer as T
+    from repro_torch.train import _tree
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+    ocfg = opt.AdamWConfig(**OPT_KW)
+    out: dict = {"rank": rank}
+    for run in payload["runs"]:
+        cfg = dataclasses.replace(
+            configs.get(run["arch"]).reduced(**run["reduced"]),
+            **run["replace"])
+        pods = len(run["mesh"]) == 3  # ("pod", "data", "model")
+        mesh = compat.make_mesh(
+            run["mesh"], ("pod", "data", "model") if pods
+            else ("data", "model"), device_type="cpu")
+        rules = dsh.MULTIPOD_RULES if pods else dsh.DEFAULT_RULES
+        pspecs = T.param_specs(cfg)
+        res: dict = {"coordinate": tuple(mesh.get_coordinate())}
+        with dsh.axis_rules(rules), dsh.use_mesh(mesh):
+            params = convert.params_from_reference(
+                copy.deepcopy(payload["np_params"][run["config"]]), cfg,
+                "cpu")
+            p = dsh.place(params, pspecs, mesh)
+            s = dsh.place(opt.init_state(ocfg, params),
+                          opt.state_specs(pspecs), mesh)
+            step = tl.make_train_step(cfg, ocfg)
+            batches = [_as_torch(b) for b in payload["batches"][run["config"]]]
+            loss, grads = tl.make_grad_fn(cfg)(p, batches[0])
+            same = all(isinstance(g, DTensor) and g.placements == q.placements
+                       for g, q in zip(_tree.leaves(grads), _tree.leaves(p)))
+            # the batch placed along its rows: the same rows, the same step
+            rows = {k: dsh.distribute(v, dsh.NamedSharding(
+                mesh, dsh.spec_for(("batch",), mesh)))
+                for k, v in batches[0].items()}
+            loss2, grads2 = tl.make_grad_fn(cfg)(p, rows)
+            res["placed_batch_equal"] = bool(torch.equal(loss, loss2)) and all(
+                torch.equal(a.to_local(), b.to_local()) for a, b in zip(
+                    _tree.leaves(grads), _tree.leaves(grads2)))
+            del grads, grads2
+            losses, norms = [], []
+            for b in batches:
+                p, s, m = step(p, s, b)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+            paths, flat = _tree.flatten(p)
+            gathered = {k: _np(t.full_tensor()) for k, t in zip(paths, flat)}
+            res.update(losses=losses, grad_norms=norms,
+                       grad_placements_ok=same,
+                       placed=all(isinstance(t, DTensor)
+                                  for t in _tree.leaves((p, s))),
+                       step=int(s["step"].full_tensor()))
+            if rank == 0:
+                res["params"] = gathered
+            # prefill of this rank's rows, from the reference's weights
+            params = convert.params_from_reference(
+                copy.deepcopy(payload["np_params"][run["config"]]), cfg,
+                "cpu")
+            p = dsh.place(params, pspecs, mesh)
+            prompts = torch.from_numpy(np.array(
+                payload["prompts"][run["config"]]))
+            part = T.partition(p, cfg)
+            rows = prompts.shape[0] // part.n_batch
+            mine = prompts[part.batch_index * rows:
+                           (part.batch_index + 1) * rows]
+            with torch.no_grad():
+                logits, state = T.prefill(p, cfg, mine)
+            res["prefill"] = dict(
+                logits=_np(logits), pos=state["pos"],
+                caches=[{k: _np(v) for k, v in c.items()}
+                        for c in state["caches"]],
+                batch_index=part.batch_index, model_rank=part.model.rank,
+                heads=part.heads, kv=part.kv)
+            try:
+                T.prefill(p, dataclasses.replace(cfg, pim_mode="exact"),
+                          mine)
+                res["pim_refusal"] = None
+            except ValueError as e:
+                res["pim_refusal"] = str(e)
+            res["placed_flag"] = (parallel.placed(p),
+                                  parallel.placed(params))
+        out[run["name"]] = res
+    return out
+
+
 TASKS = {"dist": task_dist, "compression": task_compression,
-         "disagg": task_disagg}
+         "disagg": task_disagg, "tp": task_tp}

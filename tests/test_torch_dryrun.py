@@ -168,6 +168,54 @@ def fake_group():
         dist.destroy_process_group()
 
 
+@pytest.mark.parametrize("impl", ["functional", "parallel"])
+def test_autograd_collectives_counted_once_each_way(fake_group, impl):
+    """An autograd all-gather and reduce-scatter on a fake 4-rank group:
+    each counted once in the forward and once in the backward (its
+    reverse), with the reference's ring bytes: funcol's
+    ``all_gather_tensor_autograd`` / ``reduce_scatter_tensor_autograd``
+    and ``dist.parallel``'s own."""
+    import warnings
+    import torch.distributed._functional_collectives as fc
+    from repro_torch.dist import parallel
+    from torch.distributed.device_mesh import init_device_mesh
+    group = dist.group.WORLD
+    if impl == "parallel":
+        g = parallel.Group(init_device_mesh("cpu", (4,),
+                                            mesh_dim_names=("model",)), 0)
+
+        def ag(t):
+            return parallel.all_gather(t, 0, g)
+
+        def rs(t):
+            return parallel.reduce_scatter(t, 0, g)
+    else:
+        def ag(t):
+            return fc.wait_tensor(fc.all_gather_tensor_autograd(t, 0, group))
+
+        def rs(t):
+            return fc.wait_tensor(
+                fc.reduce_scatter_tensor_autograd(t, "sum", 0, group))
+    payload = 64 * 32 * 4  # the all-gather's result, float32
+    with FakeTensorMode(), warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+
+        def step(x, fn):
+            y = fn(x)
+            (g,) = torch.autograd.grad(y, x, torch.ones_like(y))
+            return g
+        x = torch.zeros(16, 32, requires_grad=True)
+        _, c, _ = hlo.analyze(step, x, ag)
+        assert c.coll_counts == {"all-gather": 1, "reduce-scatter": 1}
+        assert c.coll_bytes == {"all-gather": payload * 3 / 4,
+                                "reduce-scatter": payload / 4 * 3}
+        x = torch.zeros(64, 32, requires_grad=True)
+        _, c, _ = hlo.analyze(step, x, rs)
+        assert c.coll_counts == {"all-gather": 1, "reduce-scatter": 1}
+        assert c.coll_bytes == {"all-gather": payload * 3 / 4,
+                                "reduce-scatter": payload / 4 * 3}
+
+
 def test_collective_bytes_on_a_fake_group(fake_group):
     """Shard -> Replicate is one all-gather of payload (s - 1) / s, Partial
     -> Replicate one all-reduce of 2 payload (s - 1) / s, each counted at
@@ -307,36 +355,49 @@ def qwen_runs(tmp_path_factory):
 
 
 def _flops_alone() -> dict:
-    """FlopCounterMode's count of each qwen cell's per-rank program with
-    plain (fake) tensors and no mesh: 16 of the 256 train rows on full
-    weights, 2 of 32 prompts, 8 of 128 decoding sequences."""
+    """FlopCounterMode's count of each qwen cell's per-rank program: the
+    decode step with plain (fake) tensors and no mesh (8 of 128 decoding
+    sequences on whole weights); the partitioned train step and prefill
+    as the dry run builds them (``dryrun.rank_program``), on rank 0 of a
+    fake 256-rank group under ``DEFAULT_RULES``."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.mesh import make_production_mesh
     cfg = configs.get(QWEN)
-    ocfg = opt.AdamWConfig(state_dtype=cfg.opt_state_dtype)
+    shapes = {s.name: s for s in configs.runnable_shapes(cfg)}
     out = {}
     with FakeTensorMode():
         params = T.init_params(cfg, seed=0, device="cpu")
-        programs = {
-            "train_4k": (tl.make_train_step(cfg, ocfg), params,
-                         opt.init_state(ocfg, params),
-                         {k: torch.zeros((16, 4096), dtype=torch.int32)
-                          for k in ("inputs", "labels")}),
-            "prefill_32k": (dryrun.make_prefill_step(cfg), params,
-                            {"inputs": torch.zeros((2, 32768),
-                                                   dtype=torch.int32)}),
-            "decode_32k": (dryrun.make_serve_step(cfg), params,
-                           T.init_decode_state(cfg, 8, 32768, device="cpu"),
-                           {"tokens": torch.zeros((8, 1),
-                                                  dtype=torch.int32)})}
-        for name, (step, *args) in programs.items():
-            with FlopCounterMode(display=False) as fc, \
-                    torch.enable_grad() if name == "train_4k" \
-                    else torch.no_grad():
-                step(*args)
+        with FlopCounterMode(display=False) as fc, torch.no_grad():
+            dryrun.make_serve_step(cfg)(
+                params, T.init_decode_state(cfg, 8, 32768, device="cpu"),
+                {"tokens": torch.zeros((8, 1), dtype=torch.int32)})
+        out["decode_32k"] = fc.get_total_flops()
+    del params
+    for name in ("train_4k", "prefill_32k"):
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=256)
+        try:
+            mesh = make_production_mesh(device_type="cpu")
+            with FakeTensorMode(), dsh.axis_rules(dsh.DEFAULT_RULES):
+                step, args = dryrun.rank_program(
+                    cfg, shapes[name], mesh, torch.device("cpu"))
+                with dsh.use_mesh(mesh), \
+                        FlopCounterMode(display=False) as fc, \
+                        torch.set_grad_enabled(name == "train_4k"):
+                    step(*args)
+                del step, args
             out[name] = fc.get_total_flops()
+        finally:
+            dist.destroy_process_group()
     return out
 
 
 def test_qwen_cells_agree_with_the_reference(qwen_runs):
+    """The report fields that must agree, the key sets, each cell's flops
+    against FlopCounterMode's count of its rank program (``_flops_alone``),
+    decode's zero collectives, and the partitioned prefill's collectives:
+    one reduce-scatter per row-parallel projection and one for the
+    embedding, no all-reduce (nothing is replicated that a rank reduces)."""
     ref, port, rc, _, log, alone = qwen_runs
     assert rc == 0, log[-3000:]
     assert "dry-run: 3 ok / 0 failed / 0 skipped, 3 cells" in log
@@ -346,39 +407,63 @@ def test_qwen_cells_agree_with_the_reference(qwen_runs):
         assert set(p) == set(r) - {"xla_cost_analysis_flops_loop_once"}
         assert p["hlo_flops_per_device"] == alone[s], s
         assert p["n_chips"] == 256
-    for s in ("prefill_32k", "decode_32k"):
-        assert port[s]["collective_bytes_per_device"] == 0
-        assert port[s]["collective_breakdown"] == {}
-    # the data-parallel step's redundant compute: ~16x the reference's
-    # per-device flops (every rank runs the whole model)
-    assert 10 < (port["train_4k"]["hlo_flops_per_device"]
-                 / ref["train_4k"]["hlo_flops_per_device"]) < 20
+    assert port["decode_32k"]["collective_bytes_per_device"] == 0
+    assert port["decode_32k"]["collective_breakdown"] == {}
+    counts = port["prefill_32k"]["collective_counts"]
+    n_layers = configs.get(QWEN).n_layers
+    assert counts["reduce-scatter"] == 2 * n_layers + 1
+    assert counts["all-gather"] > 0 and "all-reduce" not in counts
+
+
+def test_qwen_partitioned_flops_near_the_reference(qwen_runs):
+    """The partitioned train_4k and prefill_32k rank programs compute what
+    the reference's rank does: flops per device within 0.8-1.3x of its
+    dry run's (the data-parallel step computed 15.4x, the unpartitioned
+    prefill 16x)."""
+    ref, port = qwen_runs[:2]
+    for s in ("train_4k", "prefill_32k"):
+        ratio = (port[s]["hlo_flops_per_device"]
+                 / ref[s]["hlo_flops_per_device"])
+        assert 0.8 <= ratio <= 1.3, (s, ratio)
+        assert port[s]["per_device_bytes"] <= 3 * ref[s]["per_device_bytes"]
 
 
 def test_qwen_train_gathers_its_placed_parameters(qwen_runs):
-    """The train cell's all-gather link bytes are the sum, over the
-    parameter leaves as ``place`` shards them, of each gather step's
-    result bytes x (s - 1) / s: every sharded mesh dim is gathered once,
-    16 ranks a dim."""
+    """The train cell's all-gathers, counted and in link bytes (result
+    bytes x 15 / 16): each FSDP-sharded leaf gathered over "data" per
+    layer, twice under remat (the forward and the backward's recompute),
+    the embedding table and the head once; and the sequence of the
+    activations (16 rows x 4096 positions x d_model) gathered over
+    "model" before each of a layer's two column-parallel blocks, again in
+    the recompute and in the backward of each of its two reduce-scatters,
+    plus the embedding's reduce-scatter's backward and the loss's gather.
+    qwen's 16 heads split evenly over 16 ranks: no leaf is gathered over
+    "model"."""
     port = qwen_runs[1]["train_4k"]
     cfg = configs.get(QWEN)
-    sizes = {"data": 16, "model": 16}
     mesh = AbstractMesh((16, 16), ("data", "model"))
-    link = []
+    link, count = [], [0]
 
-    def gathered(axes, leaf):
+    def gathered(axes, leaf, times):
         spec = dsh.fit_spec_to_shape(dsh.spec_for(axes, mesh), leaf.shape,
                                      mesh)
-        groups = [sizes[a] for e in spec if e is not None
-                  for a in ((e,) if isinstance(e, str) else e)]
-        size = leaf.numel() * leaf.element_size() / np.prod(groups)
-        for s in groups:  # one gather per sharded mesh dim
-            size *= s
-            link.append(size * (s - 1) / s)
+        if "data" not in spec:
+            return
+        model = 16 if "model" in spec else 1
+        size = leaf.numel() * leaf.element_size() / model
+        link.append(times * size * 15 / 16)
+        count[0] += times
     with FakeTensorMode(), dsh.axis_rules(dsh.DEFAULT_RULES):
-        dsh.map_specs(gathered, T.param_specs(cfg),
-                      T.init_params(cfg, seed=0, device="cpu"))
-    want = sum(link)
+        params = T.init_params(cfg, seed=0, device="cpu")
+        specs = T.param_specs(cfg)
+        for name in ("embed", "head"):
+            gathered(specs["embed"][name], params["embed"][name], 1)
+        for lspec, lp in zip(specs["layers"], params["layers"]):
+            dsh.map_specs(lambda a, t: gathered(a, t, 2), lspec, lp)
+    seq = 6 * cfg.n_layers + 2
+    act = 16 * 4096 * cfg.d_model * 2
+    want = sum(link) + seq * act * 15 / 16
+    assert port["collective_counts"]["all-gather"] == count[0] + seq
     assert port["collective_breakdown"]["all-gather"] == pytest.approx(
         want, rel=1e-12)
     assert port["collective_bytes_per_device"] > want  # + grad reductions
@@ -440,6 +525,13 @@ def test_one_cell_per_family_at_published_width(arch, shape):
     assert r["status"] == "ok"
     assert r["hlo_flops_per_device"] > 0 and r["per_device_bytes"] > 0
     cfg = configs.get(arch)
+    if T.partitioned(cfg):
+        # hubert's prefill is partitioned: its placed shards, gathered a
+        # layer at a time, not the whole weights
+        assert r["per_device_bytes"] < 2 * cfg.param_count()
+        assert r["collective_counts"]["reduce-scatter"] == \
+            2 * cfg.n_layers
+        return
     # serving holds the whole plain weights on every rank
     assert r["per_device_bytes"] > 2 * cfg.param_count() * 0.99
     assert r["collective_bytes_per_device"] == 0

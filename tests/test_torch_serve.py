@@ -114,7 +114,7 @@ def test_imports_are_torch_only():
         "'launch.train', 'dist', 'dist.sharding', 'dist.compat', "
         "'launch.mesh', 'train.compression', 'examples.quickstart', "
         "'examples.serve_quantized', 'examples.pim_accuracy_demo', "
-        "'launch.dryrun', 'launch.hlo_analysis'):\n"
+        "'launch.dryrun', 'launch.hlo_analysis', 'dist.parallel'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized(), 'an import opened a group'\n"
