@@ -63,7 +63,8 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            telemetry off and on, in exact and fast, in turns (recorded, not
            gated);
   nonideal device nonidealities and ADC noise on the serve phase's model,
-           pinned exact plans and 4 requests at the paper's 7b ADC: the
+           pinned exact plans and 4 requests (3 new tokens each) at the
+           paper's 7b ADC: the
            ideal array with speculation off (K1), then ``NonidealSim``
            dies (no kernel; 1b static input slicing) at the nominal corner
            (its tokens must equal the ideal run's), 1-sigma seed 0 twice
@@ -158,29 +159,49 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            tolerances; a prefill in bf16 of 4 x 256 tokens, the ranks'
            logits blocks (rows x vocab shards) and cache blocks (rows x
            sequence blocks) assembled within ``TP_PREFILL_RTOL`` of the
-           one-process prefill. Per rank and step: collectives by op,
-           their bytes, the bytes staged through host memory (gloo's
-           all-gather on CUDA, ``parallel.GLOO_DEVICE_OPS``) and the step
-           ms; K1-K4 launches must stay 0 on every rank;
+           one-process prefill; then the partitioned decode
+           (``parallel.ServePartition``) under SERVE_RULES on the same
+           mesh: the one-process prefill of those prompts into caches of
+           ``TP_DECODE_LEN`` placed by ``cache_specs`` (both "model"
+           blocks written: the prompt's by the prefill, the new tokens'
+           by the decode), the weights by ``param_specs``, then
+           ``TP_DECODE_STEPS`` greedy steps (ids over the vocab shards,
+           ``ServePartition.greedy``), in bf16 and in float32: the
+           logits assembled by vocab within ``TP_DECODE_RTOL`` (bf16) or
+           ``TP_DECODE32_RTOL`` of the one-process decode fed the same
+           tokens, the greedy tokens equal to the one-process greedy
+           run's (float32 holds them where a bf16 near-tie could break
+           them). Per rank and step: collectives
+           by op, their bytes, the bytes staged through host memory
+           (gloo's all-gather on CUDA, ``parallel.GLOO_DEVICE_OPS``) and
+           the step ms, labelled host-staged; K1-K4 launches must stay 0
+           on every rank;
   dryrun   the dry run (``repro_torch.launch.dryrun``): the cells of
            jamba-1.5-large-398b, phi3.5-moe-42b and qwen1.5-0.5b on both
-           meshes (20 of the 62; the whole sweep takes longer than this
-           script may, ``--all`` runs it) on fake tensors and fake
-           256/512-rank groups, as ``python -m repro_torch.launch.dryrun
-           --arch ... --jobs N`` in a subprocess on the host's cores, every
-           cell ``ok``, one line per cell (GiB per device, fits, the three
-           roofline terms, the bound), the fits count and the bounds'
-           histogram; meanwhile
+           meshes, then the decode_32k cells of the other four dense
+           attention archs and of rwkv6-3b (30 of the 62; the whole sweep
+           takes longer
+           than this script may, ``--all`` runs it) on fake tensors and
+           fake 256/512-rank groups, as ``python -m
+           repro_torch.launch.dryrun --arch ... --jobs N`` in a subprocess
+           started with the script at the lowest CPU priority, so that it
+           runs on the host's idle cores during the earlier phases, every cell ``ok``, one line per cell (GiB
+           per device, fits, the three roofline terms, the bound), the
+           fits count and the bounds' histogram; meanwhile
            qwen1.5-0.5b's per-rank programs of ``decode_32k``,
-           ``prefill_32k`` and ``train_4k`` on the 16x16 mesh (8 sequences
-           against a 32,768-position cache; 2 x 32,768 prompt tokens; 16 x
-           4,096 train tokens) run for real on the card (weights from seed
-           0, zeroed caches and tokens, bf16; prefill and train are the
-           partitioned programs, run as rank 0 of a fake 256-rank group
-           destroyed afterwards, train with grad enabled):
+           ``prefill_32k`` and ``train_4k`` on the 16x16 mesh (8
+           sequences' 2,048-position block of a 32,768-position cache,
+           every token of the 128; 2 x 32,768 prompt tokens; 16 x 4,096
+           train tokens) run for real on the card (weights from seed 0,
+           zeroed caches and tokens, bf16; all three are the partitioned
+           programs, run as rank 0 of a fake 256-rank group destroyed
+           afterwards, train with grad enabled), and rwkv6-3b's plain
+           ``decode_32k`` program (its 8 rows' recurrent state and a
+           replicated copy of the weights, the program that every MoE,
+           hybrid and rwkv decode cell runs):
            ``FlopCounterMode``'s count must equal the sweep's
            ``hlo_flops_per_device``, ``max_memory_allocated`` must lie
-           within 15% of its ``per_device_bytes``, and the median of 10
+           within 15% of its ``per_device_bytes``, and the median of 5
            timed runs is printed beside ``compute_s``, ``memory_s`` and
            the roofline fraction reached; K1-K4 launches must stay 0;
            ``--phases dryrun`` runs it alone;
@@ -377,16 +398,23 @@ ENCODER_ROWS = ENCODER_BATCH * ENCODER_SEQ  # rows every projection gets
 # are 68.6, 65.5 and 222.4 GB in bf16)
 DECODERS = (("chameleon-34b", 4, True), ("qwen2.5-32b", 4, False),
             ("qwen1.5-110b", 2, False))
-# the dry run's per-rank programs held against the card (qwen1.5-0.5b,
-# 16x16 mesh), its timed runs, the peak-memory tolerance, the archs swept
+# the dry run's per-rank programs held against the card, (arch, shape) on
+# the 16x16 mesh: qwen1.5-0.5b's three partitioned programs and rwkv6-3b's
+# decode, the plain serve program that the MoE, hybrid and rwkv decode
+# cells still run; its timed runs, the peak-memory tolerance, the archs swept
 # on both meshes (the longest cells first), the sweep's worker processes
 # (the host's cores less the main process's) and its limit. The
 # whole sweep, all 62 cells, takes longer than this script may (rwkv6-3b's
 # train cells alone take minutes): run it by hand with
 # ``python -m repro_torch.launch.dryrun --all --jobs N``
-DRYRUN_PROGRAMS = ("decode_32k", "prefill_32k", "train_4k")
+DRYRUN_PROGRAMS = ((ARCH, "decode_32k"), (ARCH, "prefill_32k"),
+                   (ARCH, "train_4k"), ("rwkv6-3b", "decode_32k"))
 DRYRUN_ARCHS = ("jamba-1.5-large-398b", "phi3.5-moe-42b", ARCH)
-DRYRUN_RUNS = 10
+# the decode cells of the other dense attention archs (partitioned) and of
+# rwkv6-3b (plain)
+DRYRUN_DECODE_ARCHS = ("qwen1.5-110b", "qwen2.5-32b", "chameleon-34b",
+                       "yi-6b", "rwkv6-3b")
+DRYRUN_RUNS = 5
 DRYRUN_MEM_TOL = 0.15
 DRYRUN_JOBS = max(1, min(6, (os.cpu_count() or 2) - 2))
 DRYRUN_SWEEP_TIMEOUT = 900
@@ -2293,17 +2321,17 @@ PER_CALL = {"exact": {"fused_spec_crossbar": 2}, "int8": {},
 
 
 def engine_row(run: str, eng, outs, serve_s: float, launches: dict,
-               per_call: dict, vocab: int, served: dict | None = None
-               ) -> dict:
-    """One serve line: each request's 8 tokens in the vocabulary, and the
-    launches the serving made (``served``, default ``launches``) equal to
+               per_call: dict, vocab: int, served: dict | None = None,
+               n_new: int = 8) -> dict:
+    """One serve line: each request's ``n_new`` tokens in the vocabulary,
+    and the launches the serving made (``served``, default ``launches``) equal to
     ``per_call[kernel]`` x projections x engine calls for every kernel."""
     st = eng.stats
     served = launches if served is None else served
     calls = st.decode_steps + st.prefill_chunks
     # weight-static projections a call
     n_proj = len(step_calls(eng.cfg, eng.plans))
-    assert all(o.finish_reason == "length" and len(o.tokens) == 8
+    assert all(o.finish_reason == "length" and len(o.tokens) == n_new
                and all(0 <= int(t) < vocab for t in o.tokens) for o in outs)
     want = {k: per_call.get(k, 0) * n_proj * calls for k in served}
     if served != want:
@@ -2738,11 +2766,32 @@ def launcher_outputs() -> dict:
                 k2_name=short_name(k2[0]["name"]))
 
 
-def device_us(e) -> float:
-    """A profiler event's device time in µs (the key moved across torch
-    versions)."""
-    return getattr(e, "device_time_total", None) or getattr(
-        e, "cuda_time_total", 0.0)
+def kernel_times(prof) -> list:
+    """Every device record of a finished ``torch.profiler`` window (each
+    kernel, copy and fill: CUPTI's records) summed by name, read from the
+    raw records: ``[name, launches, device µs]``, the most time first.
+    ``key_averages()`` gives the same sums but first builds an event tree,
+    which took several times the profiled run itself."""
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if not str(e.device_type()).endswith("CUDA"):
+            continue
+        us = e.duration_ns() / 1e3
+        if us > 0:
+            t = by_name.setdefault(e.name(), [0, 0.0])
+            t[0] += 1
+            t[1] += us
+    if not by_name:
+        raise AssertionError("the profiler saw no kernel")
+    return sorted(([k, n, us] for k, (n, us) in by_name.items()),
+                  key=lambda r: r[2], reverse=True)
+
+
+def top_kernels(kernels: list, n: int) -> str:
+    """The ``n`` kernels of ``kernel_times`` that took the most, as JSON:
+    short name, launches, device ms."""
+    return json.dumps([[short_name(k), c, round(us / 1e3, 3)]
+                       for k, c, us in kernels[:n]])
 
 
 def device_profile(eng, reqs) -> dict:
@@ -2757,21 +2806,14 @@ def device_profile(eng, reqs) -> dict:
         eng.run(reqs)
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")
-               and device_us(e) > 0]
-    if not kernels:
-        raise AssertionError("the profiler saw no kernel")
-    top = sorted(kernels, key=device_us, reverse=True)[:6]
+    kernels = kernel_times(prof)
     st = eng.stats
     return dict(profiled_serve_s=round(wall_s, 3),
                 decode_steps=st.decode_steps,
                 prefill_chunks=st.prefill_chunks,
-                all_kernels_device_ms=sum(map(device_us, kernels)) / 1e3,
-                kernel_launches=sum(e.count for e in kernels),
-                top_kernels=json.dumps([[short_name(e.key), e.count,
-                                         round(device_us(e) / 1e3, 3)]
-                                        for e in top]))
+                all_kernels_device_ms=sum(r[2] for r in kernels) / 1e3,
+                kernel_launches=sum(r[1] for r in kernels),
+                top_kernels=top_kernels(kernels, 6))
 
 
 def short_name(kernel: str) -> str:
@@ -2796,19 +2838,17 @@ def k1_compile_device_time(params, cfg, calib) -> dict:
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = fx.KERNEL.launches - n0
-    events = prof.key_averages()
-    k1 = [e for e in events if "crossbar_kernel" in e.key
-          and "sliced" not in e.key]
-    kernels = [e for e in events if str(getattr(e, "device_type", "")).endswith(
-        "CUDA") and device_us(e) > 0]
-    k1_ms = sum(device_us(e) for e in k1) / 1e3
-    k1_calls = sum(e.count for e in k1)
+    kernels = kernel_times(prof)
+    k1 = [r for r in kernels if "crossbar_kernel" in r[0]
+          and "sliced" not in r[0]]
+    k1_ms = sum(r[2] for r in k1) / 1e3
+    k1_calls = sum(r[1] for r in k1)
     if k1_calls != launches or k1_ms <= 0:
         raise AssertionError(f"profiler saw {k1_calls} K1 kernels with "
                              f"{k1_ms} ms; the compile launched {launches}")
     return dict(profiled_compile_s=round(wall_s, 3), k1_launches=launches,
                 k1_device_ms=k1_ms,
-                all_kernels_device_ms=sum(device_us(e) for e in kernels) / 1e3,
+                all_kernels_device_ms=sum(r[2] for r in kernels) / 1e3,
                 slice_histogram=json.dumps(compiled.slice_histogram()))
 
 
@@ -3292,13 +3332,14 @@ def phase_timing(ctx: dict, rows: list) -> list:
 # ---------------------------------------------------------------- nonideal
 DIE_RUNS = (("nominal", 0), ("1sigma", 0), ("1sigma", 0), ("1sigma", 1),
             ("3sigma", 0))   # (corner, die seed): 1-sigma seed 0 twice
+DIE_NEW_TOKENS = 3  # per request on a die: its prefill's and 2 decode steps'
 NOISE_LEVELS = (0.04, 0.08, 0.12)
 
 
 def phase_nonideal(ctx: dict) -> None:
     """qwen1.5-0.5b served whole on ``NonidealSim`` dies at the paper's 7b
-    ADC (the serve phase's weights, pinned exact plans and 4 requests): the
-    nominal die's tokens and every crossbar call of a decode step equal the
+    ADC (the serve phase's weights, pinned exact plans and 4 requests,
+    ``DIE_NEW_TOKENS`` new tokens each): the nominal die's tokens and every crossbar call of a decode step equal the
     ideal array's with speculation off (K1) bit for bit; the 1-sigma die
     twice with one seed gives one set of tokens; the output-code error
     rises with the corner; the fault and program-error statistics of the
@@ -3313,6 +3354,8 @@ def phase_nonideal(ctx: dict) -> None:
     t_phase = time.perf_counter()
     q = ctx["qwen"]
     params, reqs, max_len = q["params"], q["reqs"], q["max_len"]
+    die_reqs = [dataclasses.replace(r, max_new_tokens=DIE_NEW_TOKENS)
+                for r in reqs]
     plans = ctx["exact_compiled"].plans
     at7 = dataclasses.replace(q["cfg"], pim_mode="exact", pim_adc_bits=7)
     vocab = at7.vocab_size
@@ -3324,8 +3367,9 @@ def phase_nonideal(ctx: dict) -> None:
                                     max_len=max_len, prefill_chunk=64,
                                     plans=plans)
         torch.cuda.reset_peak_memory_stats()
-        outs, serve_s, launches = drive(eng, reqs)
-        row = engine_row(run, eng, outs, serve_s, launches, per_call, vocab)
+        outs, serve_s, launches = drive(eng, die_reqs)
+        row = engine_row(run, eng, outs, serve_s, launches, per_call, vocab,
+                         n_new=DIE_NEW_TOKENS)
         row["peak_gib"] = peak_gb(base)
         return [o.tokens.tolist() for o in outs], row
 
@@ -4206,21 +4250,14 @@ def train_step_breakdown(cfg, ocfg, state, batch, step_s: float) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step(state.params, state.opt_state, batch)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")
-               and device_us(e) > 0]
-    if not kernels:
-        raise AssertionError("the profiler saw no kernel")
-    dev_ms = sum(map(device_us, kernels)) / 1e3
-    top = sorted(kernels, key=device_us, reverse=True)[:5]
+    kernels = kernel_times(prof)
+    dev_ms = sum(r[2] for r in kernels) / 1e3
     return dict(grad_ms=round((t1 - t0) * 1e3, 3),
                 adamw_ms=round((t2 - t1) * 1e3, 3),
                 kernels_device_ms=round(dev_ms, 3),
-                cuda_kernels=sum(e.count for e in kernels),
+                cuda_kernels=sum(r[1] for r in kernels),
                 busy_share=round(dev_ms / (step_s * 1e3), 4),
-                top_kernels=json.dumps([[short_name(e.key), e.count,
-                                         round(device_us(e) / 1e3, 3)]
-                                        for e in top]))
+                top_kernels=top_kernels(kernels, 5))
 
 
 def train_restart() -> None:
@@ -4639,6 +4676,12 @@ TP_LOSS_RTOL, TP_NORM_RTOL, TP_PARAM_RTOL = 1e-5, 1e-4, 1e-3
 # error against the one-process prefill (bf16's unit roundoff is 3.9e-3;
 # the partitioned sums round their partial products once more)
 TP_PREFILL_RTOL = 3e-2
+# decode under SERVE_RULES: caches of TP_DECODE_LEN (the prompt fills the
+# first "model" block, the decode writes the second), greedy steps; the
+# bf16 logits' relative global-norm error against the one-process decode
+# fed the same tokens (the prefill's bound), and float32's
+TP_DECODE_LEN, TP_DECODE_STEPS = 512, 8
+TP_DECODE_RTOL, TP_DECODE32_RTOL = 3e-2, 1e-4
 
 
 def phase_tp() -> None:
@@ -4688,6 +4731,7 @@ def phase_tp() -> None:
             raise AssertionError(f"tp rank {rank} launched {r['launches']}")
     tp_hold_train(res)
     tp_hold_prefill(res)
+    tp_hold_decode(res)
     launches = {k: v for k, v in ops.launch_counts().items() if v}
     if launches:
         raise AssertionError(f"kernels launched in tp: {launches}")
@@ -4836,8 +4880,60 @@ def tp_run(rank: int) -> dict:
             model_rank=part.model.rank,
             caches=[{k: v.cpu() for k, v in c.items()}
                     for c in state["caches"]])
+        del placed, state, logits
+        for dtype in ("bfloat16", "float32"):
+            out[f"decode_{dtype}"] = tp_decode(
+                dataclasses.replace(cfg16, dtype=dtype,
+                                    kv_cache_dtype=dtype), mesh, prompts,
+                out["lines"], staged)
     out["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
     return out
+
+
+def tp_decode(cfg, mesh, prompts, lines: list, staged) -> dict:
+    """The partitioned decode on this rank under SERVE_RULES: the
+    one-process prefill of ``prompts`` into caches of ``TP_DECODE_LEN``
+    placed by ``cache_specs``, the weights by ``param_specs``, then
+    ``TP_DECODE_STEPS`` greedy steps; a line per step. Returns the
+    tokens (whole) and each step's vocab block of the logits."""
+    import torch
+    from repro_torch.dist import parallel
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.models import transformer as T
+    with dsh.axis_rules(dsh.SERVE_RULES), torch.no_grad():
+        params = T.init_params(cfg, seed=0, device="cuda")
+        first, state = T.prefill(params, cfg, prompts.to("cuda"),
+                                 max_len=TP_DECODE_LEN)
+        placed = dsh.place(params, T.param_specs(cfg), mesh)
+        state = dsh.place(state, T.cache_specs(cfg), mesh)
+        del params
+        part = T.partition(placed, cfg, decode=True)
+        tok = first.argmax(-1)
+        tokens, logits = [tok.cpu()], []
+        for i in range(TP_DECODE_STEPS):
+            parallel.STATS.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, state = T.decode_step(placed, cfg, state, tok)
+            tok = part.greedy(lg)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            st = parallel.STATS
+            lines.append(dict(
+                program="decode", dtype=cfg.dtype, step=i,
+                rows=f"{prompts.shape[0]}x1", pos=TP_PROMPT_LEN + i,
+                collectives=st.calls, by_op=json.dumps(st.by_op),
+                bytes=st.bytes, host_staged_bytes=st.staged_bytes,
+                step_ms_host_staged=round(dt * 1e3, 3),
+                host_staged_ops=staged(st),
+                logits_shape=json.dumps(list(lg.shape)),
+                cache_shape=json.dumps(list(
+                    state["caches"][0]["k"].to_local().shape))))
+            tokens.append(tok.cpu())
+            logits.append(lg.cpu())
+        v0 = part.leaf["embed/head"].start
+    return dict(tokens=torch.cat(tokens, dim=1), logits=logits,
+                vocab_start=v0)
 
 
 def tp_hold_train(res: list) -> None:
@@ -4929,6 +5025,71 @@ def tp_hold_prefill(res: list) -> None:
                              "one-process prefill")
 
 
+def tp_hold_decode(res: list) -> None:
+    """The partitioned decode against the one-process decode on the card,
+    from the same prefill: every rank's tokens alike; per dtype, the
+    ranks' logits assembled by vocab against the one-process decode fed
+    the partitioned run's tokens (relative global norm), and the greedy
+    tokens equal to the one-process greedy run's."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    _, _, prompts = tp_data()
+    for dtype, tol in (("bfloat16", TP_DECODE_RTOL),
+                       ("float32", TP_DECODE32_RTOL)):
+        key = f"decode_{dtype}"
+        toks = res[0][key]["tokens"]
+        for r in res[1:]:
+            if not torch.equal(r[key]["tokens"], toks):
+                raise AssertionError(f"tp: the ranks' {dtype} decode tokens "
+                                     "differ")
+        cfg = dataclasses.replace(configs.get(ARCH), dtype=dtype,
+                                  kv_cache_dtype=dtype)
+        params = T.init_params(cfg, seed=0, device="cuda")
+        runs = {}
+        with torch.no_grad():
+            for run in ("forced", "greedy"):
+                first, state = T.prefill(params, cfg, prompts.to("cuda"),
+                                         max_len=TP_DECODE_LEN)
+                tok, got, lgs = first.argmax(-1), [first.argmax(-1)], []
+                for i in range(TP_DECODE_STEPS):
+                    if run == "forced":
+                        tok = toks[:, i:i + 1].to("cuda")
+                    lg, state = T.decode_step(params, cfg, state, tok)
+                    tok = lg.argmax(-1)
+                    got.append(tok)
+                    lgs.append(lg.cpu())
+                runs[run] = torch.cat(got, dim=1).cpu(), lgs
+                del state
+        del params
+        want_logits = runs["forced"][1]
+        rel = 0.0
+        for i, want in enumerate(want_logits):
+            full = torch.full(want.shape, float("nan"), dtype=want.dtype)
+            for r in res:
+                blk, v0 = r[key]["logits"][i], r[key]["vocab_start"]
+                full[..., v0:v0 + blk.shape[-1]] = blk
+            a, b = full.double(), want.double()
+            rel = max(rel, float((a - b).norm() / b.norm()))
+        greedy = runs["greedy"][0]
+        same = int((greedy == toks).sum())
+        say("tp", held="decode", dtype=dtype,
+            steps=TP_DECODE_STEPS, cache_len=TP_DECODE_LEN,
+            logits_rel=f"{rel:.3e}", tol=tol,
+            tokens=json.dumps(toks.tolist()),
+            tokens_one_process=json.dumps(greedy.tolist()),
+            tokens_equal=f"{same}/{greedy.numel()}")
+        if not rel <= tol:
+            raise AssertionError(f"tp: the partitioned {dtype} decode's "
+                                 "logits differ from the one-process "
+                                 "decode's")
+        if not torch.equal(greedy, toks):
+            raise AssertionError(f"tp: the partitioned {dtype} decode's "
+                                 "greedy tokens differ from the "
+                                 "one-process decode's")
+
+
 DISAGG_WORLD = 2  # a prefill rank and a decode rank, both on cuda:0
 DISAGG_TIMEOUT_S = 600
 # the disaggregated runs: (name, pim_mode, pool blocks or None = no
@@ -4939,41 +5100,47 @@ DISAGG_RUNS = (("disagg-exact", "exact", 5, "fused_spec_crossbar"),
 
 @contextlib.contextmanager
 def dryrun_sweep():
-    """The dry run's cells of ``DRYRUN_ARCHS`` on both meshes, as ``python
-    -m repro_torch.launch.dryrun`` in a subprocess of its own session
-    writing into a temporary directory, at the lowest CPU priority (the
-    card's host work comes first); killed with its workers if it still
-    runs when the context exits. -> (process, reports directory, log
-    path)."""
+    """The dry run's cells of ``DRYRUN_ARCHS`` on both meshes, then the
+    decode_32k cells of ``DRYRUN_DECODE_ARCHS``, as two ``python -m
+    repro_torch.launch.dryrun`` runs one after the other in a shell of its
+    own session writing into a temporary directory, at the lowest CPU
+    priority (the card's host work comes first); killed with its workers
+    if it still runs when the context exits. -> (process, reports
+    directories, log path)."""
+    import shlex
     import signal
     import tempfile
     with tempfile.TemporaryDirectory() as d:
-        out = os.path.join(d, "reports")
+        outs = [os.path.join(d, "reports"), os.path.join(d, "decode")]
         log_path = os.path.join(d, "sweep.log")
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH"))
             if p))
+        cli = [sys.executable, "-m", "repro_torch.launch.dryrun", "--jobs",
+               str(DRYRUN_JOBS)]
+        script = " && ".join(shlex.join(c) for c in (
+            cli + ["--arch", ",".join(DRYRUN_ARCHS), "--out", outs[0]],
+            cli + ["--arch", ",".join(DRYRUN_DECODE_ARCHS), "--shape",
+                   "decode_32k", "--out", outs[1]]))
         with open(log_path, "w") as log:
             proc = subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                 ",".join(DRYRUN_ARCHS), "--jobs", str(DRYRUN_JOBS),
-                 "--out", out],
+                ["sh", "-c", script],
                 cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
                 start_new_session=True, preexec_fn=lambda: os.nice(19))
             try:
-                yield proc, out, log_path
+                yield proc, outs, log_path
             finally:
                 if proc.poll() is None:
                     os.killpg(proc.pid, signal.SIGKILL)
                     proc.wait()
 
 
-def phase_dryrun() -> None:
-    """The sweep in a subprocess while qwen1.5-0.5b's decode_32k,
-    prefill_32k and train_4k per-rank programs run for real on the card
-    (the last two partitioned); then each
-    program is held against its cell's report (module docstring); K1-K4
-    are not launched."""
+def phase_dryrun(ctx: dict) -> None:
+    """qwen1.5-0.5b's decode_32k, prefill_32k and train_4k per-rank
+    programs (all three partitioned) and rwkv6-3b's decode_32k run for real
+    on the card; then the sweep, which ``main`` started with the script, is
+    waited for, and each program is held against its cell's report
+    (module docstring); K1-K4 are not launched."""
     import torch
     from repro_torch.kernels import ops
     t0 = time.perf_counter()
@@ -4983,40 +5150,44 @@ def phase_dryrun() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     total = torch.cuda.get_device_properties(0).total_memory
-    with dryrun_sweep() as (proc, out, log_path):
-        measured = {s: dryrun_on_card(s) for s in DRYRUN_PROGRAMS}
-        waited = time.perf_counter()
-        rc = proc.wait(timeout=DRYRUN_SWEEP_TIMEOUT)
-        sweep_s = round(time.perf_counter() - t0, 1)
-        with open(log_path) as f:
-            tail = f.read()[-4000:]
-        if rc != 0:
-            raise AssertionError(f"the dry-run sweep exited {rc}:\n{tail}")
+    proc, outs, log_path = ctx.pop("sweep")
+    running = proc.poll() is None
+    measured = {p: dryrun_on_card(*p) for p in DRYRUN_PROGRAMS}
+    waited = time.perf_counter()
+    rc = proc.wait(timeout=DRYRUN_SWEEP_TIMEOUT)
+    wait_s = round(time.perf_counter() - waited, 1)
+    with open(log_path) as f:
+        tail = f.read()[-4000:]
+    if rc != 0:
+        raise AssertionError(f"the dry-run sweep exited {rc}:\n{tail}")
+    reports = []
+    for out in outs:
         with open(os.path.join(out, "summary.json")) as f:
-            reports = json.load(f)
+            reports += json.load(f)
     dryrun_sweep_lines(reports)
-    for name in DRYRUN_PROGRAMS:
-        (r,) = [r for r in reports if r["arch"] == ARCH
+    for arch, name in DRYRUN_PROGRAMS:
+        (r,) = [r for r in reports if r["arch"] == arch
                 and r["shape"] == name and not r["multi_pod"]]
-        dryrun_held(name, r, measured[name], smi, total)
+        dryrun_held(arch, name, r, measured[arch, name], smi, total)
     launches = {k: v for k, v in ops.launch_counts().items() if v}
     if launches:
         raise AssertionError(f"kernels launched in dryrun: {launches}")
     say("dryrun", phase_s=round(time.perf_counter() - t0, 3),
-        sweep_s=sweep_s, sweep_wait_s=round(sweep_s - (waited - t0), 1),
+        sweep_running_at_phase_start=running, sweep_wait_s=wait_s,
         jobs=DRYRUN_JOBS, k1_k4_launches=0)
 
 
-def dryrun_on_card(shape_name: str) -> dict:
-    """qwen1.5-0.5b's per-rank program of ``shape_name`` on the 16x16
+def dryrun_on_card(arch: str, shape_name: str) -> dict:
+    """``arch``'s per-rank program of ``shape_name`` on the 16x16
     mesh, run for real on the card: the dry run's own ``rank_program``
     (weights from seed 0, zeroed inputs and caches), one warm-up under
     ``FlopCounterMode`` with the peak of allocated bytes above what the
     process held before, then ``DRYRUN_RUNS`` runs timed by CUDA events.
-    The partitioned programs (train, prefill) run as rank 0 of a fake
-    256-rank group (its collectives move nothing; the group is destroyed
-    afterwards), the train step with grad enabled; decode reads the
-    mesh's axis sizes only."""
+    The partitioned programs (every program of a config that
+    ``transformer.partitioned`` covers) run as rank 0 of a fake 256-rank
+    group (its collectives move nothing; the group is destroyed
+    afterwards), the train step with grad enabled; the others run plain on
+    an ``AbstractMesh``."""
     import contextlib
     import gc
     import torch
@@ -5029,9 +5200,9 @@ def dryrun_on_card(shape_name: str) -> dict:
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models import transformer as T
-    cfg = configs.get(ARCH)
+    cfg = configs.get(arch)
     shape = {s.name: s for s in configs.ALL_SHAPES}[shape_name]
-    partitioned = shape.kind != "decode" and T.partitioned(cfg)
+    partitioned = T.partitioned(cfg)
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -5082,7 +5253,7 @@ def dryrun_sweep_lines(reports: list) -> None:
     and the bounds' histogram."""
     from repro_torch import configs
     want = 2 * sum(len(configs.runnable_shapes(configs.get(a)))
-                   for a in DRYRUN_ARCHS)
+                   for a in DRYRUN_ARCHS) + 2 * len(DRYRUN_DECODE_ARCHS)
     if len(reports) != want:
         raise AssertionError(f"the sweep gave {len(reports)} cells, not "
                              f"{want}")
@@ -5107,7 +5278,7 @@ def dryrun_sweep_lines(reports: list) -> None:
         bounds=json.dumps(bounds, sort_keys=True))
 
 
-def dryrun_held(name: str, report: dict, m: dict, smi: str,
+def dryrun_held(arch: str, name: str, report: dict, m: dict, smi: str,
                 total: int) -> None:
     """One per-rank program's card run against its cell's report: flops
     equal, peak allocated bytes within ``DRYRUN_MEM_TOL``."""
@@ -5117,12 +5288,13 @@ def dryrun_held(name: str, report: dict, m: dict, smi: str,
                              f"the card's total_memory {total}")
     if m["flops"] != report["hlo_flops_per_device"]:
         raise AssertionError(
-            f"{name}: FlopCounterMode counted {m['flops']} on the card, the "
+            f"{arch}/{name}: FlopCounterMode counted {m['flops']} on the "
+            f"card, the "
             f"dry run {report['hlo_flops_per_device']}")
     ratio = m["peak"] / report["per_device_bytes"]
     med = statistics.median(m["ms"])
     bound_s = max(report["compute_s"], report["memory_s"])
-    say("dryrun", program=f"{ARCH}/{name}/16x16", rows=m["rows"],
+    say("dryrun", program=f"{arch}/{name}/16x16", rows=m["rows"],
         flops=m["flops"], dryrun_flops=report["hlo_flops_per_device"],
         max_memory_allocated=m["peak"],
         per_device_bytes=report["per_device_bytes"],
@@ -5134,7 +5306,7 @@ def dryrun_held(name: str, report: dict, m: dict, smi: str,
         total_memory=total, card=json.dumps(smi))
     if abs(ratio - 1) > DRYRUN_MEM_TOL:
         raise AssertionError(
-            f"{name}: max_memory_allocated {m['peak']} is not within "
+            f"{arch}/{name}: max_memory_allocated {m['peak']} is not within "
             f"{DRYRUN_MEM_TOL:.0%} of the dry run's per_device_bytes "
             f"{report['per_device_bytes']} (ratio {ratio:.4f})")
 
@@ -5525,32 +5697,38 @@ def main() -> int:
     rows: list = []
     ctx: dict = {}
     kernels = None
+    t_start = time.perf_counter()
 
     def run(name, fn, *a):
         if name not in phases:
             return None
         t0 = time.perf_counter()
         out = fn(*a)
-        say("main", ran=name, wall_s=round(time.perf_counter() - t0, 1))
+        now = time.perf_counter()
+        say("main", ran=name, wall_s=round(now - t0, 1),
+            elapsed_s=round(now - t_start, 1))
         return out
-    run("build", phase_build)
-    run("kernels", phase_kernels, rows)
-    run("serve", phase_serve, ctx)
-    run("telemetry", phase_telemetry, ctx)
-    run("nonideal", phase_nonideal, ctx)
-    run("disagg", phase_disagg, ctx, rows)
-    run("examples", phase_examples, ctx)
-    ctx.pop("qwen", None)  # free qwen's weights before the larger models
-    run("train", phase_train)
-    run("dist", phase_dist)
-    run("tp", phase_tp)
-    run("dryrun", phase_dryrun)
-    run("moe", phase_moe, ctx, rows)
-    run("hybrid", phase_hybrid, ctx, rows)
-    run("encoder", phase_encoder, ctx, rows)
-    run("decoders", phase_decoders, ctx, rows)
-    run("paper", phase_paper, ctx, rows)
-    kernels = run("timing", phase_timing, ctx, rows)
+    with contextlib.ExitStack() as stack:
+        if "dryrun" in phases:  # on the idle host cores from the start
+            ctx["sweep"] = stack.enter_context(dryrun_sweep())
+        run("build", phase_build)
+        run("kernels", phase_kernels, rows)
+        run("serve", phase_serve, ctx)
+        run("telemetry", phase_telemetry, ctx)
+        run("nonideal", phase_nonideal, ctx)
+        run("disagg", phase_disagg, ctx, rows)
+        run("examples", phase_examples, ctx)
+        ctx.pop("qwen", None)  # free qwen's weights before the larger models
+        run("train", phase_train)
+        run("dist", phase_dist)
+        run("tp", phase_tp)
+        run("dryrun", phase_dryrun, ctx)
+        run("moe", phase_moe, ctx, rows)
+        run("hybrid", phase_hybrid, ctx, rows)
+        run("encoder", phase_encoder, ctx, rows)
+        run("decoders", phase_decoders, ctx, rows)
+        run("paper", phase_paper, ctx, rows)
+        kernels = run("timing", phase_timing, ctx, rows)
     print(smi, flush=True)  # again, within the tail a log keeps
     if kernels is not None:
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -41,6 +41,26 @@ gradient is summed over every mesh dim on which the leaf is replicated
 to different positions or heads; a sharded dim was summed by the
 gather's backward already.
 
+Decode (``ServePartition``) is the program that SERVE_RULES and
+MULTIPOD_SERVE_RULES imply: ``tp``/``heads``/``kv_heads``/``vocab`` over
+the whole ``("data", "model")`` mesh as ``fit_spec_to_shape`` leaves them
+(a leaf's group is the product of the mesh dims its placements shard,
+``mesh_group``), no FSDP, the activations ``(B, 1, D)`` replicated on
+every rank, and the KV cache ``(rows, max_len / |model|, K, hd)`` a rank
+(``cache_batch`` over ``"data"``, or ``("pod", "data")``, ``seq`` over
+``"model"``). Per layer: the column-parallel projections use the rank's
+stored columns as they are and their outputs are all-gathered into whole
+heads (rope and ``qk_norm`` act on a whole head); the rank writes the new
+K/V of its rows where its sequence block holds the position; attention is
+split-KV over the block, its ``(acc, m, l)`` combined over ``"model"`` by
+log-sum-exp (``combine_attention``); the attention output is gathered
+over the cache's rows for the row-parallel ``wo``, whose partial sums,
+like ``w2``'s, are all-reduced over the leaf's group; the embedding is a
+masked lookup all-reduced over its vocab group, and the head returns the
+rank's vocab block of the logits. No weight is gathered. Under
+MULTIPOD_SERVE_RULES the weights are replicated over ``"pod"`` and every
+pod runs the same program.
+
 Transport. On NCCL every collective takes device tensors. A ``gloo``
 group takes a CUDA tensor only for the ops in ``GLOO_DEVICE_OPS`` (the
 table that ``tools/gloo_cuda_probe.py`` printed on the H100); any other
@@ -56,6 +76,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 
 import torch
 
@@ -76,16 +97,19 @@ GLOO_DEVICE_OPS = frozenset(("reduce_scatter", "all_reduce"))
 
 @dataclasses.dataclass
 class CollectiveStats:
-    """Collectives this process issued, their result bytes, and the bytes
-    staged through host memory (each direction counted)."""
+    """Collectives this process issued, their result bytes, the bytes
+    staged through host memory (each direction counted), and the shapes of
+    their results."""
     calls: int = 0
     bytes: int = 0
     staged_bytes: int = 0
     by_op: dict = dataclasses.field(default_factory=dict)
+    shapes: set = dataclasses.field(default_factory=set)
 
     def reset(self) -> None:
         self.calls = self.bytes = self.staged_bytes = 0
         self.by_op = {}
+        self.shapes = set()
 
 
 # every partitioned collective of this process counts here
@@ -93,15 +117,24 @@ STATS = CollectiveStats()
 
 
 class Group:
-    """One mesh dim's process group: its size, this rank's index in it,
-    and the transport of each op."""
+    """One mesh dim's process group (or a group over several, ``of``):
+    its size, this rank's index in it, and the transport of each op."""
 
     def __init__(self, mesh, dim: int):
+        self._set(mesh.get_group(dim), mesh.size(dim),
+                  mesh.get_local_rank(dim))
+
+    @classmethod
+    def of(cls, pg, rank: int) -> "Group":
+        """The group of process group ``pg``, this rank at ``rank``."""
+        g = cls.__new__(cls)
+        g._set(pg, pg.size(), rank)
+        return g
+
+    def _set(self, pg, size: int, rank: int) -> None:
         import torch.distributed as dist
-        self.size = mesh.size(dim)
-        self.rank = mesh.get_local_rank(dim)
-        self.pg = mesh.get_group(dim)
-        self.backend = str(dist.get_backend(self.pg))
+        self.size, self.rank, self.pg = size, rank, pg
+        self.backend = str(dist.get_backend(pg))
 
     def stages(self, op: str, t: torch.Tensor) -> bool:
         return (self.backend == "gloo" and t.device.type != "cpu"
@@ -139,6 +172,7 @@ class Group:
         st.calls += 1
         st.bytes += nbytes
         st.by_op[op] = st.by_op.get(op, 0) + 1
+        st.shapes.add(tuple(y.shape))
         if staged:
             st.staged_bytes += x.numel() * x.element_size() + nbytes
             y = y.to(t.device)
@@ -408,8 +442,220 @@ class Partition:
 
 
 class _Solo:
-    """The model axis where no logical axis resolves to one: one rank."""
+    """The model axis where no logical axis resolves to one, or a leaf
+    replicated on every mesh dim: one rank."""
     size, rank = 1, 0
+
+
+def mesh_group(mesh, dims) -> "Group | _Solo":
+    """The group over the product of mesh dims ``dims`` that holds this
+    rank: the ranks sharing its coordinates on every other dim, indexed
+    major first in mesh order (the block index of a dim that DTensor
+    shards on those mesh dims). One dim is the mesh's own group; several
+    make one ``new_group`` per set of ranks, called on every rank in one
+    order, so every rank holds the same groups; they are kept on the mesh
+    object, made once."""
+    dims = tuple(sorted(dims))
+    if not dims:
+        return _Solo()
+    if len(dims) == 1:
+        return Group(mesh, dims[0])
+    made = mesh.__dict__.setdefault("_flattened_groups", {})
+    if dims in made:
+        return made[dims]
+    import torch.distributed as dist
+    from torch.utils._python_dispatch import _disable_current_modes
+    rest = [d for d in range(mesh.ndim) if d not in dims]
+    with _disable_current_modes():  # the mesh's rank tensor is a real one
+        sets = mesh.mesh.permute(*rest, *dims).reshape(
+            -1, math.prod(mesh.size(d) for d in dims)).tolist()
+    me, mine = dist.get_rank(), None
+    for ranks in sets:
+        pg = dist.new_group(ranks)
+        if me in ranks:
+            mine = Group.of(pg, ranks.index(me))
+    made[dims] = mine
+    return mine
+
+
+def combine_attention(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                      group) -> torch.Tensor:
+    """Split-KV attention's partials combined over ``group`` by
+    log-sum-exp: ``acc`` (..., D) the unnormalised sums of ``exp(s - m) v``
+    over the rank's block of keys, ``m`` (...) its max score (``-inf``
+    where the block holds no valid key) and ``l`` (...) its sum of
+    ``exp(s - m)``, float32 (``layers.split_kv_attention``). The max over
+    the group, then one sum of the rescaled ``acc`` and ``l``; a rank with
+    no valid key adds exact zeros. Needs no gradient."""
+    if group.size > 1:
+        top = group.run("all_reduce", m, reduce="max")
+        corr = torch.where(torch.isfinite(m), torch.exp(m - top), 0.0)
+        both = group.run("all_reduce", torch.cat(
+            [acc * corr[..., None], (l * corr)[..., None]], dim=-1))
+        acc, l = both[..., :-1], both[..., -1]
+    return acc / l[..., None]
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """How a leaf (or a cache dim) is split: the tensor dim its placements
+    shard (None: replicated), the group over the mesh dims that shard it,
+    and the local length of that dim."""
+    dim: int | None
+    group: object
+    local: int
+
+    @property
+    def start(self) -> int:
+        """The first index of this rank's block along ``dim``."""
+        return self.group.rank * self.local
+
+
+# leaf name -> the dim the serve program splits: a column-parallel
+# output dim, a row-parallel input dim, the vocab of the embedding / head
+_SERVE_DIMS = {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0,
+               "w1": 1, "w3": 1, "wo": 0, "w2": 0, "embed": 0, "head": 1}
+
+
+def _split(mesh, placements, shape, what: str) -> Split:
+    """``placements`` of a tensor of local ``shape`` as a ``Split``."""
+    from torch.distributed.tensor import Replicate, Shard
+    dims, tdim = [], None
+    for d, p in enumerate(placements):
+        if isinstance(p, Shard):
+            if tdim is not None and p.dim != tdim:
+                raise ValueError(f"{what}: placements {placements} shard "
+                                 "two tensor dims")
+            tdim = p.dim
+            dims.append(d)
+        elif not isinstance(p, Replicate):
+            raise ValueError(f"{what}: placement {p} is neither Shard nor "
+                             "Replicate")
+    return Split(tdim, mesh_group(mesh, dims),
+                 0 if tdim is None else shape[tdim])
+
+
+class ServePartition:
+    """One rank's view of the partitioned decode (module docstring) on
+    ``mesh`` under SERVE_RULES or MULTIPOD_SERVE_RULES: each parameter
+    leaf's ``Split`` (by ``_tree`` path) from its placements, the
+    collectives over each leaf's group, and the cache's layout from the
+    state's placements (``cache_layout``), and ``local``, the leaves'
+    local blocks. Other rule sets raise: no reference path decodes under
+    them. Made once for each placed tree: ``serve_partition``."""
+
+    def __init__(self, mesh, cfg, params):
+        rules = dsh.current_rules()
+        if rules not in (dsh.SERVE_RULES, dsh.MULTIPOD_SERVE_RULES):
+            raise ValueError(
+                "the partitioned decode runs under SERVE_RULES or "
+                "MULTIPOD_SERVE_RULES (weights stationary over the mesh, "
+                "the batch replicated, the cache sharded by sequence); the "
+                "bound rules are another set, under which no reference "
+                "path decodes")
+        self.mesh, self.cfg = mesh, cfg
+        self.leaf = {}
+        paths, leaves = _tree.flatten(params)
+        for path, t in zip(paths, leaves):
+            sp = _split(mesh, tuple(t.placements), t.to_local().shape, path)
+            want = _SERVE_DIMS.get(path.rsplit("/", 1)[-1])
+            if sp.dim is not None and sp.dim != want:
+                raise ValueError(
+                    f"{path}: placements {tuple(t.placements)} shard dim "
+                    f"{sp.dim}, which the partitioned decode does not split")
+            self.leaf[path] = sp
+        self.local = local(params)
+
+    # ------------------------------------------------------- activations
+    def gather_cols(self, t: torch.Tensor, path: str) -> torch.Tensor:
+        """A column-parallel output (..., local columns of leaf ``path``)
+        all-gathered into every column."""
+        sp = self.leaf[path]
+        return all_gather(t, t.ndim - 1, sp.group)
+
+    def block(self, t: torch.Tensor, path: str) -> torch.Tensor:
+        """A whole last dim narrowed to the block that the rows of leaf
+        ``path`` (row-parallel) multiply."""
+        sp = self.leaf[path]
+        return t if sp.dim is None else t.narrow(-1, sp.start, sp.local)
+
+    def rows_for(self, t: torch.Tensor, src: str, dst: str) -> torch.Tensor:
+        """``t``, leaf ``src``'s column block, as the block that leaf
+        ``dst``'s rows multiply: as it is where both split alike, else
+        gathered and narrowed."""
+        a, b = self.leaf[src], self.leaf[dst]
+        if a.dim is not None and b.dim is not None and a.local == b.local \
+                and a.group.size == b.group.size \
+                and a.group.rank == b.group.rank:
+            return t
+        return self.block(self.gather_cols(t, src), dst)
+
+    def reduce(self, y: torch.Tensor, path: str) -> torch.Tensor:
+        """A row-parallel product's partial sums (or the embedding's masked
+        rows) all-reduced over leaf ``path``'s group."""
+        return all_reduce(y, self.leaf[path].group)
+
+    def greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        """Whole greedy ids (B, 1) from the rank's vocab block of the
+        logits (B, 1, V / |group|): the largest logit over the head's
+        group, the lowest id among equal ones (``torch.argmax`` keeps the
+        first)."""
+        sp = self.leaf["embed/head"]
+        idx = logits.argmax(-1)
+        ids = idx + sp.start
+        if sp.dim is None or sp.group.size == 1:
+            return ids
+        val = logits.gather(-1, idx[..., None])[..., 0].double()
+        both = all_gather(torch.stack([val, ids.double()])[None], 0,
+                          sp.group)
+        vals, cand = both[:, 0], both[:, 1]
+        best = vals.amax(dim=0)
+        return torch.where(vals == best, cand, torch.inf).amin(
+            dim=0).long()
+
+    # ------------------------------------------------------------- cache
+    def cache_layout(self, caches: list) -> tuple[Split, Split]:
+        """The rows' and positions' ``Split`` of the attention caches
+        (every leaf placed alike, by ``cache_specs``): dims 0 and 1 of a
+        ``(rows, positions, K, hd)`` DTensor."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        leaves = [t for c in caches for t in c.values()]
+        if not leaves or not all(isinstance(t, DTensor) and t.device_mesh
+                                 == self.mesh for t in leaves):
+            raise ValueError(
+                "a partitioned decode takes its state placed on the mesh "
+                "by cache_specs (DTensor caches)")
+        pl = tuple(leaves[0].placements)
+        if any(tuple(t.placements) != pl for t in leaves):
+            raise ValueError("the attention caches are placed unalike")
+        shape = leaves[0].to_local().shape
+        out = []
+        for dim in (0, 1):
+            dims = [d for d, p in enumerate(pl)
+                    if isinstance(p, Shard) and p.dim == dim]
+            out.append(Split(dim if dims else None,
+                             mesh_group(self.mesh, dims), shape[dim]))
+        if any(isinstance(p, Shard) and p.dim > 1 or not isinstance(
+                p, (Shard, Replicate)) for p in pl):
+            raise ValueError(f"cache placements {pl}: the partitioned "
+                             "decode splits rows and positions only")
+        return out[0], out[1]
+
+
+def serve_partition(mesh, cfg, params) -> ServePartition:
+    """``ServePartition(mesh, cfg, params)`` under the bound rules, made
+    once for each placed tree: kept on the mesh object, keyed by the
+    config, the rules and the leaves' identities, and dropped when any of
+    those leaves is freed (so an identity is never matched twice)."""
+    leaves = _tree.leaves(params)
+    rules = dsh.current_rules()
+    made = mesh.__dict__.setdefault("_serve_partitions", {})
+    key = (cfg, id(rules), tuple(map(id, leaves)))
+    if key not in made:
+        made[key] = ServePartition(mesh, cfg, params)
+        for t in leaves:
+            weakref.finalize(t, made.pop, key, None)
+    return made[key]
 
 
 def placed(params) -> bool:

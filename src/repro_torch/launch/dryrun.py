@@ -24,17 +24,26 @@ The step is what the port runs on one rank:
     sequence parallel on the rank's slice of the batch, and the prefill
     (``transformer.prefill``) is tensor and sequence parallel on the
     rank's rows, returning the rank's blocks of the logits and caches.
+  - decode cells of the same configs (qwen1.5-0.5b, yi-6b, qwen2.5-32b,
+    qwen1.5-110b, chameleon-34b): the partitioned decode under
+    SERVE_RULES / MULTIPOD_SERVE_RULES (``dist.parallel.ServePartition``),
+    the counterpart of the reference's ``jax.jit(decode_step,
+    in_shardings=(params_sh, cache_sh, batch_sh))``: the weights placed
+    by ``param_specs`` (stationary, split over the whole mesh), the state
+    by ``cache_specs`` (the rank's rows by its block of positions; only
+    the local blocks are made), the tokens whole; the step
+    (``transformer.decode_step``) returns the rank's vocab block of the
+    logits.
   - train cells of the other configs (MoE, mamba, rwkv): the data-parallel
     step, each rank gathering the full weights and running the whole
     model on its slice of the batch.
-  - their prefill cells and every decode cell: one plain copy of the
-    weights per rank, as the engines hold them, and the rank's block of
-    the inputs and caches along the batch: ``batch_logical`` /
-    ``cache_specs`` resolved under the cell's rules and fitted to the
-    shape, so ``long_500k``'s batch of 1 stays whole and a decode rank
-    decodes the sequences whose caches it holds. Sequence and head axes
-    stay whole. The step is ``transformer.prefill`` or
-    ``transformer.decode_step``.
+  - their prefill and decode cells: one plain copy of the weights per
+    rank, as the engines hold them, and the rank's block of the inputs
+    and caches along the batch: ``batch_logical`` / ``cache_specs``
+    resolved under the cell's rules and fitted to the shape, so
+    ``long_500k``'s batch of 1 stays whole and a decode rank decodes the
+    sequences whose caches it holds. Sequence and head axes stay whole.
+    The step is ``transformer.prefill`` or ``transformer.decode_step``.
 
 Only the step is counted, not the placement.
 
@@ -136,19 +145,39 @@ def _fake(meta: torch.Tensor, dev, rows: int | None = None) -> torch.Tensor:
     return torch.zeros(shp, dtype=meta.dtype, device=dev)
 
 
+def _placed(meta: torch.Tensor, sharding, dev):
+    """A DTensor of ``meta``'s shape placed by ``sharding`` whose local
+    block alone is made, zeroed on ``dev`` (a fake tensor under
+    ``FakeTensorMode``)."""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh, pl = sharding.mesh, sharding.placements
+    shape = list(meta.shape)
+    for d, p in enumerate(pl):
+        if isinstance(p, Shard):
+            shape[p.dim] //= mesh.size(d)
+    return DTensor.from_local(
+        torch.zeros(shape, dtype=meta.dtype, device=dev), mesh, pl,
+        run_check=False, shape=meta.shape,
+        stride=torch.empty(meta.shape, device="meta").stride())
+
+
 def _placed_rows(meta: torch.Tensor, dev, mesh):
     """``meta``'s batch as a DTensor placed along its rows by the axes
     ``"batch"`` resolves to: the rank holds its rows only."""
-    from torch.distributed.tensor import DTensor
-    rows = meta.shape[0]
-    spec = dsh.fit_spec_to_shape(dsh.spec_for(("batch",), mesh), (rows,),
-                                 mesh)
-    n = _batch_ranks("batch", rows, mesh)
-    return DTensor.from_local(
-        _fake(meta, dev, rows // n), mesh,
-        dsh.NamedSharding(mesh, spec).placements, run_check=False,
-        shape=meta.shape, stride=torch.empty(meta.shape,
-                                             device="meta").stride())
+    spec = dsh.fit_spec_to_shape(dsh.spec_for(("batch",), mesh),
+                                 (meta.shape[0],), mesh)
+    return _placed(meta, dsh.NamedSharding(mesh, spec), dev)
+
+
+def _placed_state(cfg: ArchConfig, shape: InputShape, mesh, dev) -> dict:
+    """The decode state of the cell placed by ``cache_specs`` under the
+    bound rules: DTensors whose local blocks alone are made."""
+    meta = T.init_decode_state(cfg, shape.global_batch, shape.seq_len,
+                               device="meta")
+    specs = T.cache_specs(cfg)
+    shardings = dsh.named_shardings(specs, meta, mesh)
+    return dsh.map_specs(lambda _, leaf, sh: leaf if sh is None
+                         else _placed(leaf, sh, dev), specs, meta, shardings)
 
 
 # ------------------------------------------------------------- step builders
@@ -168,8 +197,9 @@ def rank_program(cfg: ArchConfig, shape: InputShape, mesh, dev):
     """The rank's step and its arguments for this cell (module docstring),
     under the bound rules, with random weights from seed 0 and zeroed
     inputs and caches: fake tensors under ``FakeTensorMode``, real ones
-    otherwise. Train arguments are placed on ``mesh`` (a ``DeviceMesh``);
-    a serve cell reads only its axis sizes (an ``AbstractMesh`` does)."""
+    otherwise. The partitioned programs' arguments are placed on ``mesh``
+    (a ``DeviceMesh``); an unpartitioned serve cell reads only its axis
+    sizes (an ``AbstractMesh`` does)."""
     batch = input_specs(cfg, shape)
     params = T.init_params(cfg, seed=0, device=dev)
     if shape.kind == "train":
@@ -192,6 +222,11 @@ def rank_program(cfg: ArchConfig, shape: InputShape, mesh, dev):
         if T.partitioned(cfg):
             params = dsh.place(params, T.param_specs(cfg), mesh)
         return make_prefill_step(cfg), (params, batch)
+    if T.partitioned(cfg):  # the tokens whole, weights and state placed
+        params = dsh.place(params, T.param_specs(cfg), mesh)
+        return make_serve_step(cfg), (
+            params, _placed_state(cfg, shape, mesh, dev),
+            {"tokens": _fake(batch["tokens"], dev)})
     # every cache leaf leads with the one logical axis of its sequences
     (lead,) = {axes[0] for c in T.cache_specs(cfg)["caches"]
                for axes in c.values()}

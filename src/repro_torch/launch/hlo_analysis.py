@@ -24,8 +24,10 @@ global product). Per op:
   - collectives: the ``_c10d_functional`` ops as ``all-gather``,
     ``all-reduce``, ``reduce-scatter``, ``all-to-all`` and
     ``collective-permute`` (a broadcast), with the reference's ring factors
-    (``_collective_link_bytes``) over the op's group size; the payload is
-    the result's bytes. The autograd variants
+    (``_collective_link_bytes``) over the op's group size, resolved from
+    the op's group name (a group that ``dist.parallel.mesh_group`` makes
+    over several mesh dims as a mesh dim's); the payload is the result's
+    bytes. The autograd variants
     (``all_gather_tensor_autograd`` and the like, and
     ``dist.parallel``'s collectives) dispatch these same ops in the
     forward and in the backward, so each is counted once in each (torch

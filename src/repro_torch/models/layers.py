@@ -286,14 +286,19 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 # ------------------------------------------------------------------ attention
 def _head_proj(params: dict, cfg: ArchConfig, x: torch.Tensor, name: str,
-               positions: torch.Tensor, plans=None) -> torch.Tensor:
+               positions: torch.Tensor, plans=None,
+               cols=None) -> torch.Tensor:
     """One of q/k/v (``name``): ``x @ w{name}`` plus its bias, as (B, S,
     heads, hd) with the heads counted from the weight's width; q and k
-    also normed (``qk_norm``) and rotated."""
+    also normed (``qk_norm``) and rotated. ``cols(t, "w{name}")`` makes a
+    column block whole before the heads are formed (the partitioned
+    decode's gather)."""
     B, S, _ = x.shape
     t = pim_matmul(x, params["w" + name], plan_leaf(plans, "w" + name), cfg)
     if cfg.qkv_bias:
         t = t + params["b" + name]
+    if cols is not None:
+        t = cols(t, "w" + name)
     t = t.reshape(B, S, -1, cfg.resolved_head_dim)
     if name == "v":
         return t
@@ -303,11 +308,12 @@ def _head_proj(params: dict, cfg: ArchConfig, x: torch.Tensor, name: str,
 
 
 def qkv_project(params: dict, cfg: ArchConfig, x: torch.Tensor,
-                positions: torch.Tensor, plans=None):
+                positions: torch.Tensor, plans=None, cols=None):
     """x (B, S, D) -> q (B,S,H,hd), k/v (B,S,K,hd), RoPE applied. The head
     counts are the weights' widths over ``hd``: a partitioned rank's
-    ``wq``/``wk`` hold its own heads (``dist.parallel``)."""
-    return tuple(_head_proj(params, cfg, x, n, positions, plans)
+    ``wq``/``wk`` hold its own heads (``dist.parallel``); under the
+    partitioned decode its column blocks, made whole by ``cols``."""
+    return tuple(_head_proj(params, cfg, x, n, positions, plans, cols)
                  for n in "qkv")
 
 
@@ -392,6 +398,34 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
+def split_kv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       *, kv_len, k_offset: int):
+    """Decode attention of one query a row over a block of keys at the
+    global positions ``[k_offset, k_offset + Sk)``, the valid ones those
+    below ``kv_len`` (int or (B,)): ``chunked_attention``'s ``Sq == 1``
+    math before its normalisation. q: (B, 1, H, D); k, v: (B, Sk, K, D),
+    cast to float32 here, the block alone. Returns float32 ``acc`` (B, 1,
+    H, D), the sums of ``exp(s - m) v``, ``m`` (B, 1, H), the max score
+    (``-inf`` where no key of the block is valid), and ``l`` (B, 1, H),
+    the sums of ``exp(s - m)``: ``dist.parallel.combine_attention`` joins
+    the blocks."""
+    B, _, H, D = q.shape
+    _, Sk, K, _ = k.shape
+    G = H // K
+    qg = q.reshape(B, K, G, D).to(torch.float32)
+    s = torch.einsum("bkgd,bckd->bkgc", qg,
+                     k.to(torch.float32)) * (D ** -0.5)
+    kpos = k_offset + torch.arange(Sk, device=q.device)
+    mask = kpos[None, :] < _kv_limit(kv_len, q.device)  # (B|1, Sk)
+    s = torch.where(mask[:, None, None, :], s, -torch.inf)
+    m = s.amax(dim=-1)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.exp(s - m_safe[..., None])  # exactly 0 where masked
+    acc = torch.einsum("bkgc,bckd->bkgd", p, v.to(torch.float32))
+    return (acc.reshape(B, 1, H, D), m.reshape(B, 1, H),
+            p.sum(dim=-1).reshape(B, 1, H))
+
+
 def attention_block(params: dict, cfg: ArchConfig, x: torch.Tensor,
                     positions: torch.Tensor, plans=None,
                     part=None) -> torch.Tensor:
@@ -413,16 +447,24 @@ def attention_block(params: dict, cfg: ArchConfig, x: torch.Tensor,
 
 # ------------------------------------------------------------------ mlp
 def mlp_block(params: dict, cfg: ArchConfig, x: torch.Tensor,
-              plans=None, part=None) -> torch.Tensor:
+              plans=None, part=None, *, rows=None,
+              reduce=None) -> torch.Tensor:
     """The gated MLP; under a partition, column-parallel ``w1``/``w3`` on
     the gathered sequence and a row-parallel ``w2`` reduce-scattered onto
-    the rank's block (``attention_block``)."""
+    the rank's block (``attention_block``). The partitioned decode's hooks
+    (its activations whole on every rank): ``rows(h)`` hands ``w1``/``w3``'s
+    column block to ``w2``'s rows, and ``reduce(y)`` sums ``w2``'s partial
+    products (``dist.parallel.ServePartition``)."""
     if part is not None:
         x = part.gather_seq(x)
     a = act_fn(cfg.activation)
     h = a(pim_matmul(x, params["w1"], plan_leaf(plans, "w1"), cfg)) \
         * pim_matmul(x, params["w3"], plan_leaf(plans, "w3"), cfg)
+    if rows is not None:
+        h = rows(h)
     y = pim_matmul(h, params["w2"], plan_leaf(plans, "w2"), cfg)
+    if reduce is not None:
+        return reduce(y)
     return y if part is None else part.scatter_seq(y)
 
 
@@ -571,25 +613,35 @@ def moe_block(params: dict, cfg: ArchConfig, x: torch.Tensor,
 
 
 # ------------------------------------------------------------------ embedding
-def embed(params: dict, tokens: torch.Tensor, part=None) -> torch.Tensor:
+def embed(params: dict, tokens: torch.Tensor, part=None, *, v0: int = 0,
+          reduce=None) -> torch.Tensor:
     """Token ids (B, S) -> (B, S, D). Under a partition, with the table's
     vocab sharded: a masked lookup of this rank's rows over the whole
     sequence, reduce-scattered onto the rank's sequence block; with the
-    vocab whole, a lookup of the block's tokens."""
+    vocab whole, a lookup of the block's tokens. With ``reduce`` (the
+    partitioned decode, its activations whole on every rank) the table is
+    the vocab block from id ``v0``: a masked lookup whose rows ``reduce``
+    sums over the table's group."""
     table = params["embed"]
-    if part is None:
+    if part is None and reduce is None:
         return table[tokens]
-    v0, n = part.vocab_start(table.shape[0]), table.shape[0]
-    if v0 == 0 and n == part.cfg.vocab_size:
-        return table[part.seq_block(tokens)]
+    n = table.shape[0]
+    if part is not None:
+        v0 = part.vocab_start(n)
+        if v0 == 0 and n == part.cfg.vocab_size:
+            return table[part.seq_block(tokens)]
     ids = tokens.long() - v0
     inside = (ids >= 0) & (ids < n)
     rows = table[ids.clamp(0, n - 1)]
-    return part.scatter_seq(torch.where(inside[..., None], rows,
-                                        torch.zeros((), dtype=rows.dtype,
-                                                    device=rows.device)))
+    rows = torch.where(inside[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return reduce(rows) if part is None else part.scatter_seq(rows)
 
 
 def lm_head(params: dict, cfg: ArchConfig, x: torch.Tensor,
             plan=None) -> torch.Tensor:
+    """``x @ head``. Under a partition ``params["head"]`` is the rank's
+    vocab block, and the result the rank's block of the logits; on the
+    partitioned decode's whole activations no collective follows (the
+    reference's ``out_shardings`` keep the logits vocab-sharded)."""
     return pim_matmul(x, params["head"], plan, cfg)

@@ -280,14 +280,17 @@ def apply_block(bp: dict, cfg: ArchConfig, layer: int, x: torch.Tensor,
 
 
 def run_layer(bp: dict, cfg: ArchConfig, layer: int, x: torch.Tensor,
-              cache: dict, plan, attend, part=None) -> torch.Tensor:
+              cache: dict, plan, attend, part=None,
+              ffn=None) -> torch.Tensor:
     """One layer of a prefill chunk or a decode step, continuing from the
     layer's cache and updating it in place. ``attend(bp, cache, h, plan)``
     runs an attention layer's core on the normed input ``h``; the recurrent
     kinds continue their carries, as the reference's ``_decode_block`` and
     ``_prefill_repeat_body`` do, rwkv's channel-mix from ``cm_prev``. Under
     a partition the norms and residuals act on the rank's sequence block
-    and the FFN is tensor-parallel."""
+    and the FFN is tensor-parallel. ``ffn(bp, h)``, where given, runs an
+    attention or mamba layer's FFN in place of ``ffn_block`` (the
+    partitioned decode)."""
     kind = block_kind(cfg, layer)
     core_plan = L.plan_leaf(plan, "core")
     h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
@@ -301,6 +304,8 @@ def run_layer(bp: dict, cfg: ArchConfig, layer: int, x: torch.Tensor,
         cache.update(carry)
     x = x + h
     h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
+    if ffn is not None and kind != "rwkv":
+        return x + ffn(bp, h)
     if kind != "rwkv":
         return x + ffn_block(bp, cfg, layer, h, plan, part)
     x_prev = torch.cat([cache["cm_prev"][:, None].to(h.dtype), h[:, :-1]],
@@ -571,18 +576,24 @@ def _kv_read(cache: dict, dtype: torch.dtype, view=None):
             _dequantize_kv(view(cache["v"]), view(cache["v_scale"]), dtype))
 
 
-def _write_token(buf: torch.Tensor, new: torch.Tensor, pos) -> None:
+def _write_token(buf: torch.Tensor, new: torch.Tensor, pos,
+                 s0: int | None = None) -> None:
     """Write a one-token slice ``new`` (B, 1, ...) into a (B, L, ...) cache
     in place. A scalar ``pos`` writes one column; a (B,) pos writes each
     slot at its own offset, and offsets past the cache write nothing (idle
-    slots keep advancing), as the reference's ``mode="drop"`` scatter."""
+    slots keep advancing), as the reference's ``mode="drop"`` scatter.
+    With ``s0`` the cache is a block holding the global positions ``[s0,
+    s0 + L)`` (a partitioned decode's sequence block), and a position
+    outside it writes nothing, a scalar one too."""
+    lo, n = s0 or 0, buf.shape[1]
     if isinstance(pos, int):
-        buf[:, pos] = new[:, 0].to(buf.dtype)
+        if s0 is None or lo <= pos < lo + n:
+            buf[:, pos - lo] = new[:, 0].to(buf.dtype)
         return
-    B, max_len = buf.shape[0], buf.shape[1]
-    rows = torch.arange(B, device=buf.device)
-    idx = pos.clamp(max=max_len - 1)
-    keep = (pos < max_len).reshape((B,) + (1,) * (buf.ndim - 2))
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    at = pos - lo
+    keep = ((at >= 0) & (at < n)).reshape((-1,) + (1,) * (buf.ndim - 2))
+    idx = at.clamp(0, n - 1)
     buf[rows, idx] = torch.where(keep, new[:, 0].to(buf.dtype),
                                  buf[rows, idx])
 
@@ -656,9 +667,22 @@ def decode_step(params: dict, cfg: ArchConfig, state: dict,
     and the matching ``paged`` layout: each slot writes its token into its
     current block and attends over a block-table gather, bit-identical to
     a contiguous cache when ``max_blocks * block_size == max_len``. Slots
-    the caller does not want touched get an all-sentinel row."""
+    the caller does not want touched get an all-sentinel row.
+
+    With ``params`` placed as DTensors on the active mesh under
+    SERVE_RULES or MULTIPOD_SERVE_RULES the step is partitioned
+    (``_decode_partitioned``): ``tokens`` whole, the state placed by
+    ``cache_specs``, the logits the rank's vocab block."""
     if (block_tables is None) != (paged is None):
         raise ValueError("block_tables and paged must be passed together")
+    part = partition(params, cfg, decode=True)
+    if part is not None:
+        if block_tables is not None or plans is not None:
+            raise ValueError(
+                "a partitioned decode takes a contiguous state and no "
+                "plans: the reference's paged pools run only in its "
+                "unmeshed engines")
+        return _decode_partitioned(part, params, cfg, state, tokens)
     pos = state["pos"]
     if block_tables is not None and isinstance(pos, int):
         raise ValueError("paged decode needs per-slot positions "
@@ -708,19 +732,21 @@ def _store_span(cache: dict, k: torch.Tensor, v: torch.Tensor,
 
 def partitioned(cfg: ArchConfig) -> bool:
     """Whether the partitioned train and prefill programs cover ``cfg``:
-    every layer attention plus a dense MLP. MoE expert parallelism and the
-    recurrent blocks over ``tp``/``heads`` are not partitioned yet."""
+    every layer attention plus a dense MLP (the decode program too). MoE
+    expert parallelism and the recurrent blocks over ``tp``/``heads`` are
+    not partitioned yet."""
     return all(block_kind(cfg, layer) == "attn"
                and not L.is_moe_layer(cfg, layer)
                for layer in range(cfg.n_layers))
 
 
-def partition(params: dict, cfg: ArchConfig):
-    """The ``dist.parallel.Partition`` of ``params`` when they are DTensors
-    on the active mesh (what turns the partitioned programs on), else
-    None. Raises where the partitioned program cannot run: a config it
-    does not cover, or ``pim_mode`` other than ``"off"`` (the reference
-    runs its meshed programs in float)."""
+def partition(params: dict, cfg: ArchConfig, *, decode: bool = False):
+    """The ``dist.parallel.Partition`` of ``params`` (with ``decode``, the
+    ``ServePartition``) when they are DTensors on the active mesh (what
+    turns the partitioned programs on), else None. Raises where the
+    partitioned program cannot run: a config it does not cover,
+    ``pim_mode`` other than ``"off"`` (the reference runs its meshed
+    programs in float), or a rule set the program does not take."""
     if not parallel.placed(params):
         return None
     if not partitioned(cfg):
@@ -733,8 +759,85 @@ def partition(params: dict, cfg: ArchConfig):
             f"pim_mode={cfg.pim_mode!r} under a partition: the partitioned "
             "programs run in float (pim_mode='off'), as the reference's "
             "meshed programs do")
+    if decode:
+        return parallel.serve_partition(dsh.active_mesh(), cfg, params)
     return parallel.Partition(dsh.active_mesh(), cfg, param_specs(cfg),
                               params)
+
+
+def _attn_decode_partitioned(part, path: str, bp: dict, cfg: ArchConfig,
+                             cache: dict, x: torch.Tensor, pos,
+                             positions: torch.Tensor, rows,
+                             seq) -> torch.Tensor:
+    """``_attn_decode`` under the partitioned decode: ``x`` (B, 1, D) whole,
+    ``bp`` the rank's weight blocks of the layer at ``path``
+    (``layers/3/``), ``cache`` its block of ``rows.local``
+    rows by ``seq.local`` positions (``ServePartition.cache_layout``).
+    q/k/v from the stored column blocks, gathered into whole heads; the
+    rank's rows write where its block holds their positions; split-KV
+    attention over the block, combined over the positions' group; the
+    output gathered over the rows' group into the row-parallel ``wo``."""
+    q, k_new, v_new = L.qkv_project(
+        bp["core"], cfg, x, positions,
+        cols=lambda t, name: part.gather_cols(t, f"{path}core/{name}"))
+    b0, nb, s0 = rows.start, rows.local, seq.start
+    q, k_new, v_new = (t[b0:b0 + nb] for t in (q, k_new, v_new))
+    mine = pos if isinstance(pos, int) else pos[b0:b0 + nb]
+    for name, new in _kv_entries(cache, k_new, v_new).items():
+        _write_token(cache[name], new, mine, s0)
+    k_blk, v_blk = _kv_read(cache, x.dtype)
+    acc, m, l = L.split_kv_attention(q, k_blk, v_blk, kv_len=mine + 1,
+                                     k_offset=s0)
+    out = parallel.combine_attention(acc, m, l, seq.group).to(x.dtype)
+    out = parallel.all_gather(out.reshape(nb, 1, -1), 0, rows.group)
+    y = L.pim_matmul(part.block(out, path + "core/wo"), bp["core"]["wo"],
+                     None, cfg)
+    return part.reduce(y, path + "core/wo")
+
+
+def _decode_partitioned(part, params: dict, cfg: ArchConfig, state: dict,
+                        tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """``decode_step`` under the partitioned decode (``dist.parallel``):
+    ``tokens`` whole, ``state`` placed by ``cache_specs`` (DTensor caches,
+    written in place through their local blocks; ``pos`` global). Returns
+    the rank's vocab block of the logits (B, 1, V / |vocab group|) and the
+    state."""
+    rows, seq = part.cache_layout(state["caches"])
+    pos = state["pos"]
+    glob = pos.to_local() if hasattr(pos, "to_local") else pos
+    local = part.local
+    if cfg.input_mode == "tokens":
+        emb = part.leaf["embed/embed"]
+        x = L.embed(local["embed"], tokens, v0=emb.start,
+                    reduce=None if emb.dim is None
+                    else functools.partial(part.reduce, path="embed/embed"))
+    else:
+        x = embed_inputs(local, cfg, tokens)
+    B = x.shape[0]
+    if isinstance(glob, int):
+        positions = torch.full((B, 1), glob, dtype=torch.int64,
+                               device=x.device)
+    else:
+        positions = glob[:, None]
+    for layer, (bp, cache) in enumerate(zip(local["layers"],
+                                            state["caches"])):
+        path = f"layers/{layer}/"
+        blocks = {k: t.to_local() for k, t in cache.items()}
+
+        def attend(bp, _, h, core_plan, path=path, blocks=blocks):
+            return _attn_decode_partitioned(part, path, bp, cfg, blocks, h,
+                                            glob, positions, rows, seq)
+
+        def ffn(bp, h, path=path):
+            return L.mlp_block(
+                bp["ffn"], cfg, h,
+                rows=lambda t: part.rows_for(t, path + "ffn/w1",
+                                             path + "ffn/w2"),
+                reduce=lambda y: part.reduce(y, path + "ffn/w2"))
+        x = run_layer(bp, cfg, layer, x, blocks, None, attend, ffn=ffn)
+    x = L.rmsnorm(local["final_norm"], x, cfg.norm_eps)
+    logits = L.lm_head(local["embed"], cfg, x)
+    return logits, {"caches": state["caches"], "pos": pos + 1}
 
 
 def _prefill_partitioned(part, params: dict, cfg: ArchConfig,

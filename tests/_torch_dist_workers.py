@@ -570,6 +570,107 @@ def task_tp(rank: int, payload: dict, tmp: Path) -> dict:
             res["placed_flag"] = (parallel.placed(p),
                                   parallel.placed(params))
         out[run["name"]] = res
+    out["decode"] = {run["name"]: _decode_run(run, payload)
+                     for run in payload.get("decode_runs", ())}
+    return out
+
+
+def _state_from_numpy(start: dict) -> dict:
+    pos = start["pos"]
+    return {"caches": [{k: torch.from_numpy(np.array(v)) for k, v in
+                        c.items()} for c in start["caches"]],
+            "pos": pos if isinstance(pos, int) else torch.from_numpy(
+                np.array(pos))}
+
+
+def _decode_run(run: dict, payload: dict) -> dict:
+    """The partitioned decode (``dist.parallel.ServePartition``) of one of
+    ``payload["decode_runs"]``: the reference's weights placed by
+    ``param_specs`` and the one-process start state by ``cache_specs``
+    under SERVE_RULES (MULTIPOD_SERVE_RULES on a pod mesh), then
+    ``DECODE_STEPS`` steps on the run's whole tokens. Returns each step's
+    logits block and the head's vocab start, the final cache blocks with
+    their rows' and positions' starts, the collectives' result shapes and
+    the leaves' global and local shapes (rank 0), and the refusals: other
+    rules, paged tables, ``pim_mode``; plain parameters under the mesh
+    run the replicated program."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.dist import compat, parallel
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.models import convert
+    from repro_torch.models import transformer as T
+    from repro_torch.train import _tree
+    cfg = dataclasses.replace(
+        configs.get(run["arch"]).reduced(**run["reduced"]), **run["replace"])
+    pods = len(run["mesh"]) == 3
+    mesh = compat.make_mesh(
+        run["mesh"], ("pod", "data", "model") if pods
+        else ("data", "model"), device_type="cpu")
+    rules = dsh.MULTIPOD_SERVE_RULES if pods else dsh.SERVE_RULES
+    params = convert.params_from_reference(
+        copy.deepcopy(payload["np_params"][run["config"]]), cfg, "cpu")
+    tokens = torch.from_numpy(np.array(run["tokens"]))
+    res: dict = {"coordinate": tuple(mesh.get_coordinate())}
+    with dsh.axis_rules(rules), dsh.use_mesh(mesh), torch.no_grad():
+        p = dsh.place(params, T.param_specs(cfg), mesh)
+        state = dsh.place(_state_from_numpy(run["start"]),
+                          T.cache_specs(cfg), mesh)
+        part = T.partition(p, cfg, decode=True)
+        rows, seq = part.cache_layout(state["caches"])
+        parallel.STATS.reset()
+        logits = []
+        for t in tokens:
+            lg, state = T.decode_step(p, cfg, state, t)
+            logits.append(_np(lg))
+        shapes = sorted(parallel.STATS.shapes)
+        by_op = dict(parallel.STATS.by_op)
+        res.update(
+            logits=logits, vocab_start=part.leaf["embed/head"].start,
+            partition_kept=T.partition(p, cfg, decode=True) is part,
+            rows_start=rows.start, seq_start=seq.start,
+            pos=np.array(state["pos"].to_local() if hasattr(
+                state["pos"], "to_local") else state["pos"]).tolist(),
+            caches=[{k: v.to_local().numpy().copy() for k, v in c.items()}
+                    for c in state["caches"]],
+            greedy=part.greedy(lg).numpy().copy(),
+            collective_shapes=shapes, collectives=by_op)
+        if run.get("checks"):
+            paths, flat = _tree.flatten(p)
+            res["leaf_shapes"] = sorted(
+                {tuple(t.shape) for t in flat}
+                | {tuple(t.to_local().shape) for t in flat})
+            res["refusals"] = _decode_refusals(cfg, p, params, state, mesh,
+                                               tokens[0])
+            plain = _state_from_numpy(run["start"])
+            want, _ = T.decode_step(params, cfg, plain, tokens[0])
+            res["plain_under_mesh"] = _np(want)
+    return res
+
+
+def _decode_refusals(cfg, p, params, state, mesh, tok) -> dict:
+    """What the partitioned decode refuses, each error's text."""
+    import dataclasses
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.models import transformer as T
+    out = {}
+    tables = torch.zeros((tok.shape[0], 2), dtype=torch.int64)
+    cases = {
+        "default_rules": lambda: T.decode_step(p, cfg, state, tok),
+        "paged": lambda: T.decode_step(
+            p, cfg, state, tok, block_tables=tables,
+            paged=T.PagedLayout(n_blocks=4, block_size=8)),
+        "pim": lambda: T.decode_step(
+            p, dataclasses.replace(cfg, pim_mode="exact"), state, tok)}
+    for name, fn in cases.items():
+        ctx = dsh.axis_rules(dsh.DEFAULT_RULES) if name == "default_rules" \
+            else dsh.axis_rules(dsh.current_rules())
+        try:
+            with ctx:
+                fn()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
     return out
 
 

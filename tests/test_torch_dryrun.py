@@ -11,14 +11,18 @@
   bytes of a run of every trip, forward and backward.
 - Flops of reduced qwen1.5-0.5b and yi-6b's prefill, decode and train step
   against the reference's ``hlo.analyze`` on a one-device jit.
+- The partitioned decode's collectives over a flattened group and its
+  log-sum-exp combine, counted once each with the reference's ring bytes.
 - qwen1.5-0.5b's three single-pod cells, from the port's CLI and the
   reference's, both in subprocesses: the report fields that must agree,
   the key sets, each cell's flops against its per-rank program run alone
-  without a mesh, serve cells' zero collectives, and the train cell's
-  all-gather bytes from its placed parameters.
+  under a fake 256-rank group, the partitioned decode's and prefill's
+  collectives, the decode's flops against the count derived from the
+  config and the reference's, and the train cell's all-gather bytes from
+  its placed parameters.
 - One 512-rank cell, one cell per model family at published width, a
-  110B cell that reports >200 GB per device while allocating nothing, and
-  the CLI's failure path.
+  110B decode cell that fits a card while allocating nothing, and the
+  CLI's failure path.
 """
 
 import dataclasses
@@ -216,6 +220,38 @@ def test_autograd_collectives_counted_once_each_way(fake_group, impl):
                                 "reduce-scatter": payload / 4 * 3}
 
 
+def test_flattened_group_collectives_counted_once(fake_group):
+    """The partitioned decode's collectives on rank 0 of a fake 4-rank
+    group, mesh (2, 2): an all-reduce and an all-gather over the group
+    flattened from both mesh dims (``parallel.mesh_group``, 4 ranks), and
+    the log-sum-exp combine over "model" (2 ranks: an all-reduce of the
+    max, one of the rescaled sums), each counted once with the reference's
+    ring bytes, 2 payload (s - 1) / s and payload (s - 1) / s."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.dist import parallel
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    flat = parallel.mesh_group(mesh, (0, 1))
+    assert (flat.size, flat.rank) == (4, 0)
+    assert parallel.mesh_group(mesh, (1, 0)) is flat  # made once a mesh
+    model = parallel.mesh_group(mesh, (1,))
+    assert model.size == 2
+
+    def step(y, acc, m, l):
+        y = parallel.all_reduce(y, flat)
+        return parallel.all_gather(y, 1, flat), \
+            parallel.combine_attention(acc, m, l, model)
+    with FakeTensorMode():
+        _, c, _ = hlo.analyze(step, torch.zeros(8, 1, 16),
+                              torch.zeros(2, 1, 4, 16), torch.zeros(2, 1, 4),
+                              torch.ones(2, 1, 4))
+    y = 8 * 16 * 4
+    assert c.coll_counts == {"all-reduce": 3, "all-gather": 1}
+    assert c.coll_bytes == {
+        "all-reduce": 2 * y * 3 / 4 + 2 * (2 * 4 * 4) / 2
+        + 2 * (2 * 4 * 17 * 4) / 2,
+        "all-gather": 4 * y * 3 / 4}
+
+
 def test_collective_bytes_on_a_fake_group(fake_group):
     """Shard -> Replicate is one all-gather of payload (s - 1) / s, Partial
     -> Replicate one all-reduce of 2 payload (s - 1) / s, each counted at
@@ -356,29 +392,21 @@ def qwen_runs(tmp_path_factory):
 
 def _flops_alone() -> dict:
     """FlopCounterMode's count of each qwen cell's per-rank program: the
-    decode step with plain (fake) tensors and no mesh (8 of 128 decoding
-    sequences on whole weights); the partitioned train step and prefill
-    as the dry run builds them (``dryrun.rank_program``), on rank 0 of a
-    fake 256-rank group under ``DEFAULT_RULES``."""
+    partitioned train step, prefill and decode as the dry run builds them
+    (``dryrun.rank_program``), on rank 0 of a fake 256-rank group under
+    the cell's rules (``DEFAULT_RULES``, decode ``SERVE_RULES``)."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
     from repro_torch.launch.mesh import make_production_mesh
     cfg = configs.get(QWEN)
     shapes = {s.name: s for s in configs.runnable_shapes(cfg)}
     out = {}
-    with FakeTensorMode():
-        params = T.init_params(cfg, seed=0, device="cpu")
-        with FlopCounterMode(display=False) as fc, torch.no_grad():
-            dryrun.make_serve_step(cfg)(
-                params, T.init_decode_state(cfg, 8, 32768, device="cpu"),
-                {"tokens": torch.zeros((8, 1), dtype=torch.int32)})
-        out["decode_32k"] = fc.get_total_flops()
-    del params
-    for name in ("train_4k", "prefill_32k"):
+    for name in ("train_4k", "prefill_32k", "decode_32k"):
         dist.init_process_group("fake", store=FakeStore(), rank=0,
                                 world_size=256)
         try:
             mesh = make_production_mesh(device_type="cpu")
-            with FakeTensorMode(), dsh.axis_rules(dsh.DEFAULT_RULES):
+            with FakeTensorMode(), dsh.axis_rules(dryrun.cell_rules(
+                    shapes[name], multi_pod=False)):
                 step, args = dryrun.rank_program(
                     cfg, shapes[name], mesh, torch.device("cpu"))
                 with dsh.use_mesh(mesh), \
@@ -395,9 +423,13 @@ def _flops_alone() -> dict:
 def test_qwen_cells_agree_with_the_reference(qwen_runs):
     """The report fields that must agree, the key sets, each cell's flops
     against FlopCounterMode's count of its rank program (``_flops_alone``),
-    decode's zero collectives, and the partitioned prefill's collectives:
-    one reduce-scatter per row-parallel projection and one for the
-    embedding, no all-reduce (nothing is replicated that a rank reduces)."""
+    the partitioned decode's collectives: per layer the all-gathers of q,
+    k and v and of the attention output, two all-reduces of the log-sum-exp
+    combine and those of the row-parallel ``wo`` and ``w2``, plus the
+    embedding's all-reduce, no reduce-scatter (the activations are whole);
+    and the partitioned prefill's: one reduce-scatter per row-parallel
+    projection and one for the embedding, no all-reduce (nothing is
+    replicated that a rank reduces)."""
     ref, port, rc, _, log, alone = qwen_runs
     assert rc == 0, log[-3000:]
     assert "dry-run: 3 ok / 0 failed / 0 skipped, 3 cells" in log
@@ -407,10 +439,11 @@ def test_qwen_cells_agree_with_the_reference(qwen_runs):
         assert set(p) == set(r) - {"xla_cost_analysis_flops_loop_once"}
         assert p["hlo_flops_per_device"] == alone[s], s
         assert p["n_chips"] == 256
-    assert port["decode_32k"]["collective_bytes_per_device"] == 0
-    assert port["decode_32k"]["collective_breakdown"] == {}
-    counts = port["prefill_32k"]["collective_counts"]
     n_layers = configs.get(QWEN).n_layers
+    assert port["decode_32k"]["collective_counts"] == {
+        "all-gather": 4 * n_layers, "all-reduce": 4 * n_layers + 1}
+    assert port["decode_32k"]["collective_bytes_per_device"] > 0
+    counts = port["prefill_32k"]["collective_counts"]
     assert counts["reduce-scatter"] == 2 * n_layers + 1
     assert counts["all-gather"] > 0 and "all-reduce" not in counts
 
@@ -469,6 +502,41 @@ def test_qwen_train_gathers_its_placed_parameters(qwen_runs):
     assert port["collective_bytes_per_device"] > want  # + grad reductions
 
 
+def test_qwen_decode_flops_are_the_partitioned_work(qwen_runs):
+    """The partitioned decode_32k rank computes its share and no more: its
+    flops equal FlopCounterMode's count of the rank program and lie within
+    1.0-1.15x of the count derived from the config (attention over the
+    rank's 8 rows and 2,048 positions, every head; the body's projections
+    on all 128 rows over 1/256 of the columns; the head on the rank's
+    vocab block, 151,936 rows over "data" alone); at most 1.3x the
+    reference's flops (GSPMD gathers the head and runs it whole on every
+    device), a quarter of its collective bytes and 3x its peak."""
+    ref, port, _, _, _, alone = qwen_runs
+    r, p = ref["decode_32k"], port["decode_32k"]
+    cfg = configs.get(QWEN)
+    shape = {s.name: s for s in configs.runnable_shapes(cfg)}["decode_32k"]
+    B, S, D, V = shape.global_batch, shape.seq_len, cfg.d_model, \
+        cfg.vocab_size
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    with dsh.axis_rules(dsh.SERVE_RULES):
+        vspec = dsh.fit_spec_to_shape(dsh.spec_for(("vocab",), mesh), (V,),
+                                      mesh)
+    assert vspec == dsh.PartitionSpec("data")
+    # the body's matmul weights: the active parameters but the embedding,
+    # the head and each layer's two norm scales (``param_count``'s norms)
+    body = cfg.active_param_count() - 2 * V * D - 2 * D * cfg.n_layers
+    derived = (4 * B * S * H * hd * cfg.n_layers / 256
+               + 2 * body * B / 256 + 2 * B * D * V / 16)
+    flops = p["hlo_flops_per_device"]
+    assert flops == alone["decode_32k"]
+    assert 1.0 <= flops / derived <= 1.15, flops / derived
+    assert flops <= 1.3 * r["hlo_flops_per_device"]
+    assert p["collective_bytes_per_device"] <= \
+        r["collective_bytes_per_device"] / 4
+    assert p["per_device_bytes"] <= 3 * r["per_device_bytes"]
+
+
 def test_cli_writes_the_reference_file_names(qwen_runs):
     out = qwen_runs[3]
     assert sorted(p.name for p in out.iterdir()) == sorted(
@@ -498,7 +566,7 @@ def test_no_group_is_left_open(monkeypatch):
                            device="cpu", verbose=False)
     assert not dist.is_initialized()
     assert r["status"] == "ok" and r["n_chips"] == 512
-    assert r["collective_bytes_per_device"] == 0
+    assert r["collective_bytes_per_device"] > 0  # the partitioned decode
 
     def boom(*a, **k):
         raise RuntimeError("injected")
@@ -538,11 +606,14 @@ def test_one_cell_per_family_at_published_width(arch, shape):
 
 
 def test_110b_decode_reports_without_allocating():
+    """The partitioned decode of qwen1.5-110b fits a card (weights and the
+    cache's block of 8 rows by 2,048 positions: ~6 GB; replicated weights
+    took 289 GiB) and the fake run allocates none of it."""
     before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
     r = dryrun.dryrun_cell("qwen1.5-110b", "decode_32k", multi_pod=False,
                            device="cpu", verbose=False)
     grown = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss - before
-    assert r["per_device_bytes"] > 200e9 and not r["fits_hbm"]
+    assert r["per_device_bytes"] < 10e9 and r["fits_hbm"]
     assert grown * 1024 < 2e9  # ru_maxrss is in KiB
 
 

@@ -1,8 +1,9 @@
 """The partitioned train step and prefill (``repro_torch.dist.parallel``):
-FSDP, tensor and sequence parallel on 4 ranks. One spawn of 4 ``gloo``
-processes on the CPU (``_torch_dist_workers.task_tp``, one intra-op
-thread each, no jax in the workers); this process computes the one-process
-port's and the reference's values.
+FSDP, tensor and sequence parallel on 4 ranks; and the partitioned decode
+under SERVE_RULES. One spawn of 4 ``gloo`` processes on the CPU
+(``_torch_dist_workers.task_tp``, one intra-op thread each, no jax in the
+workers); this process computes the one-process port's and the
+reference's values.
 
 Each run places reduced float32 weights from the reference's init by
 ``param_specs`` under ``DEFAULT_RULES`` on a ``("data", "model")`` mesh of
@@ -33,6 +34,26 @@ qwen on a (2, 1, 2) ``("pod", "data", "model")`` mesh under
   not turn the partitioned program on.
 - On a one-rank group (in this process) the partitioned step and prefill
   equal the plain ones bit for bit.
+- Decode (``DECODE_RUNS``): weights placed by ``param_specs`` under
+  SERVE_RULES on (2, 2) and (1, 4), MULTIPOD_SERVE_RULES on (2, 1, 2),
+  from one one-process state (a prompt of ``PROMPT_LEN`` prefilled into
+  caches of ``DECODE_LEN``) placed by ``cache_specs``; ``DECODE_STEPS``
+  steps on whole tokens. The ranks' logits blocks assembled by vocab and
+  their cache blocks by rows and positions equal the one-process
+  ``decode_step``'s and the reference's ``decode_step``'s on the same
+  weights and state within ``DECODE_TOL`` (float32: rtol and atol 1e-5;
+  the partitioned sums over heads, vocab and key blocks round
+  differently), int8 cache codes exactly. The configs: qwen
+  (``qkv_bias``), chameleon (``qk_norm``), 6 heads over 2 K/V heads (a
+  rank's K/V columns below one head, ``K`` below the 4 ranks), a vocab of
+  66 that 4 does not divide (the embedding and head peel to "data"), an
+  int8 KV cache; lockstep positions and per-slot ones at ``SLOT_POS``,
+  where rows write on different "model" ranks in one step and a row at a
+  block's last slot writes on the next rank in the next. No collective's
+  result has a parameter leaf's shape; the greedy ids over the vocab
+  shards are the one-process argmax; other rules, paged tables and
+  ``pim_mode`` are refused; plain parameters under the mesh run the
+  replicated program, bit for bit.
 """
 
 import dataclasses
@@ -75,6 +96,8 @@ CONFIGS = {
     "remat": ("qwen1.5-0.5b", dict(vocab_size=64, n_layers=2),
               dict(remat=True)),
     "micro2": ("qwen1.5-0.5b", dict(vocab_size=64), dict(micro_batches=2)),
+    "v66": ("qwen1.5-0.5b", dict(vocab_size=66), {}),
+    "int8": ("qwen1.5-0.5b", dict(vocab_size=64, kv_cache_dtype="int8"), {}),
 }
 # (run name, config key, mesh shape)
 RUNS = (("qwen_2x2", "qwen", (2, 2)), ("qwen_1x4", "qwen", (1, 4)),
@@ -86,17 +109,40 @@ RUNS = (("qwen_2x2", "qwen", (2, 2)), ("qwen_1x4", "qwen", (1, 4)),
         ("qwen_pods_2x1x2", "qwen", (2, 1, 2)))
 NAMES = [r[0] for r in RUNS]
 SEQ, ROWS, PROMPTS, PROMPT_LEN = 32, 8, 4, 16
+# decode: (run name, config key, mesh shape, per-slot positions); the
+# batch of PROMPTS rows shares no shape with a weight of the configs
+DECODE_RUNS = (("qwen_2x2", "qwen", (2, 2), False),
+               ("qwen_slots_1x4", "qwen", (1, 4), True),
+               ("chameleon_slots_2x2", "chameleon", (2, 2), True),
+               ("h6k2_1x4", "h6k2", (1, 4), False),
+               ("v66_2x2", "v66", (2, 2), False),
+               ("int8_slots_1x4", "int8", (1, 4), True),
+               ("int8_2x2", "int8", (2, 2), False),
+               ("qwen_pods_slots_2x1x2", "qwen", (2, 1, 2), True))
+DECODE_NAMES = [r[0] for r in DECODE_RUNS]
+DECODE_LEN, DECODE_STEPS = 32, 3
+# per-slot positions: on (1, 4) (blocks of 8) rows 0-3 write on "model"
+# ranks 1, 0, 2, 1, and rows 1 and 2 sit at their blocks' last slots; on
+# (2, 2) (blocks of 16) row 0 sits at block 0's last slot while row 2, on
+# the other "data" rank, writes on "model" rank 1
+SLOT_POS = (15, 7, 23, 9)
+DECODE_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _reduced(key) -> dict:
+    return {**F32, **CONFIGS[key][1]}
 
 
 def _cfg(key):
-    arch, red, rep = CONFIGS[key]
-    return dataclasses.replace(configs.get(arch).reduced(**red, **F32), **rep)
+    arch, _, rep = CONFIGS[key]
+    return dataclasses.replace(configs.get(arch).reduced(**_reduced(key)),
+                               **rep)
 
 
 @functools.lru_cache(maxsize=None)
 def _reference_weights(key):
-    arch, red, rep = CONFIGS[key]
-    rcfg = dataclasses.replace(ref_configs.get(arch).reduced(**red, **F32),
+    arch, _, rep = CONFIGS[key]
+    rcfg = dataclasses.replace(ref_configs.get(arch).reduced(**_reduced(key)),
                                **rep)
     rparams = RT.init_params(rcfg, jax.random.key(0))[0]
     return rcfg, rparams, jax.tree.map(np.array, rparams)
@@ -124,17 +170,53 @@ def _data(key):
     return batches, prompts
 
 
+RUNS_KEYS = sorted({k for _, k, _ in RUNS})
+
+
+def _port_params(key):
+    """The reference's weights as the port's, a copy of its own."""
+    return convert.params_from_reference(
+        jax.tree.map(np.array, _reference_weights(key)[2]), _cfg(key), "cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_start(key, slots: bool) -> dict:
+    """The one-process state that every decode run starts from, as numpy:
+    ``PROMPTS`` prompts of ``PROMPT_LEN`` prefilled into caches of
+    ``DECODE_LEN``, at that position (lockstep) or at ``SLOT_POS``."""
+    cfg = _cfg(key)
+    prompts = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (PROMPTS, PROMPT_LEN)).astype(np.int32)
+    with torch.no_grad():
+        _, state = T.prefill(_port_params(key), cfg,
+                             torch.from_numpy(prompts), max_len=DECODE_LEN)
+    return {"caches": [{k: v.numpy() for k, v in c.items()}
+                       for c in state["caches"]],
+            "pos": np.array(SLOT_POS, np.int64) if slots else state["pos"]}
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_tokens(key) -> np.ndarray:
+    return np.random.default_rng(11).integers(
+        0, _cfg(key).vocab_size, (DECODE_STEPS, PROMPTS, 1)).astype(np.int32)
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Each rank's results of one spawn of 4 gloo processes."""
-    keys = sorted({k for _, k, _ in RUNS})
+    keys = sorted({k for _, k, _ in RUNS} | {k for _, k, _, _ in DECODE_RUNS})
     payload = dict(
         runs=[dict(name=n, config=k, arch=CONFIGS[k][0],
-                   reduced=dict(CONFIGS[k][1], **F32), replace=CONFIGS[k][2],
+                   reduced=_reduced(k), replace=CONFIGS[k][2],
                    mesh=m) for n, k, m in RUNS],
+        decode_runs=[dict(name=n, config=k, arch=CONFIGS[k][0],
+                          reduced=_reduced(k), replace=CONFIGS[k][2],
+                          mesh=m, start=_decode_start(k, slots),
+                          tokens=_decode_tokens(k), checks=n == "qwen_2x2")
+                     for n, k, m, slots in DECODE_RUNS],
         np_params={k: _reference_weights(k)[2] for k in keys},
-        batches={k: _data(k)[0] for k in keys},
-        prompts={k: _data(k)[1] for k in keys})
+        batches={k: _data(k)[0] for k in RUNS_KEYS},
+        prompts={k: _data(k)[1] for k in RUNS_KEYS})
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -323,3 +405,180 @@ def test_one_rank_mesh_is_the_plain_program(tmp_path):
     assert all(torch.equal(a, b) for a, b in zip(pm, pp, strict=True))
     assert torch.equal(gm, gp)
     assert all(torch.equal(a, b) for a, b in zip(cm, cp, strict=True))
+
+
+# ------------------------------------------------------------------ decode
+def _decode_run(name):
+    return {n: (k, m, slots) for n, k, m, slots in DECODE_RUNS}[name]
+
+
+def _start_torch(key, slots: bool) -> dict:
+    st = _decode_start(key, slots)
+    pos = st["pos"]
+    return {"caches": [{k: torch.from_numpy(v.copy()) for k, v in c.items()}
+                       for c in st["caches"]],
+            "pos": pos if isinstance(pos, int) else torch.from_numpy(
+                pos.copy())}
+
+
+@functools.lru_cache(maxsize=None)
+def _one_process_decode(key, slots: bool):
+    """``DECODE_STEPS`` one-process steps from the start state: each
+    step's logits and the final caches, numpy."""
+    cfg, params, state = _cfg(key), _port_params(key), _start_torch(key,
+                                                                    slots)
+    logits = []
+    with torch.no_grad():
+        for t in _decode_tokens(key):
+            lg, state = T.decode_step(params, cfg, state, torch.from_numpy(t))
+            logits.append(lg.numpy().copy())
+    return logits, [{k: v.numpy() for k, v in c.items()}
+                    for c in state["caches"]]
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_decode(key, slots: bool):
+    """The reference's jitted ``decode_step`` from the same state (its
+    caches stacked over the layers, one pattern position): each step's
+    logits and the final caches per layer, numpy."""
+    import jax.numpy as jnp
+    rcfg, rparams, _ = _reference_weights(key)
+    st = _decode_start(key, slots)
+    assert tuple(rcfg.block_pattern) == ("attn",)
+    state = {"caches": [{k: jnp.asarray(np.stack([c[k] for c in
+                                                   st["caches"]]))
+                         for k in st["caches"][0]}],
+             "pos": jnp.asarray(st["pos"], jnp.int32)}
+    step = jax.jit(lambda p, s, t: RT.decode_step(p, rcfg, s, t))
+    logits = []
+    for t in _decode_tokens(key):
+        lg, state = step(rparams, state, t)
+        logits.append(np.asarray(lg))
+    stacked = {k: np.asarray(v) for k, v in state["caches"][0].items()}
+    return logits, [{k: v[i] for k, v in stacked.items()}
+                    for i in range(rcfg.n_layers)]
+
+
+def _put(out: np.ndarray, idx, blk: np.ndarray) -> None:
+    """Write a rank's block; where another rank wrote it, they agree."""
+    have = out[idx]
+    seen = ~np.isnan(have)
+    np.testing.assert_array_equal(have[seen], blk[seen])
+    out[idx] = blk
+
+
+def _assembled(ranks, run: str, cfg):
+    """The ranks' logits blocks (every row, the rank's vocab block) by
+    vocab, and their cache blocks by rows and positions, in float64."""
+    logits = [np.full((PROMPTS, 1, cfg.vocab_size), np.nan)
+              for _ in range(DECODE_STEPS)]
+    caches = None
+    for r in ranks:
+        res = r["decode"][run]
+        for out, blk in zip(logits, res["logits"]):
+            v0 = res["vocab_start"]
+            _put(out, np.s_[:, :, v0:v0 + blk.shape[-1]], blk)
+        if caches is None:
+            caches = [{k: np.full((PROMPTS, DECODE_LEN) + v.shape[2:], np.nan)
+                       for k, v in c.items()} for c in res["caches"]]
+        b0, s0 = res["rows_start"], res["seq_start"]
+        for got, c in zip(caches, res["caches"]):
+            for k, blk in c.items():
+                _put(got[k], np.s_[b0:b0 + blk.shape[0],
+                                   s0:s0 + blk.shape[1]],
+                     blk.astype(np.float64))
+    return logits, caches
+
+
+@pytest.mark.parametrize("run", DECODE_NAMES)
+def test_partitioned_decode(ranks, run):
+    """The ranks' logits and caches assembled equal the one-process
+    decode's and the reference's within ``DECODE_TOL`` (int8 codes
+    exactly); the positions advance; the greedy ids over the vocab shards
+    are the one-process argmax."""
+    key, _, slots = _decode_run(run)
+    cfg = _cfg(key)
+    logits, caches = _assembled(ranks, run, cfg)
+    for want_logits, want_caches in (_one_process_decode(key, slots),
+                                     _reference_decode(key, slots)):
+        for got, want in zip(logits, want_logits, strict=True):
+            np.testing.assert_allclose(got, want, **DECODE_TOL)
+        for got, want in zip(caches, want_caches, strict=True):
+            assert sorted(got) == sorted(want)
+            for k, v in want.items():
+                if v.dtype == np.int8:
+                    np.testing.assert_array_equal(got[k], v)
+                else:
+                    np.testing.assert_allclose(got[k], v, **DECODE_TOL)
+    start = _decode_start(key, slots)["pos"]
+    want_pos = (np.asarray(start) + DECODE_STEPS).tolist()
+    top = _one_process_decode(key, slots)[0][-1].argmax(-1)
+    for r in ranks:
+        assert r["decode"][run]["pos"] == want_pos
+        np.testing.assert_array_equal(r["decode"][run]["greedy"], top)
+
+
+def test_decode_gathers_no_weight(ranks):
+    """On (2, 2) no collective's result has a parameter leaf's shape,
+    global or local (size-1 dims dropped): only activations move, per
+    step and layer 4 all-gathers (q, k, v, the attention output) and 5
+    all-reduces (the embedding, the combine's max and sums, ``wo``,
+    ``w2``)."""
+    def squeezed(shape):
+        return tuple(d for d in shape if d != 1)
+    layers = _cfg("qwen").n_layers
+    for r in ranks:
+        res = r["decode"]["qwen_2x2"]
+        leaves = {squeezed(s) for s in res["leaf_shapes"]}
+        moved = {squeezed(s) for s in res["collective_shapes"]}
+        assert moved and not moved & leaves, moved & leaves
+        assert res["collectives"] == {
+            "all_gather": 4 * layers * DECODE_STEPS,
+            "all_reduce": (4 * layers + 1) * DECODE_STEPS}
+
+
+def test_decode_refusals_and_plain_parameters(ranks):
+    """A partitioned decode refuses rules other than the SERVE ones, paged
+    block tables and ``pim_mode`` other than off; plain parameters under
+    the mesh and SERVE_RULES run the replicated program, bit for bit."""
+    want = _one_process_decode("qwen", False)[0][0]
+    for r in ranks:
+        res = r["decode"]["qwen_2x2"]
+        ref = res["refusals"]
+        assert "SERVE_RULES" in ref["default_rules"]
+        assert "paged" in ref["paged"]
+        assert "pim_mode='exact'" in ref["pim"]
+        np.testing.assert_array_equal(res["plain_under_mesh"], want)
+
+
+def test_serve_partition_is_made_once_per_tree(ranks, tmp_path):
+    """Every rank's decode steps reuse the ``ServePartition`` built for
+    their placed tree; in process, on a one-rank group, a second placed
+    tree gets its own, and freeing a tree drops its partition from the
+    mesh."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch.dist import compat
+    from repro_torch.dist import sharding as dsh
+    for r in ranks:
+        assert all(r["decode"][n]["partition_kept"] for n in DECODE_NAMES)
+    cfg = _cfg("qwen")
+    start = _port_params("qwen")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = compat.make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        with dsh.axis_rules(dsh.SERVE_RULES), dsh.use_mesh(mesh):
+            a = dsh.place(_tree.tree_map(torch.clone, start),
+                          T.param_specs(cfg), mesh)
+            b = dsh.place(_tree.tree_map(torch.clone, start),
+                          T.param_specs(cfg), mesh)
+            pa = T.partition(a, cfg, decode=True)
+            assert T.partition(a, cfg, decode=True) is pa
+            assert T.partition(b, cfg, decode=True) is not pa
+            assert len(mesh._serve_partitions) == 2
+            del a, pa
+            gc.collect()
+            assert len(mesh._serve_partitions) == 1
+    finally:
+        dist.destroy_process_group()
