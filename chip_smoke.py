@@ -149,10 +149,16 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            collective an identity, the loss on its plain path); K1-K4
            launches must stay 0; ``--phases dist`` runs it alone (~30 s);
   tp       the partitioned train step and prefill (``dist.parallel``:
-           FSDP, tensor and sequence parallel): 4 processes on ``cuda:0``
+           FSDP, tensor and sequence parallel, MoE FFNs expert parallel):
+           4 processes on ``cuda:0``
            in one ``gloo`` group (a FileStore in a temporary directory),
            mesh (2, 2) under DEFAULT_RULES, qwen1.5-0.5b at its published
-           size from seed 0 with ``pim_mode`` off: 2 train steps in float32
+           widths cut to ``TP_QWEN_LAYERS`` of its 24 layers, from seed 0
+           with ``pim_mode`` off, then phi3.5-moe-42b at
+           its published widths cut to ``TP_MOE_LAYERS`` layers (one
+           float32 train step of ``TP_MOE_ROWS`` x 64 tokens, its loss
+           and grad norm held; the same prefill and decode): 2 train
+           steps in float32
            of 8 x 64 tokens (the train phase's ``SyntheticLM``), losses,
            grad norms and the gathered parameters held against the
            one-process run on the card to the train phase's card-vs-CPU
@@ -174,8 +180,9 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            them). Per rank and step: collectives
            by op, their bytes, the bytes staged through host memory
            (gloo's all-gather on CUDA, ``parallel.GLOO_DEVICE_OPS``) and
-           the step ms, labelled host-staged; K1-K4 launches must stay 0
-           on every rank;
+           the step ms, labelled host-staged (phi's lines also its
+           rank's experts and its train step's peak); K1-K4 launches must
+           stay 0 on every rank;
   dryrun   the dry run (``repro_torch.launch.dryrun``): the cells of
            jamba-1.5-large-398b, phi3.5-moe-42b and qwen1.5-0.5b on both
            meshes, then the decode_32k cells of the other four dense
@@ -197,8 +204,12 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            programs, run as rank 0 of a fake 256-rank group destroyed
            afterwards, train with grad enabled), and rwkv6-3b's plain
            ``decode_32k`` program (its 8 rows' recurrent state and a
-           replicated copy of the weights, the program that every MoE,
-           hybrid and rwkv decode cell runs):
+           replicated copy of the weights, the program that every
+           hybrid and rwkv decode cell runs), and phi3.5-moe-42b's
+           partitioned ``decode_32k`` program cut to
+           ``DRYRUN_MOE_LAYERS`` layers (its whole 32 layers do not fit
+           one card to place from), held to the dry run of the same cut
+           config, run in this process:
            ``FlopCounterMode``'s count must equal the sweep's
            ``hlo_flops_per_device``, ``max_memory_allocated`` must lie
            within 15% of its ``per_device_bytes``, and the median of 5
@@ -400,8 +411,10 @@ DECODERS = (("chameleon-34b", 4, True), ("qwen2.5-32b", 4, False),
             ("qwen1.5-110b", 2, False))
 # the dry run's per-rank programs held against the card, (arch, shape) on
 # the 16x16 mesh: qwen1.5-0.5b's three partitioned programs and rwkv6-3b's
-# decode, the plain serve program that the MoE, hybrid and rwkv decode
-# cells still run; its timed runs, the peak-memory tolerance, the archs swept
+# decode, the plain serve program that the hybrid and rwkv decode cells
+# still run (and phi3.5-moe-42b's partitioned decode cut to
+# DRYRUN_MOE_LAYERS layers: the whole 32 take 84 GB in bf16 to place
+# from, on one card); its timed runs, the peak-memory tolerance, the archs swept
 # on both meshes (the longest cells first), the sweep's worker processes
 # (the host's cores less the main process's) and its limit. The
 # whole sweep, all 62 cells, takes longer than this script may (rwkv6-3b's
@@ -414,6 +427,7 @@ DRYRUN_ARCHS = ("jamba-1.5-large-398b", "phi3.5-moe-42b", ARCH)
 # rwkv6-3b (plain)
 DRYRUN_DECODE_ARCHS = ("qwen1.5-110b", "qwen2.5-32b", "chameleon-34b",
                        "yi-6b", "rwkv6-3b")
+DRYRUN_MOE_LAYERS = 4
 DRYRUN_RUNS = 5
 DRYRUN_MEM_TOL = 0.15
 DRYRUN_JOBS = max(1, min(6, (os.cpu_count() or 2) - 2))
@@ -4661,13 +4675,25 @@ def _leaves_placed(tree) -> list:
     return [t for t in _tree.leaves(tree) if hasattr(t, "device_mesh")]
 
 
-# ------------------------------------------------------------- disagg
+# ------------------------------------------------------------- tp
 TP_WORLD = 4          # processes on cuda:0, one gloo group
 TP_MESH = (2, 2)      # ("data", "model")
 TP_STEPS = 2          # of TRAIN_BATCH x TP_SEQ tokens (the train phase's A)
 TP_SEQ = 64
 TP_PROMPTS, TP_PROMPT_LEN = 4, 256
 TP_TIMEOUT_S = 600
+# the MoE model of the phase: phi3.5-moe-42b at its published widths, its
+# 32 layers cut to TP_MOE_LAYERS (each rank places its blocks from a whole
+# float32 copy, 11.5 GB at 2 layers, and 4 ranks share the card); one
+# float32 train step of TP_MOE_ROWS x TP_SEQ tokens in one micro-batch
+# (2 rows a rank of "data"): each of its published 2 would all-gather
+# every expert block through host memory again, 16 GB a micro-batch
+TP_MOE_LAYERS = 2
+TP_MOE_ROWS = 4
+# qwen1.5-0.5b's 24 layers cut to 6: the phase's time goes to gloo's host
+# staging, per layer (the dry-run phase runs qwen's rank programs whole)
+TP_QWEN_LAYERS = 6
+TP_ARCHS = (ARCH, MOE_ARCH)
 # float32 train, held to the train phase's card-vs-CPU tolerances: loss
 # relative, grad norm relative (tests' NORM_RTOL), parameters' relative
 # global norm
@@ -4682,21 +4708,29 @@ TP_PREFILL_RTOL = 3e-2
 # fed the same tokens (the prefill's bound), and float32's
 TP_DECODE_LEN, TP_DECODE_STEPS = 512, 8
 TP_DECODE_RTOL, TP_DECODE32_RTOL = 3e-2, 1e-4
+# phi's bf16 runs: a rank's bf16 sums differ from the one process's by an
+# ulp, which flips a token's experts where its router logits nearly tie;
+# the one-process reference then takes the ranks' experts, and each
+# flipped token's logit gap (how far below the one process's own choice
+# the ranks' choice lies) must stay below this
+TP_ROUTE_TIE = 5e-2
 
 
 def phase_tp() -> None:
-    """The partitioned train step and prefill (``dist.parallel``) on
-    ``TP_WORLD`` processes on ``cuda:0`` in one ``gloo`` group, mesh
-    ``TP_MESH`` under DEFAULT_RULES (module docstring): each rank's
+    """The partitioned train step, prefill and decode (``dist.parallel``)
+    on ``TP_WORLD`` processes on ``cuda:0`` in one ``gloo`` group, mesh
+    ``TP_MESH`` (module docstring), of qwen1.5-0.5b and of phi3.5-moe-42b
+    cut to ``TP_MOE_LAYERS`` layers (expert parallel): each rank's
     collectives, bytes, host-staged bytes and step ms printed; the
-    gathered result held against the one-process run on the card; K1-K4
-    are not launched."""
+    gathered results held against the one-process runs on the card, made
+    after the ranks have exited; K1-K4 are not launched."""
     import multiprocessing
     import tempfile
     import torch
     from repro_torch.kernels import ops
     t0 = time.perf_counter()
     ops.reset_launch_counts()
+    torch.cuda.empty_cache()  # the ranks need the card's memory
     with tempfile.TemporaryDirectory() as d:
         mp = multiprocessing.get_context("spawn")
         procs = [mp.Process(target=tp_rank, args=(rank, d))
@@ -4729,16 +4763,18 @@ def phase_tp() -> None:
             say("tp", rank=rank, **line)
         if r["launches"]:
             raise AssertionError(f"tp rank {rank} launched {r['launches']}")
-    tp_hold_train(res)
-    tp_hold_prefill(res)
-    tp_hold_decode(res)
+    for arch in TP_ARCHS:
+        ranks = [r[arch] for r in res]
+        tp_hold_train(arch, ranks)
+        tp_hold_prefill(arch, ranks)
+        tp_hold_decode(arch, ranks)
     launches = {k: v for k, v in ops.launch_counts().items() if v}
     if launches:
         raise AssertionError(f"kernels launched in tp: {launches}")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     say("tp", ok=True, world=TP_WORLD, mesh=json.dumps(TP_MESH),
-        backend="gloo", ranks_s=ranks_s,
+        backend="gloo", archs=json.dumps(TP_ARCHS), ranks_s=ranks_s,
         phase_s=round(time.perf_counter() - t0, 3), k1_k4_launches=0)
 
 
@@ -4769,58 +4805,89 @@ def tp_rank(rank: int, d: str) -> None:
     torch.save(res, os.path.join(d, f"rank{rank}.pt"))
 
 
-def tp_data():
+def tp_cfg(arch: str, dtype: str):
+    """``arch`` in ``dtype`` (its KV cache too), qwen1.5-0.5b cut to
+    ``TP_QWEN_LAYERS`` layers, phi3.5-moe-42b to ``TP_MOE_LAYERS`` and one
+    micro-batch (``TP_MOE_ROWS``)."""
+    import dataclasses
+    from repro_torch import configs
+    cut = {"n_layers": TP_MOE_LAYERS, "micro_batches": 1} \
+        if arch == MOE_ARCH else {"n_layers": TP_QWEN_LAYERS}
+    return dataclasses.replace(configs.get(arch), dtype=dtype,
+                               kv_cache_dtype=dtype, **cut)
+
+
+def tp_data(arch: str):
     """The tp phase's optimizer config, train batches (the train phase's
-    run A source) and prompts, alike in every process."""
+    run A source; phi's one step takes its first ``TP_MOE_ROWS`` rows)
+    and prompts over ``arch``'s vocab, alike in every process."""
     import torch
     from repro_torch import configs
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.train import optimizer as opt
-    cfg = configs.get(ARCH)
-    ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=TP_STEPS,
+    cfg = configs.get(arch)
+    steps = 1 if arch == MOE_ARCH else TP_STEPS
+    ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=steps,
                            state_dtype=cfg.opt_state_dtype)
     data = SyntheticLM(vocab_size=TRAIN_DATA_VOCAB, seq_len=TP_SEQ,
                        batch_size=TRAIN_BATCH, seed=0)
-    batches = [data.batch(i) for i in range(TP_STEPS)]
+    batches = [data.batch(i) for i in range(steps)]
+    if arch == MOE_ARCH:
+        batches = [{k: v[:TP_MOE_ROWS] for k, v in b.items()}
+                   for b in batches]
     prompts = torch.randint(0, cfg.vocab_size, (TP_PROMPTS, TP_PROMPT_LEN),
                             generator=torch.Generator().manual_seed(0))
     return ocfg, batches, prompts
 
 
 def tp_run(rank: int) -> dict:
-    """qwen1.5-0.5b at its published size from seed 0, ``pim_mode`` off:
-    ``TP_STEPS`` partitioned train steps in float32, then a partitioned
-    prefill of the rank's rows of ``TP_PROMPTS`` x ``TP_PROMPT_LEN``
-    tokens in bf16. Returns the lines to print, rank 0's gathered
-    parameters, and the rank's logits and cache blocks with its place in
-    the mesh."""
-    import dataclasses
+    """Each of ``TP_ARCHS`` in turn (``tp_model``), ``pim_mode`` off.
+    Returns the lines to print, each arch's results and the rank's
+    kernel launches."""
+    import torch
+    from repro_torch.dist import compat
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    mesh = compat.make_mesh(TP_MESH, ("data", "model"), device_type="cuda")
+    out: dict = {"lines": []}
+    for arch in TP_ARCHS:
+        out[arch] = tp_model(rank, arch, mesh, out["lines"])
+        torch.cuda.empty_cache()
+    out["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+    return out
+
+
+def _staged(st) -> str:
+    """The ops this group stages through host memory, as JSON."""
+    from repro_torch.dist import parallel
+    return json.dumps(sorted(op for op in st.by_op
+                             if op not in parallel.GLOO_DEVICE_OPS))
+
+
+def tp_model(rank: int, arch: str, mesh, lines: list) -> dict:
+    """``arch`` at its published widths from seed 0 (``tp_cfg``): the
+    partitioned train steps in float32 (``tp_data``; the moments made
+    from the placed parameters, ``opt.init_state``), then a partitioned
+    prefill of the rank's rows of the prompts in bf16, then the
+    partitioned decode in bf16 and float32 (``tp_decode``). Appends a line
+    per program run to ``lines``; returns the losses and grad norms, rank
+    0's gathered qwen parameters, and the rank's logits and cache blocks
+    with its place in the mesh."""
     import torch
     from torch.distributed.tensor import DTensor
-    from repro_torch import configs
     from repro_torch.dist import compat, parallel
     from repro_torch.dist import sharding as dsh
-    from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.train import _tree
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_loop as tl
-    ops.reset_launch_counts()
-    mesh = compat.make_mesh(TP_MESH, ("data", "model"), device_type="cuda")
-    ocfg, batches, prompts = tp_data()
-
-    def staged(st):  # the ops this group stages through host memory
-        return json.dumps(sorted(op for op in st.by_op
-                                 if op not in parallel.GLOO_DEVICE_OPS))
-    out: dict = {"lines": [], "losses": [], "norms": []}
-    cfg = dataclasses.replace(configs.get(ARCH), dtype="float32")
+    ocfg, batches, prompts = tp_data(arch)
+    out: dict = {"losses": [], "norms": []}
+    cfg = tp_cfg(arch, "float32")
     specs = T.param_specs(cfg)
     with dsh.axis_rules(dsh.DEFAULT_RULES), dsh.use_mesh(mesh):
-        start = T.init_params(cfg, seed=0, device="cuda")
-        p = dsh.place(start, specs, mesh)
-        s = dsh.place(opt.init_state(ocfg, start), opt.state_specs(specs),
-                      mesh)
-        del start
+        p = dsh.place(T.init_params(cfg, seed=0, device="cuda"), specs, mesh)
+        s = opt.init_state(ocfg, p)
         step = tl.make_train_step(cfg, ocfg)
         for i, b in enumerate(batches):
             b = tl.to_device(b, p)
@@ -4834,25 +4901,31 @@ def tp_run(rank: int) -> dict:
             st = parallel.STATS
             out["losses"].append(loss)
             out["norms"].append(float(m["grad_norm"]))
-            out["lines"].append(dict(
-                program="train", dtype=cfg.dtype, step=i,
-                rows=f"{TRAIN_BATCH}x{TP_SEQ}", loss=loss,
+            lines.append(dict(
+                arch=arch, program="train", dtype=cfg.dtype, step=i,
+                rows=f"{b['inputs'].shape[0]}x{TP_SEQ}", loss=loss,
                 collectives=st.calls, by_op=json.dumps(st.by_op),
                 bytes=st.bytes, host_staged_bytes=st.staged_bytes,
-                step_ms=round(dt * 1e3, 3), host_staged_ops=staged(st)))
-        # gathered on a host mesh of the same group: gloo's all-gather
-        # takes no CUDA tensor (parallel.GLOO_DEVICE_OPS)
-        host = compat.make_mesh(TP_MESH, ("data", "model"),
-                                device_type="cpu")
-        paths, flat = _tree.flatten(p)
-        full = [DTensor.from_local(t.to_local().cpu(), host, t.placements,
-                                   run_check=False, shape=t.shape,
-                                   stride=t.stride()).full_tensor()
-                for t in flat]  # every rank takes part
-        if rank == 0:
-            out["params"] = dict(zip(paths, full))
-        del p, s, full, flat
-        cfg16 = configs.get(ARCH)
+                step_ms=round(dt * 1e3, 3), host_staged_ops=_staged(st),
+                peak_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30,
+                               3)))
+        if arch == ARCH:
+            # gathered on a host mesh of the same group: gloo's all-gather
+            # takes no CUDA tensor (parallel.GLOO_DEVICE_OPS)
+            host = compat.make_mesh(TP_MESH, ("data", "model"),
+                                    device_type="cpu")
+            paths, flat = _tree.flatten(p)
+            full = [DTensor.from_local(t.to_local().cpu(), host,
+                                       t.placements, run_check=False,
+                                       shape=t.shape, stride=t.stride()
+                                       ).full_tensor()
+                    for t in flat]  # every rank takes part
+            if rank == 0:
+                out["params"] = dict(zip(paths, full))
+            del full, flat
+        del p, s
+        torch.cuda.empty_cache()
+        cfg16 = tp_cfg(arch, "bfloat16")
         placed = dsh.place(T.init_params(cfg16, seed=0, device="cuda"),
                            T.param_specs(cfg16), mesh)
         part = T.partition(placed, cfg16)
@@ -4862,35 +4935,35 @@ def tp_run(rank: int) -> dict:
         parallel.STATS.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with torch.no_grad():
+        with torch.no_grad(), recorded_routes() as routes:
             logits, state = T.prefill(placed, cfg16, mine)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         st = parallel.STATS
-        out["lines"].append(dict(
-            program="prefill", dtype=cfg16.dtype,
+        lines.append(dict(
+            arch=arch, program="prefill", dtype=cfg16.dtype,
             rows=f"{rows}x{TP_PROMPT_LEN}", collectives=st.calls,
             by_op=json.dumps(st.by_op), bytes=st.bytes,
             host_staged_bytes=st.staged_bytes, step_ms=round(dt * 1e3, 3),
-            host_staged_ops=staged(st), heads=json.dumps(part.heads),
+            host_staged_ops=_staged(st), heads=json.dumps(part.heads),
+            experts=json.dumps(part.experts),
             logits_shape=json.dumps(list(logits.shape)),
             cache_shape=json.dumps(list(state["caches"][0]["k"].shape))))
         out["prefill"] = dict(
             logits=logits.cpu(), batch_index=part.batch_index,
-            model_rank=part.model.rank,
+            model_rank=part.model.rank, routes=routes,
             caches=[{k: v.cpu() for k, v in c.items()}
                     for c in state["caches"]])
-        del placed, state, logits
+        del placed, state, logits, part
+        torch.cuda.empty_cache()
         for dtype in ("bfloat16", "float32"):
-            out[f"decode_{dtype}"] = tp_decode(
-                dataclasses.replace(cfg16, dtype=dtype,
-                                    kv_cache_dtype=dtype), mesh, prompts,
-                out["lines"], staged)
-    out["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+            out[f"decode_{dtype}"] = tp_decode(tp_cfg(arch, dtype), mesh,
+                                               prompts, lines)
+            torch.cuda.empty_cache()
     return out
 
 
-def tp_decode(cfg, mesh, prompts, lines: list, staged) -> dict:
+def tp_decode(cfg, mesh, prompts, lines: list) -> dict:
     """The partitioned decode on this rank under SERVE_RULES: the
     one-process prefill of ``prompts`` into caches of ``TP_DECODE_LEN``
     placed by ``cache_specs``, the weights by ``param_specs``, then
@@ -4907,93 +4980,169 @@ def tp_decode(cfg, mesh, prompts, lines: list, staged) -> dict:
         placed = dsh.place(params, T.param_specs(cfg), mesh)
         state = dsh.place(state, T.cache_specs(cfg), mesh)
         del params
+        torch.cuda.empty_cache()
         part = T.partition(placed, cfg, decode=True)
         tok = first.argmax(-1)
         tokens, logits = [tok.cpu()], []
-        for i in range(TP_DECODE_STEPS):
-            parallel.STATS.reset()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            lg, state = T.decode_step(placed, cfg, state, tok)
-            tok = part.greedy(lg)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            st = parallel.STATS
-            lines.append(dict(
-                program="decode", dtype=cfg.dtype, step=i,
-                rows=f"{prompts.shape[0]}x1", pos=TP_PROMPT_LEN + i,
-                collectives=st.calls, by_op=json.dumps(st.by_op),
-                bytes=st.bytes, host_staged_bytes=st.staged_bytes,
-                step_ms_host_staged=round(dt * 1e3, 3),
-                host_staged_ops=staged(st),
-                logits_shape=json.dumps(list(lg.shape)),
-                cache_shape=json.dumps(list(
-                    state["caches"][0]["k"].to_local().shape))))
-            tokens.append(tok.cpu())
-            logits.append(lg.cpu())
+        moe = [f"layers/{i}/ffn/w1" for i in range(cfg.n_layers)
+               if f"layers/{i}/ffn/router" in part.leaf]
+        with recorded_routes() as routes:
+            for i in range(TP_DECODE_STEPS):
+                parallel.STATS.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, state = T.decode_step(placed, cfg, state, tok)
+                tok = part.greedy(lg)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                st = parallel.STATS
+                lines.append(dict(
+                    arch=cfg.name, program="decode", dtype=cfg.dtype, step=i,
+                    rows=f"{prompts.shape[0]}x1", pos=TP_PROMPT_LEN + i,
+                    collectives=st.calls, by_op=json.dumps(st.by_op),
+                    bytes=st.bytes, host_staged_bytes=st.staged_bytes,
+                    step_ms_host_staged=round(dt * 1e3, 3),
+                    host_staged_ops=_staged(st),
+                    logits_shape=json.dumps(list(lg.shape)),
+                    cache_shape=json.dumps(list(
+                        state["caches"][0]["k"].to_local().shape)),
+                    **({"experts": json.dumps(part.experts(moe[0]))}
+                       if moe else {})))
+                tokens.append(tok.cpu())
+                logits.append(lg.cpu())
         v0 = part.leaf["embed/head"].start
     return dict(tokens=torch.cat(tokens, dim=1), logits=logits,
-                vocab_start=v0)
+                vocab_start=v0, routes=routes)
 
 
-def tp_hold_train(res: list) -> None:
+@contextlib.contextmanager
+def recorded_routes():
+    """The expert ids (B, n_groups, group), on the host, of each
+    ``layers.moe_route`` call made in the body."""
+    from repro_torch.models import layers as L
+    orig, log = L.moe_route, []
+
+    def rec(*args):
+        rt = orig(*args)
+        log.append(rt.expert.cpu())
+        return rt
+    L.moe_route = rec
+    try:
+        yield log
+    finally:
+        L.moe_route = orig
+
+
+@contextlib.contextmanager
+def forced_routes(routes: list):
+    """``layers.moe_route`` made to choose, call by call, the experts of
+    ``routes`` (each (B, n_groups, group), as ``recorded_routes`` gives
+    them), gated by this process's own logits. Yields a dict: ``flips``,
+    the tokens whose chosen experts (or their order) differ from this
+    process's own top k, and ``gap``, the largest amount by which a
+    flipped token's forced choice lies below its own choice's logit."""
+    import torch
+    from repro_torch.models import layers as L
+    orig, it = L.moe_route, iter(routes)
+    seen = {"flips": 0, "gap": 0.0}
+    if not routes:  # no MoE layer, or a run left to route itself
+        yield seen
+        return
+
+    def forced(params, cfg, x):
+        B, S, _ = x.shape
+        k = cfg.experts_per_token
+        want = next(it).to(x.device).reshape(B, -1)[:, :S * k]
+        idx = want.reshape(B, S, k)
+        logits = L.moe_logits(params, x)
+        own, _ = torch.topk(logits, k, dim=-1)
+        vals = logits.gather(-1, idx)
+        flipped = (idx != torch.topk(logits, k, dim=-1).indices).any(-1)
+        seen["flips"] += int(flipped.sum())
+        if flipped.any():
+            seen["gap"] = max(seen["gap"], float(
+                (own - vals).amax(-1)[flipped].max()))
+        return L.route_choices(cfg, idx, vals, x.dtype)
+    L.moe_route = forced
+    try:
+        yield seen
+    finally:
+        L.moe_route = orig
+
+
+def tp_hold_train(arch: str, res: list) -> None:
     """The ranks' losses and grad norms agree; against the one-process
-    float32 run on the card, the train phase's tolerances."""
-    import dataclasses
-    from repro_torch import configs
+    float32 run on the card, the train phase's tolerances: qwen's steps
+    (losses, grad norms, the gathered parameters), phi's one step's loss
+    and grad norm (its gradient alone, ``make_grad_fn``: the whole model's
+    float32 moments would not fit beside it)."""
     from repro_torch.models import transformer as T
     from repro_torch.train import _tree
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_loop as tl
     for r in res[1:]:
         if r["losses"] != res[0]["losses"]:
-            raise AssertionError(f"tp: the ranks' losses differ: "
+            raise AssertionError(f"tp: {arch}: the ranks' losses differ: "
                                  f"{[x['losses'] for x in res]}")
-    cfg = dataclasses.replace(configs.get(ARCH), dtype="float32")
-    ocfg, batches, _ = tp_data()
+    cfg = tp_cfg(arch, "float32")
+    ocfg, batches, _ = tp_data(arch)
     params = T.init_params(cfg, seed=0, device="cuda")
-    state = opt.init_state(ocfg, params)
-    step = tl.make_train_step(cfg, ocfg)
-    losses, norms = [], []
-    for b in batches:
-        params, state, m = step(params, state, tl.to_device(b, params))
-        losses.append(m["loss"].item())
-        norms.append(float(m["grad_norm"]))
-    del state
-    got = res[0]["params"]
-    paths, flat = _tree.flatten(params)
-    num = sum(float(((got[k].cuda().double() - t.double()) ** 2).sum())
-              for k, t in zip(paths, flat))
-    den = sum(float((t.double() ** 2).sum()) for t in flat)
-    param_rel = (num / den) ** 0.5
+    losses, norms, param_rel = [], [], None
+    if arch == MOE_ARCH:
+        loss, grads = tl.make_grad_fn(cfg)(params, tl.to_device(batches[0],
+                                                                params))
+        losses.append(loss.item())
+        norms.append(float(opt.global_norm(grads)))
+        del grads
+    else:
+        state = opt.init_state(ocfg, params)
+        step = tl.make_train_step(cfg, ocfg)
+        for b in batches:
+            params, state, m = step(params, state, tl.to_device(b, params))
+            losses.append(m["loss"].item())
+            norms.append(float(m["grad_norm"]))
+        del state
+        got = res[0]["params"]
+        paths, flat = _tree.flatten(params)
+        num = sum(float(((got[k].cuda().double() - t.double()) ** 2).sum())
+                  for k, t in zip(paths, flat))
+        den = sum(float((t.double() ** 2).sum()) for t in flat)
+        param_rel = (num / den) ** 0.5
+        del flat
     loss_rel = max(abs(a - b) / abs(b)
                    for a, b in zip(res[0]["losses"], losses))
     norm_rel = max(abs(a - b) / abs(b)
                    for a, b in zip(res[0]["norms"], norms))
-    say("tp", held="train", dtype=cfg.dtype, losses=json.dumps(
-        res[0]["losses"]), losses_one_process=json.dumps(losses),
+    say("tp", held="train", arch=arch, dtype=cfg.dtype,
+        losses=json.dumps(res[0]["losses"]),
+        losses_one_process=json.dumps(losses),
         grad_norms=json.dumps(res[0]["norms"]),
         grad_norms_one_process=json.dumps(norms),
         loss_rel=f"{loss_rel:.3e}", grad_norm_rel=f"{norm_rel:.3e}",
-        params_rel=f"{param_rel:.3e}")
+        params_rel="not held" if param_rel is None else f"{param_rel:.3e}")
     if not (loss_rel <= TP_LOSS_RTOL and norm_rel <= TP_NORM_RTOL
-            and param_rel < TP_PARAM_RTOL):
-        raise AssertionError("tp: the partitioned step differs from the "
-                             "one-process step")
-    del params, flat
+            and (param_rel is None or param_rel < TP_PARAM_RTOL)):
+        raise AssertionError(f"tp: {arch}: the partitioned step differs "
+                             "from the one-process step")
+    del params
 
 
-def tp_hold_prefill(res: list) -> None:
+def tp_hold_prefill(arch: str, res: list) -> None:
     """The ranks' logits blocks (rows x vocab shards) and cache blocks
     (rows x sequence blocks) assembled against the one-process bf16
-    prefill on the card, within ``TP_PREFILL_RTOL``."""
+    prefill on the card, within ``TP_PREFILL_RTOL``; a MoE model's
+    one-process prefill takes the ranks' experts (``forced_routes``)."""
     import torch
-    from repro_torch import configs
     from repro_torch.models import transformer as T
-    cfg = configs.get(ARCH)
-    _, _, prompts = tp_data()
+    cfg = tp_cfg(arch, "bfloat16")
+    _, _, prompts = tp_data(arch)
     params = T.init_params(cfg, seed=0, device="cuda")
-    with torch.no_grad():
+    first = sorted((r["prefill"] for r in res if
+                    r["prefill"]["model_rank"] == 0),
+                   key=lambda pf: pf["batch_index"])
+    routes = [torch.cat(layer) for layer in zip(*(pf["routes"]
+                                                  for pf in first))]
+    with torch.no_grad(), forced_routes(routes) as seen:
         want, state = T.prefill(params, cfg, prompts.to("cuda"))
     del params
     logits = torch.full(want.shape, float("nan"), dtype=want.dtype)
@@ -5016,36 +5165,38 @@ def tp_hold_prefill(res: list) -> None:
     crel = max(rel(got[k], c[k])[0] for got, c in zip(caches,
                                                       state["caches"])
                for k in c)
-    say("tp", held="prefill", dtype=cfg.dtype,
+    say("tp", held="prefill", arch=arch, dtype=cfg.dtype,
         prompts=f"{TP_PROMPTS}x{TP_PROMPT_LEN}", logits_rel=f"{lrel:.3e}",
         logits_max_abs=f"{labs:.3e}", caches_rel=f"{crel:.3e}",
-        tol=TP_PREFILL_RTOL)
-    if not (lrel <= TP_PREFILL_RTOL and crel <= TP_PREFILL_RTOL):
-        raise AssertionError("tp: the partitioned prefill differs from the "
-                             "one-process prefill")
+        tol=TP_PREFILL_RTOL, moe_routes=len(routes),
+        route_flips=seen["flips"], flip_gap=f"{seen['gap']:.3e}")
+    if not (lrel <= TP_PREFILL_RTOL and crel <= TP_PREFILL_RTOL
+            and seen["gap"] <= TP_ROUTE_TIE):
+        raise AssertionError(f"tp: {arch}: the partitioned prefill differs "
+                             "from the one-process prefill")
 
 
-def tp_hold_decode(res: list) -> None:
+def tp_hold_decode(arch: str, res: list) -> None:
     """The partitioned decode against the one-process decode on the card,
     from the same prefill: every rank's tokens alike; per dtype, the
     ranks' logits assembled by vocab against the one-process decode fed
-    the partitioned run's tokens (relative global norm), and the greedy
-    tokens equal to the one-process greedy run's."""
-    import dataclasses
+    the partitioned run's tokens and, of a MoE model, experts
+    (``forced_routes``; relative global norm), and the greedy tokens
+    equal to the one-process greedy run's (phi's in float32 alone: a
+    bf16 near-tie among its top logits may break them, and the forced
+    logits hold its bf16 run)."""
     import torch
-    from repro_torch import configs
     from repro_torch.models import transformer as T
-    _, _, prompts = tp_data()
+    _, _, prompts = tp_data(arch)
     for dtype, tol in (("bfloat16", TP_DECODE_RTOL),
                        ("float32", TP_DECODE32_RTOL)):
         key = f"decode_{dtype}"
         toks = res[0][key]["tokens"]
         for r in res[1:]:
             if not torch.equal(r[key]["tokens"], toks):
-                raise AssertionError(f"tp: the ranks' {dtype} decode tokens "
-                                     "differ")
-        cfg = dataclasses.replace(configs.get(ARCH), dtype=dtype,
-                                  kv_cache_dtype=dtype)
+                raise AssertionError(f"tp: {arch}: the ranks' {dtype} "
+                                     "decode tokens differ")
+        cfg = tp_cfg(arch, dtype)
         params = T.init_params(cfg, seed=0, device="cuda")
         runs = {}
         with torch.no_grad():
@@ -5053,14 +5204,17 @@ def tp_hold_decode(res: list) -> None:
                 first, state = T.prefill(params, cfg, prompts.to("cuda"),
                                          max_len=TP_DECODE_LEN)
                 tok, got, lgs = first.argmax(-1), [first.argmax(-1)], []
-                for i in range(TP_DECODE_STEPS):
-                    if run == "forced":
-                        tok = toks[:, i:i + 1].to("cuda")
-                    lg, state = T.decode_step(params, cfg, state, tok)
-                    tok = lg.argmax(-1)
-                    got.append(tok)
-                    lgs.append(lg.cpu())
-                runs[run] = torch.cat(got, dim=1).cpu(), lgs
+                # the forced run takes the ranks' tokens and experts
+                with forced_routes(res[0][key]["routes"]
+                                   if run == "forced" else []) as seen:
+                    for i in range(TP_DECODE_STEPS):
+                        if run == "forced":
+                            tok = toks[:, i:i + 1].to("cuda")
+                        lg, state = T.decode_step(params, cfg, state, tok)
+                        tok = lg.argmax(-1)
+                        got.append(tok)
+                        lgs.append(lg.cpu())
+                runs[run] = torch.cat(got, dim=1).cpu(), lgs, seen
                 del state
         del params
         want_logits = runs["forced"][1]
@@ -5072,24 +5226,28 @@ def tp_hold_decode(res: list) -> None:
                 full[..., v0:v0 + blk.shape[-1]] = blk
             a, b = full.double(), want.double()
             rel = max(rel, float((a - b).norm() / b.norm()))
-        greedy = runs["greedy"][0]
+        greedy, seen = runs["greedy"][0], runs["forced"][2]
         same = int((greedy == toks).sum())
-        say("tp", held="decode", dtype=dtype,
+        say("tp", held="decode", arch=arch, dtype=dtype,
             steps=TP_DECODE_STEPS, cache_len=TP_DECODE_LEN,
             logits_rel=f"{rel:.3e}", tol=tol,
             tokens=json.dumps(toks.tolist()),
             tokens_one_process=json.dumps(greedy.tolist()),
-            tokens_equal=f"{same}/{greedy.numel()}")
-        if not rel <= tol:
-            raise AssertionError(f"tp: the partitioned {dtype} decode's "
-                                 "logits differ from the one-process "
-                                 "decode's")
-        if not torch.equal(greedy, toks):
-            raise AssertionError(f"tp: the partitioned {dtype} decode's "
-                                 "greedy tokens differ from the "
+            tokens_equal=f"{same}/{greedy.numel()}",
+            moe_routes=len(res[0][key]["routes"]),
+            route_flips=seen["flips"], flip_gap=f"{seen['gap']:.3e}")
+        if not (rel <= tol and seen["gap"] <= TP_ROUTE_TIE):
+            raise AssertionError(f"tp: {arch}: the partitioned {dtype} "
+                                 "decode's logits differ from the "
+                                 "one-process decode's")
+        if (dtype == "float32" or arch == ARCH) and \
+                not torch.equal(greedy, toks):
+            raise AssertionError(f"tp: {arch}: the partitioned {dtype} "
+                                 "decode's greedy tokens differ from the "
                                  "one-process decode's")
 
 
+# ------------------------------------------------------------- disagg
 DISAGG_WORLD = 2  # a prefill rank and a decode rank, both on cuda:0
 DISAGG_TIMEOUT_S = 600
 # the disaggregated runs: (name, pim_mode, pool blocks or None = no
@@ -5143,6 +5301,7 @@ def phase_dryrun(ctx: dict) -> None:
     (module docstring); K1-K4 are not launched."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
     t0 = time.perf_counter()
     ops.reset_launch_counts()
     smi = subprocess.run(
@@ -5153,6 +5312,11 @@ def phase_dryrun(ctx: dict) -> None:
     proc, outs, log_path = ctx.pop("sweep")
     running = proc.poll() is None
     measured = {p: dryrun_on_card(*p) for p in DRYRUN_PROGRAMS}
+    cut = (MOE_ARCH, "decode_32k")
+    cut_run = dryrun_on_card(*cut, layers=DRYRUN_MOE_LAYERS)
+    cut_report = dryrun.dryrun_cell(*cut, multi_pod=False, verbose=False,
+                                    device="cuda",
+                                    n_layers=DRYRUN_MOE_LAYERS)
     waited = time.perf_counter()
     rc = proc.wait(timeout=DRYRUN_SWEEP_TIMEOUT)
     wait_s = round(time.perf_counter() - waited, 1)
@@ -5169,6 +5333,8 @@ def phase_dryrun(ctx: dict) -> None:
         (r,) = [r for r in reports if r["arch"] == arch
                 and r["shape"] == name and not r["multi_pod"]]
         dryrun_held(arch, name, r, measured[arch, name], smi, total)
+    dryrun_held(cut[0], f"{cut[1]}/{DRYRUN_MOE_LAYERS}-layers", cut_report,
+                cut_run, smi, total)
     launches = {k: v for k, v in ops.launch_counts().items() if v}
     if launches:
         raise AssertionError(f"kernels launched in dryrun: {launches}")
@@ -5177,9 +5343,11 @@ def phase_dryrun(ctx: dict) -> None:
         jobs=DRYRUN_JOBS, k1_k4_launches=0)
 
 
-def dryrun_on_card(arch: str, shape_name: str) -> dict:
+def dryrun_on_card(arch: str, shape_name: str,
+                   layers: int | None = None) -> dict:
     """``arch``'s per-rank program of ``shape_name`` on the 16x16
-    mesh, run for real on the card: the dry run's own ``rank_program``
+    mesh (its depth cut to ``layers`` where given), run for real on the
+    card: the dry run's own ``rank_program``
     (weights from seed 0, zeroed inputs and caches), one warm-up under
     ``FlopCounterMode`` with the peak of allocated bytes above what the
     process held before, then ``DRYRUN_RUNS`` runs timed by CUDA events.
@@ -5189,6 +5357,7 @@ def dryrun_on_card(arch: str, shape_name: str) -> dict:
     afterwards), the train step with grad enabled; the others run plain on
     an ``AbstractMesh``."""
     import contextlib
+    import dataclasses
     import gc
     import torch
     import torch.distributed as dist
@@ -5201,6 +5370,8 @@ def dryrun_on_card(arch: str, shape_name: str) -> dict:
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models import transformer as T
     cfg = configs.get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     shape = {s.name: s for s in configs.ALL_SHAPES}[shape_name]
     partitioned = T.partitioned(cfg)
     gc.collect()

@@ -30,6 +30,16 @@ all-gathered over ``"model"`` and sliced; a leaf that ``fit_spec_to_shape``
 left replicated is sliced as it is. K/V heads that do not group evenly
 under a rank's query heads are repeated, one per query head.
 
+A MoE FFN is expert-sliced tensor parallelism over ``"model"``, with the
+collectives above and no all-to-all: ``"experts"`` claims the model axis
+(so an expert leaf's ``tp`` dim stays whole), and a rank computes the
+experts ``Partition.experts``, split as heads are (taken from the
+replicated leaf where ``|model|`` does not divide their count). It
+routes the gathered sequence of its rows with the replicated router
+(capacity is counted over whole dispatch groups), dispatches only the
+slots of its own experts, and the reduce-scatter onto its sequence block
+sums every rank's experts (``layers.moe_block``).
+
 Gradients. The collectives are ``torch.autograd.Function`` s over
 ``torch.distributed._functional_collectives``: an all-gather's backward is
 a reduce-scatter (sum) and the reverse; ``all_reduce`` (the loss's sums
@@ -42,7 +52,8 @@ to different positions or heads; a sharded dim was summed by the
 gather's backward already.
 
 Decode (``ServePartition``) is the program that SERVE_RULES and
-MULTIPOD_SERVE_RULES imply: ``tp``/``heads``/``kv_heads``/``vocab`` over
+MULTIPOD_SERVE_RULES imply: ``tp``/``heads``/``kv_heads``/``vocab``/
+``experts`` over
 the whole ``("data", "model")`` mesh as ``fit_spec_to_shape`` leaves them
 (a leaf's group is the product of the mesh dims its placements shard,
 ``mesh_group``), no FSDP, the activations ``(B, 1, D)`` replicated on
@@ -55,9 +66,13 @@ K/V of its rows where its sequence block holds the position; attention is
 split-KV over the block, its ``(acc, m, l)`` combined over ``"model"`` by
 log-sum-exp (``combine_attention``); the attention output is gathered
 over the cache's rows for the row-parallel ``wo``, whose partial sums,
-like ``w2``'s, are all-reduced over the leaf's group; the embedding is a
-masked lookup all-reduced over its vocab group, and the head returns the
-rank's vocab block of the logits. No weight is gathered. Under
+like ``w2``'s, are all-reduced over the leaf's group; a MoE FFN routes
+the batch as one dispatch group, runs the experts of its expert leaves'
+local blocks and all-reduces their outputs over the group of the mesh
+dims that shard the expert dim (``ServePartition.experts``); the
+embedding is a masked lookup all-reduced over its vocab group, and the
+head returns the rank's vocab block of the logits. No weight is
+gathered. Under
 MULTIPOD_SERVE_RULES the weights are replicated over ``"pod"`` and every
 pod runs the same program.
 
@@ -84,7 +99,7 @@ from repro_torch.dist import sharding as dsh
 from repro_torch.train import _tree
 
 # the logical axes that this partitioned program splits over one mesh axis
-MODEL_AXES = ("seq", "tp", "heads", "kv_heads", "vocab")
+MODEL_AXES = ("seq", "tp", "heads", "kv_heads", "vocab", "experts")
 # per-head leaf dims: the compute split follows ``head_range``
 _HEAD_AXES = ("heads", "kv_heads")
 
@@ -314,27 +329,18 @@ class Partition:
         paths, leaves = _tree.flatten(params)
         self.placements = {p: tuple(t.placements) for p, t in
                            zip(paths, leaves)}
-        self.axes = {}
-        self._index_specs(specs, "")
-        h0, h1 = head_range(cfg.n_heads, self.model.size, self.model.rank)
+        self.axes = spec_paths(specs)
+        m, r = self.model.size, self.model.rank
+        h0, h1 = head_range(cfg.n_heads, m, r)
         self.heads = (h0, h1)
         self.kv = kv_heads_for(cfg.n_heads, cfg.n_kv_heads, h0, h1)
-        m = self.model.size
+        # the experts whose FFN this rank computes, as heads are split
+        self.experts = head_range(cfg.n_experts, m, r)
         # per-head axes whose even stored split is the compute split on
         # every rank (a choice that must not differ between ranks)
         self.even = {"heads": cfg.n_heads % m == 0,
                      "kv_heads": cfg.n_heads % m == 0
                      and cfg.n_kv_heads % m == 0}
-
-    def _index_specs(self, specs, prefix: str) -> None:
-        if isinstance(specs, dict):
-            for k, v in specs.items():
-                self._index_specs(v, f"{prefix}/{k}" if prefix else str(k))
-        elif isinstance(specs, list):
-            for i, v in enumerate(specs):
-                self._index_specs(v, f"{prefix}/{i}" if prefix else str(i))
-        else:
-            self.axes[prefix] = specs
 
     # ----------------------------------------------------------- leaves
     def _shard_dim(self, pl: tuple, mesh_dim: int | None) -> int | None:
@@ -348,7 +354,11 @@ class Partition:
         """Leaf ``path``'s tensor as this rank computes with it, from its
         local block: gathered over the FSDP axis, and on a per-head or
         ``tp`` dim narrowed to this rank's heads or columns (gathered over
-        ``"model"`` first where the stored split is another)."""
+        ``"model"`` first where the stored split is another). An expert
+        leaf is narrowed to this rank's experts where it is replicated
+        (an expert count that the model axis does not divide); its
+        ``tp`` dim stays whole, since ``"experts"`` claims the model axis
+        before it (``sharding.spec_for``)."""
         from torch.distributed.tensor import Replicate
         pl, axes = self.placements[path], self.axes[path]
         for d, p in enumerate(pl):
@@ -363,7 +373,11 @@ class Partition:
             t = all_gather(t, fd, self.groups[self.fsdp_dim])
         md = self._shard_dim(pl, self.model_dim)
         for d, ax in enumerate(axes):
-            if ax == "tp" and md != d:  # stored evenly, it is the split
+            if ax == "experts":
+                if md != d:  # stored evenly, the block is the split
+                    e0, e1 = self.experts
+                    t = t.narrow(d, e0, e1 - e0)
+            elif ax == "tp" and md != d and "experts" not in axes:
                 lo, hi = head_range(t.shape[d], self.model.size,
                                     self.model.rank)
                 t = t.narrow(d, lo, hi - lo)
@@ -441,6 +455,19 @@ class Partition:
         return g
 
 
+def spec_paths(specs, prefix: str = "", out: dict | None = None) -> dict:
+    """``{path: logical axes}`` of a spec tree (``param_specs``), by the
+    ``_tree`` paths of the tree it describes (its tuples are leaves)."""
+    out = {} if out is None else out
+    if isinstance(specs, (dict, list)):
+        items = specs.items() if isinstance(specs, dict) else enumerate(specs)
+        for k, v in items:
+            spec_paths(v, f"{prefix}/{k}" if prefix else str(k), out)
+    else:
+        out[prefix] = specs
+    return out
+
+
 class _Solo:
     """The model axis where no logical axis resolves to one, or a leaf
     replicated on every mesh dim: one rank."""
@@ -511,12 +538,6 @@ class Split:
         return self.group.rank * self.local
 
 
-# leaf name -> the dim the serve program splits: a column-parallel
-# output dim, a row-parallel input dim, the vocab of the embedding / head
-_SERVE_DIMS = {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0,
-               "w1": 1, "w3": 1, "wo": 0, "w2": 0, "embed": 0, "head": 1}
-
-
 def _split(mesh, placements, shape, what: str) -> Split:
     """``placements`` of a tensor of local ``shape`` as a ``Split``."""
     from torch.distributed.tensor import Replicate, Shard
@@ -542,9 +563,14 @@ class ServePartition:
     collectives over each leaf's group, and the cache's layout from the
     state's placements (``cache_layout``), and ``local``, the leaves'
     local blocks. Other rule sets raise: no reference path decodes under
-    them. Made once for each placed tree: ``serve_partition``."""
+    them. Made once for each placed tree: ``serve_partition``.
 
-    def __init__(self, mesh, cfg, params):
+    A leaf may split only the dim of its first logical axis among
+    ``MODEL_AXES`` (``specs``, ``param_specs``): a column-parallel output
+    dim, a row-parallel input dim, the vocab of the embedding or head, the
+    experts of an expert leaf."""
+
+    def __init__(self, mesh, cfg, params, specs):
         rules = dsh.current_rules()
         if rules not in (dsh.SERVE_RULES, dsh.MULTIPOD_SERVE_RULES):
             raise ValueError(
@@ -555,10 +581,12 @@ class ServePartition:
                 "path decodes")
         self.mesh, self.cfg = mesh, cfg
         self.leaf = {}
+        axes = spec_paths(specs)
         paths, leaves = _tree.flatten(params)
         for path, t in zip(paths, leaves):
             sp = _split(mesh, tuple(t.placements), t.to_local().shape, path)
-            want = _SERVE_DIMS.get(path.rsplit("/", 1)[-1])
+            want = next((d for d, a in enumerate(axes[path])
+                         if a in MODEL_AXES), None)
             if sp.dim is not None and sp.dim != want:
                 raise ValueError(
                     f"{path}: placements {tuple(t.placements)} shard dim "
@@ -592,8 +620,17 @@ class ServePartition:
 
     def reduce(self, y: torch.Tensor, path: str) -> torch.Tensor:
         """A row-parallel product's partial sums (or the embedding's masked
-        rows) all-reduced over leaf ``path``'s group."""
+        rows, or the outputs of the rank's experts) all-reduced over leaf
+        ``path``'s group."""
         return all_reduce(y, self.leaf[path].group)
+
+    def experts(self, path: str) -> tuple[int, int]:
+        """The experts ``[e0, e1)`` that expert leaf ``path``'s local block
+        holds (every expert where the leaf is replicated)."""
+        sp = self.leaf[path]
+        if sp.dim is None:
+            return 0, self.cfg.n_experts
+        return sp.start, sp.start + sp.local
 
     def greedy(self, logits: torch.Tensor) -> torch.Tensor:
         """Whole greedy ids (B, 1) from the rank's vocab block of the
@@ -642,9 +679,9 @@ class ServePartition:
         return out[0], out[1]
 
 
-def serve_partition(mesh, cfg, params) -> ServePartition:
-    """``ServePartition(mesh, cfg, params)`` under the bound rules, made
-    once for each placed tree: kept on the mesh object, keyed by the
+def serve_partition(mesh, cfg, params, specs) -> ServePartition:
+    """``ServePartition(mesh, cfg, params, specs)`` under the bound rules,
+    made once for each placed tree: kept on the mesh object, keyed by the
     config, the rules and the leaves' identities, and dropped when any of
     those leaves is freed (so an identity is never matched twice)."""
     leaves = _tree.leaves(params)
@@ -652,7 +689,7 @@ def serve_partition(mesh, cfg, params) -> ServePartition:
     made = mesh.__dict__.setdefault("_serve_partitions", {})
     key = (cfg, id(rules), tuple(map(id, leaves)))
     if key not in made:
-        made[key] = ServePartition(mesh, cfg, params)
+        made[key] = ServePartition(mesh, cfg, params, specs)
         for t in leaves:
             weakref.finalize(t, made.pop, key, None)
     return made[key]

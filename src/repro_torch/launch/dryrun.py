@@ -14,18 +14,21 @@ flops, bytes, collectives and peak live bytes at the rank's local shapes.
 The step is what the port runs on one rank:
 
   - train and prefill cells of the configs whose every layer is attention
-    plus a dense MLP (``transformer.partitioned``: qwen1.5-0.5b, yi-6b,
-    qwen2.5-32b, qwen1.5-110b, chameleon-34b, hubert-xlarge): the
+    plus a dense MLP or a MoE FFN (``transformer.partitioned``:
+    qwen1.5-0.5b, yi-6b, qwen2.5-32b, qwen1.5-110b, chameleon-34b,
+    hubert-xlarge, phi3.5-moe-42b, llama4-maverick-400b): the
     partitioned programs (``dist.parallel``), the counterpart of the
     reference's ``jax.jit(..., in_shardings=params_sh)``. Parameters are
     placed as DTensors by ``param_specs`` under the cell's rules
     (``dist.place``), the AdamW state by ``state_specs``; the train step
     (``train_loop.make_train_step`` under the mesh) is FSDP, tensor and
-    sequence parallel on the rank's slice of the batch, and the prefill
-    (``transformer.prefill``) is tensor and sequence parallel on the
-    rank's rows, returning the rank's blocks of the logits and caches.
+    sequence parallel on the rank's slice of the batch (MoE FFNs expert
+    parallel over "model"), and the prefill (``transformer.prefill``) is
+    tensor and sequence parallel on the rank's rows, returning the rank's
+    blocks of the logits and caches.
   - decode cells of the same configs (qwen1.5-0.5b, yi-6b, qwen2.5-32b,
-    qwen1.5-110b, chameleon-34b): the partitioned decode under
+    qwen1.5-110b, chameleon-34b, phi3.5-moe-42b,
+    llama4-maverick-400b): the partitioned decode under
     SERVE_RULES / MULTIPOD_SERVE_RULES (``dist.parallel.ServePartition``),
     the counterpart of the reference's ``jax.jit(decode_step,
     in_shardings=(params_sh, cache_sh, batch_sh))``: the weights placed
@@ -33,8 +36,8 @@ The step is what the port runs on one rank:
     by ``cache_specs`` (the rank's rows by its block of positions; only
     the local blocks are made), the tokens whole; the step
     (``transformer.decode_step``) returns the rank's vocab block of the
-    logits.
-  - train cells of the other configs (MoE, mamba, rwkv): the data-parallel
+    logits; a MoE FFN runs the experts of the rank's stored block.
+  - train cells of the other configs (mamba, rwkv): the data-parallel
     step, each rank gathering the full weights and running the whole
     model on its slice of the batch.
   - their prefill and decode cells: one plain copy of the weights per
@@ -65,6 +68,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import dataclasses
 import json
 import math
 import multiprocessing
@@ -245,8 +249,13 @@ def cell_rules(shape: InputShape, multi_pod: bool):
 
 # ------------------------------------------------------------- cell dry-run
 def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool,
-                verbose: bool = True, device=None) -> dict:
+                verbose: bool = True, device=None,
+                n_layers: int | None = None) -> dict:
+    """One cell's report (module docstring); ``n_layers`` cuts the
+    config's depth (a rank program that one card can also hold whole)."""
     cfg = configs.get(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     shape = {s.name: s for s in configs.runnable_shapes(cfg)}.get(shape_name)
     if shape is None:
         return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,

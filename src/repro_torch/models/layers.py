@@ -532,17 +532,34 @@ def moe_route(params: dict, cfg: ArchConfig, x: torch.Tensor) -> MoeRoute:
     float logits of random inputs does not occur in practice, and the
     parity tests use inputs without ties.
     """
+    vals, idx = torch.topk(moe_logits(params, x), cfg.experts_per_token,
+                           dim=-1)
+    return route_choices(cfg, idx, vals, x.dtype)
+
+
+def moe_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The router's float32 logits (B, S, E) of x (B, S, D), contracted in
+    float64 (``moe_route``)."""
     B, S, _ = x.shape
-    E, k = cfg.n_experts, cfg.experts_per_token
-    logits = (x.reshape(B * S, -1).to(torch.float64)
-              @ params["router"].to(torch.float64)).to(torch.float32)
-    vals, idx = torch.topk(logits.reshape(B, S, E), k, dim=-1)
+    return (x.reshape(B * S, -1).to(torch.float64)
+            @ params["router"].to(torch.float64)).to(torch.float32
+                                                     ).reshape(B, S, -1)
+
+
+def route_choices(cfg: ArchConfig, idx: torch.Tensor, vals: torch.Tensor,
+                  dtype: torch.dtype) -> MoeRoute:
+    """``moe_route`` from each token's chosen experts ``idx`` (B, S, k), in
+    choice order, and their logits ``vals``: the gate weights (a sigmoid
+    for top-1, else a softmax over the k) in ``dtype``, and the capacity
+    rule over each dispatch group in slot order."""
+    B, S, k = idx.shape
+    E = cfg.n_experts
     weights = torch.sigmoid(vals) if k == 1 else torch.softmax(vals, dim=-1)
     slots = S * k
     g, n_groups, cap = moe_capacity(cfg, slots)
     pad = n_groups * g - slots
     fe = F.pad(idx.reshape(B, slots), (0, pad), value=E)
-    fw = F.pad(weights.reshape(B, slots).to(x.dtype), (0, pad))
+    fw = F.pad(weights.reshape(B, slots).to(dtype), (0, pad))
     fe = fe.reshape(B, n_groups, g)
     # rank within the expert, counted over the group in slot order (the
     # reference's float32 cumsum of one-hots; exact in int64 alike)
@@ -554,12 +571,14 @@ def moe_route(params: dict, cfg: ArchConfig, x: torch.Tensor) -> MoeRoute:
 
 
 def _expert_matmul(buf: torch.Tensor, w: torch.Tensor, plan,
-                   cfg: ArchConfig) -> torch.Tensor:
-    """Per-expert projection ``buf (E, N, d_in) @ w (E, d_in, d_out)``.
-    ``plan`` leaves carry a leading expert axis; ``pim_matmul`` runs once
-    per expert on ``plan[e]``, every expert, empty buffers included (the
-    reference vmaps it). Work stats stay suspended, as in the reference:
-    converts per token bill attention and the LM head, not the experts."""
+                   cfg: ArchConfig, e0: int = 0) -> torch.Tensor:
+    """Per-expert projection ``buf (n, N, d_in) @ w (n, d_in, d_out)`` for
+    the block of ``n`` experts from expert ``e0`` (every expert, or a
+    partitioned rank's own). ``plan`` leaves carry a leading axis of every
+    expert; ``pim_matmul`` runs once per expert on ``plan[e0 + e]``, every
+    expert of the block, empty buffers included (the reference vmaps it).
+    Work stats stay suspended, as in the reference: converts per token
+    bill attention and the LM head, not the experts."""
     if isinstance(plan, PimTap):
         plan.record(buf)
         plan = None
@@ -567,12 +586,14 @@ def _expert_matmul(buf: torch.Tensor, w: torch.Tensor, plan,
         return torch.matmul(buf, w)
     with suspend_pim_stats():
         return torch.stack([
-            pim_matmul(buf[e], w[e], {k: v[e] for k, v in plan.items()}, cfg)
+            pim_matmul(buf[e], w[e], {k: v[e0 + e] for k, v in plan.items()},
+                       cfg)
             for e in range(buf.shape[0])])
 
 
 def moe_block(params: dict, cfg: ArchConfig, x: torch.Tensor,
-              plans=None) -> torch.Tensor:
+              plans=None, part=None, *, experts=None,
+              reduce=None) -> torch.Tensor:
     """Top-k capacity-based MoE FFN, the reference's function.
 
     The reference dispatches and combines with one-hot einsums; here the
@@ -584,29 +605,50 @@ def moe_block(params: dict, cfg: ArchConfig, x: torch.Tensor,
     order, as the reference's combine does. A decode step (S == 1, B > 1)
     routes the whole batch as one dispatch group, so idle and mid-prefill
     slots compete for capacity, as in the reference.
+
+    ``experts=(e0, e1)`` computes those experts alone, ``params``'
+    expert leaves holding just them: the buffer holds their kept slots,
+    and a slot routed to another expert contributes zero. Under a
+    partition (``dist.parallel.Partition``) ``x`` is the rank's sequence
+    block: the sequence is all-gathered, routed whole (capacity counts
+    over whole dispatch groups), run through the rank's experts
+    (``part.experts``) and reduce-scattered back onto the block, which
+    sums every rank's experts. The partitioned decode's hook ``reduce(y)``
+    sums the outputs of the ranks' expert blocks
+    (``dist.parallel.ServePartition``).
     """
+    if part is not None:
+        return part.scatter_seq(moe_block(
+            params, cfg, part.gather_seq(x), plans, experts=part.experts))
+    if reduce is not None:
+        return reduce(moe_block(params, cfg, x, plans, experts=experts))
     B, S, D = x.shape
     if S == 1 and B > 1:
-        return moe_block(params, cfg, x.reshape(1, B, D),
-                         plans).reshape(B, 1, D)
-    E, k = cfg.n_experts, cfg.experts_per_token
+        return moe_block(params, cfg, x.reshape(1, B, D), plans,
+                         experts=experts).reshape(B, 1, D)
+    k = cfg.experts_per_token
+    e0, e1 = experts or (0, cfg.n_experts)
+    n_e = e1 - e0
     rt = moe_route(params, cfg, x)
     n_rows = B * rt.n_groups * rt.cap  # dispatch rows per expert
     b = torch.arange(B, device=x.device)[:, None, None]
     n = torch.arange(rt.n_groups, device=x.device)[None, :, None]
-    row = rt.expert * n_rows + (b * rt.n_groups + n) * rt.cap + rt.pos
-    # dropped and padding slots write to (and read) one extra row
-    row = torch.where(rt.keep, row, E * n_rows).reshape(-1)
+    row = (rt.expert - e0) * n_rows + (b * rt.n_groups + n) * rt.cap + rt.pos
+    # dropped and padding slots, and those of other experts, write to (and
+    # read) one extra row
+    mine = rt.keep & (rt.expert >= e0) & (rt.expert < e1)
+    row = torch.where(mine, row, n_e * n_rows).reshape(-1)
     xg = F.pad(x.repeat_interleave(k, dim=1),
                (0, 0, 0, rt.n_groups * rt.group - S * k)).reshape(-1, D)
-    buf = x.new_zeros((E * n_rows + 1, D))
+    buf = x.new_zeros((n_e * n_rows + 1, D))
     buf[row] = xg
-    buf = buf[:-1].reshape(E, n_rows, D)
+    buf = buf[:-1].reshape(n_e, n_rows, D)
     a = act_fn(cfg.activation)
-    h = a(_expert_matmul(buf, params["w1"], plan_leaf(plans, "w1"), cfg)) \
-        * _expert_matmul(buf, params["w3"], plan_leaf(plans, "w3"), cfg)
-    y = _expert_matmul(h, params["w2"], plan_leaf(plans, "w2"), cfg)
-    y = torch.cat([y.reshape(E * n_rows, D), y.new_zeros((1, D))])
+    h = a(_expert_matmul(buf, params["w1"], plan_leaf(plans, "w1"), cfg,
+                         e0)) \
+        * _expert_matmul(buf, params["w3"], plan_leaf(plans, "w3"), cfg, e0)
+    y = _expert_matmul(h, params["w2"], plan_leaf(plans, "w2"), cfg, e0)
+    y = torch.cat([y.reshape(n_e * n_rows, D), y.new_zeros((1, D))])
     out = rt.weight.reshape(-1, 1) * y[row]
     out = out.reshape(B, rt.n_groups * rt.group, D)[:, :S * k]
     return out.reshape(B, S, k, D).sum(dim=2)

@@ -70,9 +70,10 @@ def ffn_block(bp: dict, cfg: ArchConfig, layer: int, x: torch.Tensor,
               plan=None, part=None) -> torch.Tensor:
     """Layer ``layer``'s FFN: ``moe_block`` where the config puts a MoE
     FFN, else the gated MLP (an rwkv layer's channel-mix: ``run_layer``),
-    tensor-parallel under a partition."""
+    tensor-parallel (a MoE FFN expert-sliced) under a partition."""
     if L.is_moe_layer(cfg, layer):
-        return L.moe_block(bp["ffn"], cfg, x, plans=L.plan_leaf(plan, "ffn"))
+        return L.moe_block(bp["ffn"], cfg, x, plans=L.plan_leaf(plan, "ffn"),
+                           part=part)
     return L.mlp_block(bp["ffn"], cfg, x, plans=L.plan_leaf(plan, "ffn"),
                        part=part)
 
@@ -731,12 +732,11 @@ def _store_span(cache: dict, k: torch.Tensor, v: torch.Tensor,
 
 
 def partitioned(cfg: ArchConfig) -> bool:
-    """Whether the partitioned train and prefill programs cover ``cfg``:
-    every layer attention plus a dense MLP (the decode program too). MoE
-    expert parallelism and the recurrent blocks over ``tp``/``heads`` are
-    not partitioned yet."""
+    """Whether the partitioned train, prefill and decode programs cover
+    ``cfg``: every layer attention plus a dense MLP or a MoE FFN (expert
+    parallel). The recurrent blocks over ``tp``/``heads`` are not
+    partitioned yet."""
     return all(block_kind(cfg, layer) == "attn"
-               and not L.is_moe_layer(cfg, layer)
                for layer in range(cfg.n_layers))
 
 
@@ -752,15 +752,16 @@ def partition(params: dict, cfg: ArchConfig, *, decode: bool = False):
     if not partitioned(cfg):
         raise ValueError(
             f"{cfg.name}: the partitioned programs cover layers of "
-            "attention and a dense MLP; MoE and recurrent layers are not "
-            "partitioned yet")
+            "attention and a dense MLP or a MoE FFN; mamba and rwkv layers "
+            "are not partitioned yet")
     if cfg.pim_mode != "off":
         raise ValueError(
             f"pim_mode={cfg.pim_mode!r} under a partition: the partitioned "
             "programs run in float (pim_mode='off'), as the reference's "
             "meshed programs do")
     if decode:
-        return parallel.serve_partition(dsh.active_mesh(), cfg, params)
+        return parallel.serve_partition(dsh.active_mesh(), cfg, params,
+                                        param_specs(cfg))
     return parallel.Partition(dsh.active_mesh(), cfg, param_specs(cfg),
                               params)
 
@@ -828,7 +829,11 @@ def _decode_partitioned(part, params: dict, cfg: ArchConfig, state: dict,
             return _attn_decode_partitioned(part, path, bp, cfg, blocks, h,
                                             glob, positions, rows, seq)
 
-        def ffn(bp, h, path=path):
+        def ffn(bp, h, path=path, layer=layer):
+            if L.is_moe_layer(cfg, layer):
+                return L.moe_block(
+                    bp["ffn"], cfg, h, experts=part.experts(path + "ffn/w1"),
+                    reduce=lambda y: part.reduce(y, path + "ffn/w1"))
             return L.mlp_block(
                 bp["ffn"], cfg, h,
                 rows=lambda t: part.rows_for(t, path + "ffn/w1",

@@ -56,15 +56,26 @@ def lr_at(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def init_state(cfg: AdamWConfig, params: Any) -> dict:
     """Zero moments in ``state_dtype`` beside each parameter, and a zero
-    int32 step on the parameters' device."""
+    int32 step on the parameters' device. Of parameters placed as
+    DTensors, each moment is a DTensor in its parameter's placements
+    whose local block alone is made, and the step is replicated on their
+    mesh: the state that ``place``-ing a whole state by ``state_specs``
+    gives, without a whole copy of the moments on any rank."""
     dt = getattr(torch, cfg.state_dtype)
+    first = _tree.leaves(params)[0]
 
     def zeros(p):
+        if hasattr(p, "device_mesh"):
+            return torch.zeros_like(p, dtype=dt)
         return torch.zeros(p.shape, dtype=dt, device=p.device)
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    if hasattr(first, "device_mesh"):
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = first.device_mesh
+        step = DTensor.from_local(step, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
     return {"m": _tree.tree_map(zeros, params),
-            "v": _tree.tree_map(zeros, params),
-            "step": torch.zeros((), dtype=torch.int32,
-                                device=_tree.leaves(params)[0].device)}
+            "v": _tree.tree_map(zeros, params), "step": step}
 
 
 def global_norm(tree: Any) -> torch.Tensor:

@@ -31,10 +31,13 @@ The collectives' backward leaves each gradient as a local block in its
 parameter's placements; ``Partition.reduce_grad`` sums it over the mesh
 dims on which the parameter is replicated, it is divided by the batch
 ranks, and ``DTensor.from_local`` wraps it. The loss is averaged over the
-batch ranks, and AdamW runs on the DTensor leaves.
+batch ranks, and AdamW runs on the DTensor leaves. A MoE FFN runs expert
+parallel: each rank computes its experts' blocks, gathered over FSDP
+alone, and the replicated router's gradient is summed over the mesh like
+any replicated leaf's.
 
 Configs that the partitioned program does not cover yet
-(``transformer.partitioned``: MoE and recurrent layers) keep the
+(``transformer.partitioned``: mamba and rwkv layers) keep the
 data-parallel step (``_data_parallel``): each rank gathers full plain
 leaves, runs the whole model on its slice of the batch, and reduces each
 gradient to its parameter's placements (a ``Partial("avg")`` over the

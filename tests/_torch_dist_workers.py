@@ -13,6 +13,7 @@ reference's values. A rank that raises writes its traceback, and
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import datetime
 import multiprocessing
@@ -475,6 +476,24 @@ def _as_torch(batch: dict) -> dict:
     return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
 
 
+@contextlib.contextmanager
+def _routes():
+    """The expert ids (B, n_groups, group) of each ``moe_route`` call made
+    in the body, as numpy."""
+    from repro_torch.models import layers as L
+    orig, log = L.moe_route, []
+
+    def rec(*args):
+        rt = orig(*args)
+        log.append(rt.expert.numpy().copy())
+        return rt
+    L.moe_route = rec
+    try:
+        yield log
+    finally:
+        L.moe_route = orig
+
+
 def task_tp(rank: int, payload: dict, tmp: Path) -> dict:
     """The partitioned train step and prefill on 4 ranks, for each of
     ``payload["runs"]`` (a 2-axis mesh under DEFAULT_RULES, a 3-axis pod
@@ -553,14 +572,15 @@ def task_tp(rank: int, payload: dict, tmp: Path) -> dict:
             rows = prompts.shape[0] // part.n_batch
             mine = prompts[part.batch_index * rows:
                            (part.batch_index + 1) * rows]
-            with torch.no_grad():
+            with torch.no_grad(), _routes() as routes:
                 logits, state = T.prefill(p, cfg, mine)
             res["prefill"] = dict(
                 logits=_np(logits), pos=state["pos"],
                 caches=[{k: _np(v) for k, v in c.items()}
                         for c in state["caches"]],
                 batch_index=part.batch_index, model_rank=part.model.rank,
-                heads=part.heads, kv=part.kv)
+                heads=part.heads, kv=part.kv, experts=part.experts,
+                routes=routes)
             try:
                 T.prefill(p, dataclasses.replace(cfg, pim_mode="exact"),
                           mine)
@@ -620,9 +640,10 @@ def _decode_run(run: dict, payload: dict) -> dict:
         rows, seq = part.cache_layout(state["caches"])
         parallel.STATS.reset()
         logits = []
-        for t in tokens:
-            lg, state = T.decode_step(p, cfg, state, t)
-            logits.append(_np(lg))
+        with _routes() as routes:
+            for t in tokens:
+                lg, state = T.decode_step(p, cfg, state, t)
+                logits.append(_np(lg))
         shapes = sorted(parallel.STATS.shapes)
         by_op = dict(parallel.STATS.by_op)
         res.update(
@@ -634,7 +655,10 @@ def _decode_run(run: dict, payload: dict) -> dict:
             caches=[{k: v.to_local().numpy().copy() for k, v in c.items()}
                     for c in state["caches"]],
             greedy=part.greedy(lg).numpy().copy(),
-            collective_shapes=shapes, collectives=by_op)
+            collective_shapes=shapes, collectives=by_op, routes=routes,
+            experts=[part.experts(f"layers/{i}/ffn/w1")
+                     for i in range(cfg.n_layers)
+                     if f"layers/{i}/ffn/router" in part.leaf])
         if run.get("checks"):
             paths, flat = _tree.flatten(p)
             res["leaf_shapes"] = sorted(

@@ -52,6 +52,7 @@ from repro_torch.dist import sharding as dsh
 from repro_torch.dist.compat import AbstractMesh
 from repro_torch.launch import dryrun
 from repro_torch.launch import hlo_analysis as hlo
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.train import optimizer as opt
 from repro_torch.train import train_loop as tl
@@ -594,15 +595,126 @@ def test_one_cell_per_family_at_published_width(arch, shape):
     assert r["hlo_flops_per_device"] > 0 and r["per_device_bytes"] > 0
     cfg = configs.get(arch)
     if T.partitioned(cfg):
-        # hubert's prefill is partitioned: its placed shards, gathered a
-        # layer at a time, not the whole weights
+        # hubert's prefill and phi's decode are partitioned: their placed
+        # shards (a prefill gathers them a layer at a time), not the whole
+        # weights
         assert r["per_device_bytes"] < 2 * cfg.param_count()
-        assert r["collective_counts"]["reduce-scatter"] == \
-            2 * cfg.n_layers
+        if shape == "decode_32k":  # only activations move
+            assert r["collective_counts"] == {
+                "all-gather": 4 * cfg.n_layers,
+                "all-reduce": 4 * cfg.n_layers + 1}
+        else:
+            assert r["collective_counts"]["reduce-scatter"] == \
+                2 * cfg.n_layers
         return
     # serving holds the whole plain weights on every rank
     assert r["per_device_bytes"] > 2 * cfg.param_count() * 0.99
     assert r["collective_bytes_per_device"] == 0
+
+
+# ------------------------------------------------------------ MoE cells
+PHI = "phi3.5-moe-42b"
+
+
+@pytest.fixture(scope="module")
+def phi_runs(tmp_path_factory):
+    """phi3.5-moe-42b's three single-pod cells: the reference's dry run in
+    a subprocess and, meanwhile, the port's ``dryrun_cell`` in this
+    process. -> (reference reports, port reports), by shape."""
+    ref_out = tmp_path_factory.mktemp("ref_phi")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
+    ref = subprocess.Popen(
+        [sys.executable, "-m", "repro.launch.dryrun", "--arch", PHI,
+         "--single-pod-only", "--out", str(ref_out)], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        port = {s: dryrun.dryrun_cell(PHI, s, multi_pod=False, device="cpu",
+                                      verbose=False) for s in QWEN_SHAPES}
+        ref_log = ref.communicate(timeout=300)[0]
+    finally:
+        ref.kill()
+    assert ref.returncode == 0, ref_log[-3000:]
+    return ({s: json.loads((ref_out / f"{PHI}_{s}_sp.json").read_text())
+             for s in QWEN_SHAPES}, port)
+
+
+def _phi_exact_flops(shape_name: str) -> float:
+    """The matmul flops of phi3.5-moe-42b's rank on 16x16, from the config:
+    a train / prefill rank (DEFAULT_RULES) takes 1/16 of the rows and
+    computes, over the whole gathered sequence, q/k/v/o for its 2 of 32
+    heads (its one K/V head of 8, gathered) and attention over every key
+    chunk; the router on every position; its one expert of 16 on
+    ``B n_groups cap`` dispatch rows (``layers.moe_dispatch_rows``, the
+    reference's capacity rule), 3 products of 2 D F; the head on
+    its 1/16 of the vocab (a prefill's last position; a train step's
+    every position, the vocab-parallel loss). A prefill also projects
+    every K/V head of its sequence block into its cache. A train step
+    counts its layers and its loss 4 times (the forward, remat's
+    recompute and the backward's two products). A decode rank
+    (SERVE_RULES) attends over its 8 rows and 2,048 positions with every
+    head, runs the attention projections on all 128 rows over 1/256 of
+    their columns, the router on every row, its one expert of 16
+    (the experts peel to "data") on ``cap`` rows of the batch's one
+    dispatch group, and the head on 1/16 of the vocab (over "data")."""
+    cfg = configs.get(PHI)
+    shape = {s.name: s for s in configs.runnable_shapes(cfg)}[shape_name]
+    n, D, H, K = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd, F, V, E = cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size, \
+        cfg.n_experts
+    m = 16
+    if shape.kind == "decode":
+        B, S = shape.global_batch, shape.seq_len
+        body = D * H * hd + 2 * D * K * hd + H * hd * D
+        return (4 * B * S * H * hd * n / (m * m) + 2 * body * B * n / (m * m)
+                + n * (E // m * L.moe_dispatch_rows(cfg, B, 1) * 3 * 2 * D * F
+                       + 2 * B * D * E) + 2 * B * D * V / m)
+    B, S = shape.global_batch // m, shape.seq_len
+    hl = H // m
+    layer = (2 * B * S * D * hl * hd + 2 * 2 * B * S * D * hd
+             + 4 * B * S * S * hl * hd + 2 * B * S * hl * hd * D
+             + 2 * B * S * D * E
+             + E // m * L.moe_dispatch_rows(cfg, B, S) * 3 * 2 * D * F)
+    if shape.kind == "prefill":
+        cache = 2 * 2 * B * (S // m) * D * K * hd
+        return n * (layer + cache) + 2 * B * D * V / m
+    return 4 * (n * layer + 2 * B * S * D * V / m)
+
+
+def test_phi_cells_are_expert_parallel(phi_runs):
+    """phi3.5-moe-42b's single-pod cells run the partitioned programs and
+    fit a card: the train and prefill ranks reduce-scatter each layer's
+    attention and MoE outputs (and the prefill its embedding), the decode
+    rank moves activations only; each rank's flops are 1.0-1.15x the count
+    derived from the config (``_phi_exact_flops``)."""
+    port = phi_runs[1]
+    cfg = configs.get(PHI)
+    n = cfg.n_layers
+    assert T.partitioned(cfg)
+    for s in QWEN_SHAPES:
+        r = port[s]
+        assert r["status"] == "ok" and r["fits_hbm"], s
+        ratio = r["hlo_flops_per_device"] / _phi_exact_flops(s)
+        assert 1.0 <= ratio <= 1.15, (s, ratio)
+    assert port["prefill_32k"]["collective_counts"]["reduce-scatter"] == \
+        2 * n + 1
+    assert port["train_4k"]["collective_counts"]["reduce-scatter"] > 2 * n
+    assert port["decode_32k"]["collective_counts"] == {
+        "all-gather": 4 * n, "all-reduce": 4 * n + 1}
+
+
+def test_phi_cells_near_the_reference(phi_runs):
+    """Against the reference's dry run of the same cells: train and
+    prefill flops a device within 0.8-1.3x (the reference's GSPMD splits
+    the experts over "model" too), decode at most 1.3x (the reference
+    gathers the experts it does not hold); every peak at most 3x."""
+    ref, port = phi_runs
+    for s in QWEN_SHAPES:
+        ratio = port[s]["hlo_flops_per_device"] / ref[s][
+            "hlo_flops_per_device"]
+        assert ratio <= 1.3, (s, ratio)
+        if s != "decode_32k":
+            assert ratio >= 0.8, (s, ratio)
+        assert port[s]["per_device_bytes"] <= 3 * ref[s]["per_device_bytes"]
 
 
 def test_110b_decode_reports_without_allocating():

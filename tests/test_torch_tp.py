@@ -56,6 +56,7 @@ qwen on a (2, 1, 2) ``("pod", "data", "model")`` mesh under
   replicated program, bit for bit.
 """
 
+import contextlib
 import dataclasses
 import functools
 
@@ -72,6 +73,7 @@ from repro_torch import configs
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.dist import parallel
 from repro_torch.models import convert
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.train import _tree
 from repro_torch.train import optimizer as opt
@@ -98,7 +100,14 @@ CONFIGS = {
     "micro2": ("qwen1.5-0.5b", dict(vocab_size=64), dict(micro_batches=2)),
     "v66": ("qwen1.5-0.5b", dict(vocab_size=66), {}),
     "int8": ("qwen1.5-0.5b", dict(vocab_size=64, kv_cache_dtype="int8"), {}),
+    # MoE: phi's top-2 softmax gate on 4 experts at a capacity that drops
+    # slots; llama4's top-1 sigmoid gate, its MoE and dense FFNs
+    # alternating; 6 experts, which 4 ranks split 2, 2, 2 and 0
+    "phi": ("phi3.5-moe-42b", dict(vocab_size=64, capacity_factor=1.0), {}),
+    "llama4": ("llama4-maverick-400b", dict(vocab_size=64), {}),
+    "e6": ("phi3.5-moe-42b", dict(vocab_size=64, n_experts=6), {}),
 }
+MOE_KEYS = ("phi", "llama4", "e6")
 # (run name, config key, mesh shape)
 RUNS = (("qwen_2x2", "qwen", (2, 2)), ("qwen_1x4", "qwen", (1, 4)),
         ("chameleon_2x2", "chameleon", (2, 2)),
@@ -106,7 +115,11 @@ RUNS = (("qwen_2x2", "qwen", (2, 2)), ("qwen_1x4", "qwen", (1, 4)),
         ("hubert_2x2", "hubert", (2, 2)), ("hubert_1x4", "hubert", (1, 4)),
         ("h6k2_1x4", "h6k2", (1, 4)), ("h10k2_1x4", "h10k2", (1, 4)),
         ("remat_2x2", "remat", (2, 2)), ("micro2_2x2", "micro2", (2, 2)),
-        ("qwen_pods_2x1x2", "qwen", (2, 1, 2)))
+        ("qwen_pods_2x1x2", "qwen", (2, 1, 2)),
+        ("phi_2x2", "phi", (2, 2)), ("phi_1x4", "phi", (1, 4)),
+        ("llama4_2x2", "llama4", (2, 2)), ("llama4_1x4", "llama4", (1, 4)),
+        ("e6_1x4", "e6", (1, 4)),
+        ("phi_pods_2x1x2", "phi", (2, 1, 2)))
 NAMES = [r[0] for r in RUNS]
 SEQ, ROWS, PROMPTS, PROMPT_LEN = 32, 8, 4, 16
 # decode: (run name, config key, mesh shape, per-slot positions); the
@@ -118,7 +131,11 @@ DECODE_RUNS = (("qwen_2x2", "qwen", (2, 2), False),
                ("v66_2x2", "v66", (2, 2), False),
                ("int8_slots_1x4", "int8", (1, 4), True),
                ("int8_2x2", "int8", (2, 2), False),
-               ("qwen_pods_slots_2x1x2", "qwen", (2, 1, 2), True))
+               ("qwen_pods_slots_2x1x2", "qwen", (2, 1, 2), True),
+               ("phi_2x2", "phi", (2, 2), False),
+               ("llama4_slots_1x4", "llama4", (1, 4), True),
+               ("e6_2x2", "e6", (2, 2), False),
+               ("phi_pods_slots_2x1x2", "phi", (2, 1, 2), True))
 DECODE_NAMES = [r[0] for r in DECODE_RUNS]
 DECODE_LEN, DECODE_STEPS = 32, 3
 # per-slot positions: on (1, 4) (blocks of 8) rows 0-3 write on "model"
@@ -127,6 +144,41 @@ DECODE_LEN, DECODE_STEPS = 32, 3
 # the other "data" rank, writes on "model" rank 1
 SLOT_POS = (15, 7, 23, 9)
 DECODE_TOL = dict(rtol=1e-5, atol=1e-5)
+# the decode runs that also report their collectives' shapes, the leaves'
+# shapes and the refusals
+CHECKED = ("qwen_2x2", "phi_2x2")
+# the smallest gap between a token's consecutive router logits among its
+# top k + 1 in the one-process runs: the partitioned and the reference's
+# sums round differently by ~1e-6, so a gap above this routes alike
+ROUTE_GAP = 1e-5
+# (program, config key, per-slot positions) -> each moe_route call's
+# expert ids (B, n_groups, group), kept slots and smallest logit gap, in
+# the one-process runs
+ROUTES: dict = {}
+
+
+@contextlib.contextmanager
+def _routing(log: list):
+    """Record each of the port's ``moe_route`` calls in this process:
+    its expert ids, the dropped slots and the smallest gap between a
+    token's consecutive router logits among its top k + 1."""
+    orig = L.moe_route
+
+    def rec(params, cfg, x):
+        rt = orig(params, cfg, x)
+        with torch.no_grad():
+            logits = L.moe_logits(params, x).double()
+        top = logits.topk(cfg.experts_per_token + 1, dim=-1).values
+        log.append(dict(
+            expert=rt.expert.numpy().copy(),
+            dropped=int((~rt.keep & (rt.expert < cfg.n_experts)).sum()),
+            gap=float((top[..., :-1] - top[..., 1:]).min())))
+        return rt
+    L.moe_route = rec
+    try:
+        yield log
+    finally:
+        L.moe_route = orig
 
 
 def _reduced(key) -> dict:
@@ -212,7 +264,7 @@ def ranks(tmp_path_factory):
         decode_runs=[dict(name=n, config=k, arch=CONFIGS[k][0],
                           reduced=_reduced(k), replace=CONFIGS[k][2],
                           mesh=m, start=_decode_start(k, slots),
-                          tokens=_decode_tokens(k), checks=n == "qwen_2x2")
+                          tokens=_decode_tokens(k), checks=n in CHECKED)
                      for n, k, m, slots in DECODE_RUNS],
         np_params={k: _reference_weights(k)[2] for k in keys},
         batches={k: _data(k)[0] for k in RUNS_KEYS},
@@ -259,10 +311,11 @@ def _one_process(key):
     state = opt.init_state(ocfg, params)
     step = tl.make_train_step(cfg, ocfg)
     losses, norms = [], []
-    for b in _data(key)[0]:
-        params, state, m = step(params, state, W._as_torch(b))
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
+    with _routing(ROUTES.setdefault(("train", key, False), [])):
+        for b in _data(key)[0]:
+            params, state, m = step(params, state, W._as_torch(b))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
     return losses, norms, dict(zip(*_tree.flatten(params)))
 
 
@@ -310,7 +363,8 @@ def _one_process_prefill(key):
     cfg = _cfg(key)
     params = convert.params_from_reference(
         jax.tree.map(np.array, _reference_weights(key)[2]), cfg, "cpu")
-    with torch.no_grad():
+    with torch.no_grad(), _routing(ROUTES.setdefault(("prefill", key,
+                                                       False), [])):
         logits, state = T.prefill(params, cfg,
                                   torch.from_numpy(_data(key)[1]))
     return logits.numpy(), state
@@ -364,10 +418,25 @@ def test_one_rank_mesh_is_the_plain_program(tmp_path):
     takes the plain path (the vocab is whole on one rank): the partitioned
     step and prefill of reduced bf16 qwen equal the plain ones bit for
     bit, as the card's ``dist`` phase holds them at published size."""
+    _one_rank_equals_plain(configs.get("qwen1.5-0.5b").reduced(), tmp_path)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b", "llama4-maverick-400b"])
+def test_one_rank_mesh_moe_is_the_plain_program(arch, tmp_path):
+    """The MoE programs on a one-rank group: the rank holds every expert,
+    so the partitioned step and prefill of reduced bf16 phi3.5-moe-42b
+    (top-2) and llama4-maverick-400b (top-1, MoE and dense FFNs) equal the
+    plain ones bit for bit."""
+    _one_rank_equals_plain(configs.get(arch).reduced(), tmp_path)
+
+
+def _one_rank_equals_plain(cfg, tmp_path) -> None:
+    """Two train steps and a prefill under a (1, 1) mesh with placed
+    parameters, and without a mesh, in this process: losses, parameters,
+    logits and caches equal bit for bit."""
     import torch.distributed as dist
     from repro_torch.dist import compat
     from repro_torch.dist import sharding as dsh
-    cfg = configs.get("qwen1.5-0.5b").reduced()
     ocfg = opt.AdamWConfig(**W.OPT_KW)
     data = SyntheticLM(cfg.vocab_size, SEQ, ROWS, seed=0)
     start = T.init_params(cfg, seed=0, device="cpu")
@@ -407,6 +476,139 @@ def test_one_rank_mesh_is_the_plain_program(tmp_path):
     assert all(torch.equal(a, b) for a, b in zip(cm, cp, strict=True))
 
 
+def test_recurrent_configs_refuse_a_partition(tmp_path):
+    """The attention configs, MoE ones included, are partitioned; reduced
+    jamba (mamba layers) and rwkv6 placed on a one-rank mesh are refused
+    by the train, prefill and decode programs alike."""
+    import torch.distributed as dist
+    from repro_torch.dist import compat
+    from repro_torch.dist import sharding as dsh
+    assert all(T.partitioned(configs.get(a)) for a in (
+        "phi3.5-moe-42b", "llama4-maverick-400b", "qwen1.5-0.5b"))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = compat.make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        for arch in ("jamba-1.5-large-398b", "rwkv6-3b"):
+            cfg = configs.get(arch).reduced()
+            assert not T.partitioned(cfg)
+            params = T.init_params(cfg, seed=0, device="cpu")
+            for rules, decode in ((dsh.DEFAULT_RULES, False),
+                                  (dsh.SERVE_RULES, True)):
+                with dsh.axis_rules(rules), dsh.use_mesh(mesh):
+                    p = dsh.place(params, T.param_specs(cfg), mesh)
+                    with pytest.raises(ValueError,
+                                       match="mamba and rwkv layers"):
+                        T.partition(p, cfg, decode=decode)
+    finally:
+        dist.destroy_process_group()
+
+
+# ------------------------------------------------------------------ moe
+@pytest.mark.parametrize("key", MOE_KEYS)
+def test_moe_routes_without_near_ties(key):
+    """The parity inputs route without near-ties: in the one-process train
+    steps, prefill and decode, a token's consecutive router logits among
+    its top k + 1 lie more than ``ROUTE_GAP`` apart, so the partitioned
+    and the reference's sums (and ``torch.topk`` against ``lax.top_k``)
+    pick and order the same experts; phi's capacity drops slots in each."""
+    _one_process(key)
+    _one_process_prefill(key)
+    for _, k, _, slots in DECODE_RUNS:
+        if k == key:
+            _one_process_decode(key, slots)
+    logs: dict = {}
+    for (what, k, _), log in ROUTES.items():
+        if k == key:
+            logs.setdefault(what, []).extend(log)
+    assert sorted(logs) == ["decode", "prefill", "train"]
+    for what, log in logs.items():
+        assert log, what
+        gap = min(r["gap"] for r in log)
+        assert gap > ROUTE_GAP, (what, gap)
+        if key == "phi":
+            assert sum(r["dropped"] for r in log) > 0, what
+
+
+def _moe_runs(runs) -> list:
+    return [r[0] for r in runs if r[1] in MOE_KEYS]
+
+
+@pytest.mark.parametrize("run", _moe_runs(RUNS))
+def test_moe_prefill_ranks_route_alike(ranks, run):
+    """Each rank routes the whole sequence of its batch rows: every rank's
+    expert ids, assembled by rows, equal the one-process prefill's."""
+    key = dict((n, k) for n, k, _ in RUNS)[run]
+    _one_process_prefill(key)
+    want = [r["expert"] for r in ROUTES[("prefill", key, False)]]
+    for r in ranks:
+        pf = r[run]["prefill"]
+        assert len(pf["routes"]) == len(want)
+        for got, w in zip(pf["routes"], want):
+            b0 = pf["batch_index"] * got.shape[0]
+            np.testing.assert_array_equal(got, w[b0:b0 + got.shape[0]])
+
+
+@pytest.mark.parametrize("run", _moe_runs(DECODE_RUNS))
+def test_moe_decode_ranks_route_alike(ranks, run):
+    """Every rank routes the whole batch as one dispatch group, as the
+    one-process decode does, step by step."""
+    key, _, slots = _decode_run(run)
+    _one_process_decode(key, slots)
+    want = [r["expert"] for r in ROUTES[("decode", key, slots)]]
+    for r in ranks:
+        got = r["decode"][run]["routes"]
+        assert len(got) == len(want) == DECODE_STEPS * sum(
+            L.is_moe_layer(_cfg(key), i) for i in range(_cfg(key).n_layers))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_moe_expert_ranges(ranks):
+    """The experts each rank computes. Train and prefill under
+    DEFAULT_RULES / MULTIPOD_RULES: 4 experts split 2 and 2 over "model"
+    of 2; 6 over 4 ranks 2, 2, 2 and 0 (the leaf replicated). Decode
+    under SERVE_RULES: 4 experts over the 4 ranks of ("data", "model");
+    6 peel to "data" (3 a data rank, replicated over "model"); under
+    MULTIPOD_SERVE_RULES 4 over "model" of 2, alike on both pods."""
+    def prefill(run):
+        return [r[run]["prefill"]["experts"] for r in ranks]
+
+    def decode(run):
+        return [tuple(r["decode"][run]["experts"][0]) for r in ranks]
+    for run in ("phi_2x2", "llama4_2x2", "phi_pods_2x1x2"):
+        assert prefill(run) == [(0, 2), (2, 4), (0, 2), (2, 4)]
+    for run in ("phi_1x4", "llama4_1x4"):
+        assert prefill(run) == [(0, 1), (1, 2), (2, 3), (3, 4)]
+    assert prefill("e6_1x4") == [(0, 2), (2, 4), (4, 6), (6, 6)]
+    assert decode("phi_2x2") == [(0, 1), (1, 2), (2, 3), (3, 4)]
+    assert decode("llama4_slots_1x4") == [(0, 1), (1, 2), (2, 3), (3, 4)]
+    assert decode("e6_2x2") == [(0, 3), (0, 3), (3, 6), (3, 6)]
+    assert decode("phi_pods_slots_2x1x2") == [(0, 2), (2, 4), (0, 2),
+                                              (2, 4)]
+
+
+def test_moe_decode_gathers_no_weight(ranks):
+    """phi's partitioned decode on (2, 2) moves no weight: no collective's
+    result has a parameter leaf's shape, the expert leaves' included,
+    global or local (size-1 dims dropped); per step and layer 4
+    all-gathers (q, k, v, the attention output) and 5 all-reduces (the
+    embedding, the combine's max and sums, ``wo``, the experts'
+    outputs)."""
+    def squeezed(shape):
+        return tuple(d for d in shape if d != 1)
+    layers = _cfg("phi").n_layers
+    for r in ranks:
+        res = r["decode"]["phi_2x2"]
+        leaves = {squeezed(s) for s in res["leaf_shapes"]}
+        assert (4, 64, 128) in res["leaf_shapes"]  # w1 whole
+        moved = {squeezed(s) for s in res["collective_shapes"]}
+        assert moved and not moved & leaves, moved & leaves
+        assert res["collectives"] == {
+            "all_gather": 4 * layers * DECODE_STEPS,
+            "all_reduce": (4 * layers + 1) * DECODE_STEPS}
+
+
 # ------------------------------------------------------------------ decode
 def _decode_run(name):
     return {n: (k, m, slots) for n, k, m, slots in DECODE_RUNS}[name]
@@ -428,7 +630,8 @@ def _one_process_decode(key, slots: bool):
     cfg, params, state = _cfg(key), _port_params(key), _start_torch(key,
                                                                     slots)
     logits = []
-    with torch.no_grad():
+    with torch.no_grad(), _routing(ROUTES.setdefault(("decode", key, slots),
+                                                     [])):
         for t in _decode_tokens(key):
             lg, state = T.decode_step(params, cfg, state, torch.from_numpy(t))
             logits.append(lg.numpy().copy())
@@ -444,18 +647,20 @@ def _reference_decode(key, slots: bool):
     import jax.numpy as jnp
     rcfg, rparams, _ = _reference_weights(key)
     st = _decode_start(key, slots)
-    assert tuple(rcfg.block_pattern) == ("attn",)
-    state = {"caches": [{k: jnp.asarray(np.stack([c[k] for c in
-                                                   st["caches"]]))
-                         for k in st["caches"][0]}],
-             "pos": jnp.asarray(st["pos"], jnp.int32)}
+    n_pat = len(rcfg.block_pattern)
+    assert set(rcfg.block_pattern) == {"attn"}
+    state = {"caches": [{k: jnp.asarray(np.stack([
+        c[k] for c in st["caches"][p::n_pat]])) for k in st["caches"][0]}
+        for p in range(n_pat)],
+        "pos": jnp.asarray(st["pos"], jnp.int32)}
     step = jax.jit(lambda p, s, t: RT.decode_step(p, rcfg, s, t))
     logits = []
     for t in _decode_tokens(key):
         lg, state = step(rparams, state, t)
         logits.append(np.asarray(lg))
-    stacked = {k: np.asarray(v) for k, v in state["caches"][0].items()}
-    return logits, [{k: v[i] for k, v in stacked.items()}
+    stacked = [{k: np.asarray(v) for k, v in c.items()}
+               for c in state["caches"]]
+    return logits, [{k: v[i // n_pat] for k, v in stacked[i % n_pat].items()}
                     for i in range(rcfg.n_layers)]
 
 
