@@ -149,7 +149,8 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            collective an identity, the loss on its plain path); K1-K4
            launches must stay 0; ``--phases dist`` runs it alone (~30 s);
   tp       the partitioned train step and prefill (``dist.parallel``:
-           FSDP, tensor and sequence parallel, MoE FFNs expert parallel):
+           FSDP, tensor and sequence parallel, MoE FFNs expert parallel,
+           mamba over d_inner channels, rwkv6 over whole heads):
            4 processes on ``cuda:0``
            in one ``gloo`` group (a FileStore in a temporary directory),
            mesh (2, 2) under DEFAULT_RULES, qwen1.5-0.5b at its published
@@ -157,8 +158,12 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            with ``pim_mode`` off, then phi3.5-moe-42b at
            its published widths cut to ``TP_MOE_LAYERS`` layers (one
            float32 train step of ``TP_MOE_ROWS`` x 64 tokens, its loss
-           and grad norm held; the same prefill and decode): 2 train
-           steps in float32
+           and grad norm held; the same prefill and decode), then
+           rwkv6-3b at its published widths cut to
+           ``TP_RECURRENT_LAYERS`` layers (as qwen), then
+           jamba-1.5-large-398b's first ``TP_RECURRENT_LAYERS`` layers
+           (mamba + MoE, mamba + dense) on a ``TP_JAMBA_MESH`` mesh, a
+           bf16 prefill and decode alone: 2 train steps in float32
            of 8 x 64 tokens (the train phase's ``SyntheticLM``), losses,
            grad norms and the gathered parameters held against the
            one-process run on the card to the train phase's card-vs-CPU
@@ -181,8 +186,12 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            by op, their bytes, the bytes staged through host memory
            (gloo's all-gather on CUDA, ``parallel.GLOO_DEVICE_OPS``) and
            the step ms, labelled host-staged (phi's lines also its
-           rank's experts and its train step's peak); K1-K4 launches must
-           stay 0 on every rank;
+           rank's experts and its train step's peak; the prefill's its
+           rank's d_inner block and rwkv heads); the recurrent carries
+           assembled by rows and by d_inner block or heads; phi's and
+           jamba's bf16 one-process references take the ranks' experts
+           (``forced_routes``); K1-K4 launches must stay 0 on every
+           rank;
   dryrun   the dry run (``repro_torch.launch.dryrun``): the cells of
            jamba-1.5-large-398b, phi3.5-moe-42b and qwen1.5-0.5b on both
            meshes, then the decode_32k cells of the other four dense
@@ -202,14 +211,14 @@ Phases, one line each, every failure fatal (non-zero exit, no result line):
            train tokens) run for real on the card (weights from seed 0,
            zeroed caches and tokens, bf16; all three are the partitioned
            programs, run as rank 0 of a fake 256-rank group destroyed
-           afterwards, train with grad enabled), and rwkv6-3b's plain
-           ``decode_32k`` program (its 8 rows' recurrent state and a
-           replicated copy of the weights, the program that every
-           hybrid and rwkv decode cell runs), and phi3.5-moe-42b's
-           partitioned ``decode_32k`` program cut to
-           ``DRYRUN_MOE_LAYERS`` layers (its whole 32 layers do not fit
-           one card to place from), held to the dry run of the same cut
-           config, run in this process:
+           afterwards, train with grad enabled), rwkv6-3b's partitioned
+           ``decode_32k`` program (its 8 rows' recurrent state, every
+           head, its blocks of the stationary weights), and the
+           partitioned ``decode_32k`` programs of phi3.5-moe-42b cut to
+           ``DRYRUN_MOE_LAYERS`` layers and of jamba-1.5-large-398b cut
+           to ``DRYRUN_JAMBA_LAYERS`` (``DRYRUN_CUT``: their whole depths
+           do not fit one card to place from), each held to the dry run
+           of the same cut config, run in this process:
            ``FlopCounterMode``'s count must equal the sweep's
            ``hlo_flops_per_device``, ``max_memory_allocated`` must lie
            within 15% of its ``per_device_bytes``, and the median of 5
@@ -410,24 +419,27 @@ ENCODER_ROWS = ENCODER_BATCH * ENCODER_SEQ  # rows every projection gets
 DECODERS = (("chameleon-34b", 4, True), ("qwen2.5-32b", 4, False),
             ("qwen1.5-110b", 2, False))
 # the dry run's per-rank programs held against the card, (arch, shape) on
-# the 16x16 mesh: qwen1.5-0.5b's three partitioned programs and rwkv6-3b's
-# decode, the plain serve program that the hybrid and rwkv decode cells
-# still run (and phi3.5-moe-42b's partitioned decode cut to
-# DRYRUN_MOE_LAYERS layers: the whole 32 take 84 GB in bf16 to place
-# from, on one card); its timed runs, the peak-memory tolerance, the archs swept
+# the 16x16 mesh, all partitioned: qwen1.5-0.5b's three programs and
+# rwkv6-3b's decode; and the decode_32k programs of the MoE models cut in
+# depth, (arch, layers): phi3.5-moe-42b's whole 32 layers take 84 GB in
+# bf16 to place from, jamba-1.5-large-398b's smallest whole depth 90.5 GB;
+# 4 layers of jamba's pattern (mamba + MoE, mamba, mamba + MoE, attention)
+# take 46 GB. Then its timed runs, the peak-memory tolerance, the archs swept
 # on both meshes (the longest cells first), the sweep's worker processes
 # (the host's cores less the main process's) and its limit. The
-# whole sweep, all 62 cells, takes longer than this script may (rwkv6-3b's
-# train cells alone take minutes): run it by hand with
+# whole sweep, all 62 cells, takes longer than this script may:
+# run it by hand with
 # ``python -m repro_torch.launch.dryrun --all --jobs N``
 DRYRUN_PROGRAMS = ((ARCH, "decode_32k"), (ARCH, "prefill_32k"),
-                   (ARCH, "train_4k"), ("rwkv6-3b", "decode_32k"))
+                   (ARCH, "train_4k"), (RWKV_ARCH, "decode_32k"))
+DRYRUN_MOE_LAYERS = 4
+DRYRUN_JAMBA_LAYERS = 4
+DRYRUN_CUT = ((MOE_ARCH, DRYRUN_MOE_LAYERS),
+              (JAMBA_ARCH, DRYRUN_JAMBA_LAYERS))
 DRYRUN_ARCHS = ("jamba-1.5-large-398b", "phi3.5-moe-42b", ARCH)
-# the decode cells of the other dense attention archs (partitioned) and of
-# rwkv6-3b (plain)
+# the decode cells of the other dense attention archs and of rwkv6-3b
 DRYRUN_DECODE_ARCHS = ("qwen1.5-110b", "qwen2.5-32b", "chameleon-34b",
                        "yi-6b", "rwkv6-3b")
-DRYRUN_MOE_LAYERS = 4
 DRYRUN_RUNS = 5
 DRYRUN_MEM_TOL = 0.15
 DRYRUN_JOBS = max(1, min(6, (os.cpu_count() or 2) - 2))
@@ -4684,16 +4696,30 @@ TP_PROMPTS, TP_PROMPT_LEN = 4, 256
 TP_TIMEOUT_S = 600
 # the MoE model of the phase: phi3.5-moe-42b at its published widths, its
 # 32 layers cut to TP_MOE_LAYERS (each rank places its blocks from a whole
-# float32 copy, 11.5 GB at 2 layers, and 4 ranks share the card); one
-# float32 train step of TP_MOE_ROWS x TP_SEQ tokens in one micro-batch
-# (2 rows a rank of "data"): each of its published 2 would all-gather
-# every expert block through host memory again, 16 GB a micro-batch
-TP_MOE_LAYERS = 2
+# float32 copy, 5.8 GB a layer, and 4 ranks share the card); one float32
+# train step of TP_MOE_ROWS x TP_SEQ tokens in one micro-batch (2 rows a
+# rank of "data"): each of its published 2 would all-gather every expert
+# block through host memory again, 8 GB a micro-batch and layer. One
+# layer (2 until the recurrent models joined the phase): the script's
+# time limit
+TP_MOE_LAYERS = 1
 TP_MOE_ROWS = 4
-# qwen1.5-0.5b's 24 layers cut to 6: the phase's time goes to gloo's host
+# qwen1.5-0.5b's 24 layers cut to 4: the phase's time goes to gloo's host
 # staging, per layer (the dry-run phase runs qwen's rank programs whole)
-TP_QWEN_LAYERS = 6
-TP_ARCHS = (ARCH, MOE_ARCH)
+TP_QWEN_LAYERS = 4
+# the recurrent models at their published widths, cut to 2 layers each:
+# rwkv6-3b (float32 train steps, a bf16 prefill, bf16 and float32 decode)
+# and jamba-1.5-large-398b's pattern positions 0-1 (mamba + MoE FFN,
+# mamba + dense FFN; 11.1 G parameters, 22 GB in bf16): a bf16 prefill
+# and decode, on a (1, 4) mesh, where its FFN's 9.66 G-parameter expert
+# blocks are not all-gathered over "data" through host memory (gloo) in
+# the prefill; each rank makes its whole bf16 copy in turn (4 at once
+# would not fit the card). Its train step stays off the card: float32
+# parameters and gradients and bf16 moments of its smallest depth come to
+# ~120 GB
+TP_RECURRENT_LAYERS = 2
+TP_JAMBA_MESH = (1, 4)
+TP_ARCHS = (ARCH, MOE_ARCH, RWKV_ARCH, JAMBA_ARCH)
 # float32 train, held to the train phase's card-vs-CPU tolerances: loss
 # relative, grad norm relative (tests' NORM_RTOL), parameters' relative
 # global norm
@@ -4719,8 +4745,10 @@ TP_ROUTE_TIE = 5e-2
 def phase_tp() -> None:
     """The partitioned train step, prefill and decode (``dist.parallel``)
     on ``TP_WORLD`` processes on ``cuda:0`` in one ``gloo`` group, mesh
-    ``TP_MESH`` (module docstring), of qwen1.5-0.5b and of phi3.5-moe-42b
-    cut to ``TP_MOE_LAYERS`` layers (expert parallel): each rank's
+    ``TP_MESH`` (module docstring), of qwen1.5-0.5b, of phi3.5-moe-42b
+    cut to ``TP_MOE_LAYERS`` layers (expert parallel), of rwkv6-3b, and of
+    jamba-1.5-large-398b (mesh ``TP_JAMBA_MESH``, no train step), both
+    cut to ``TP_RECURRENT_LAYERS``: each rank's
     collectives, bytes, host-staged bytes and step ms printed; the
     gathered results held against the one-process runs on the card, made
     after the ranks have exited; K1-K4 are not launched."""
@@ -4754,9 +4782,10 @@ def phase_tp() -> None:
                 raise AssertionError(f"tp rank {rank}: exit code "
                                      f"{p.exitcode}, no result\n{crash}")
             res.append(torch.load(path, weights_only=False))
-    for rank, r in enumerate(res):
-        if "traceback" in r:
-            raise AssertionError(f"tp rank {rank} raised:\n{r['traceback']}")
+    failed = [f"tp rank {rank} raised:\n{r['traceback'][-3000:]}"
+              for rank, r in enumerate(res) if "traceback" in r]
+    if failed:
+        raise AssertionError("\n".join(failed))
     ranks_s = round(time.perf_counter() - t0, 3)
     for rank, r in enumerate(res):
         for line in r["lines"]:
@@ -4765,7 +4794,8 @@ def phase_tp() -> None:
             raise AssertionError(f"tp rank {rank} launched {r['launches']}")
     for arch in TP_ARCHS:
         ranks = [r[arch] for r in res]
-        tp_hold_train(arch, ranks)
+        if arch != JAMBA_ARCH:
+            tp_hold_train(arch, ranks)
         tp_hold_prefill(arch, ranks)
         tp_hold_decode(arch, ranks)
     launches = {k: v for k, v in ops.launch_counts().items() if v}
@@ -4808,25 +4838,37 @@ def tp_rank(rank: int, d: str) -> None:
 def tp_cfg(arch: str, dtype: str):
     """``arch`` in ``dtype`` (its KV cache too), qwen1.5-0.5b cut to
     ``TP_QWEN_LAYERS`` layers, phi3.5-moe-42b to ``TP_MOE_LAYERS`` and one
-    micro-batch (``TP_MOE_ROWS``)."""
+    micro-batch (``TP_MOE_ROWS``), rwkv6-3b and jamba-1.5-large-398b to
+    ``TP_RECURRENT_LAYERS``."""
     import dataclasses
     from repro_torch import configs
-    cut = {"n_layers": TP_MOE_LAYERS, "micro_batches": 1} \
-        if arch == MOE_ARCH else {"n_layers": TP_QWEN_LAYERS}
-    return dataclasses.replace(configs.get(arch), dtype=dtype,
-                               kv_cache_dtype=dtype, **cut)
+    from repro_torch.launch import dryrun
+    layers = {MOE_ARCH: TP_MOE_LAYERS, RWKV_ARCH: TP_RECURRENT_LAYERS,
+              JAMBA_ARCH: TP_RECURRENT_LAYERS}.get(arch, TP_QWEN_LAYERS)
+    micro = {"micro_batches": 1} if arch in (MOE_ARCH, JAMBA_ARCH) else {}
+    return dataclasses.replace(dryrun.cut_depth(configs.get(arch), layers),
+                               dtype=dtype, kv_cache_dtype=dtype, **micro)
+
+
+def tp_mesh_shape(arch: str) -> tuple:
+    return TP_JAMBA_MESH if arch == JAMBA_ARCH else TP_MESH
+
+
+def tp_decode_dtypes(arch: str) -> tuple:
+    return ("bfloat16",) if arch == JAMBA_ARCH else ("bfloat16", "float32")
 
 
 def tp_data(arch: str):
     """The tp phase's optimizer config, train batches (the train phase's
-    run A source; phi's one step takes its first ``TP_MOE_ROWS`` rows)
-    and prompts over ``arch``'s vocab, alike in every process."""
+    run A source; phi's one step takes its first ``TP_MOE_ROWS`` rows;
+    none for jamba) and prompts over ``arch``'s vocab, alike in every
+    process."""
     import torch
     from repro_torch import configs
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.train import optimizer as opt
     cfg = configs.get(arch)
-    steps = 1 if arch == MOE_ARCH else TP_STEPS
+    steps = {MOE_ARCH: 1, JAMBA_ARCH: 0}.get(arch, TP_STEPS)
     ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=steps,
                            state_dtype=cfg.opt_state_dtype)
     data = SyntheticLM(vocab_size=TRAIN_DATA_VOCAB, seq_len=TP_SEQ,
@@ -4844,14 +4886,19 @@ def tp_run(rank: int) -> dict:
     """Each of ``TP_ARCHS`` in turn (``tp_model``), ``pim_mode`` off.
     Returns the lines to print, each arch's results and the rank's
     kernel launches."""
+    import gc
     import torch
     from repro_torch.dist import compat
     from repro_torch.kernels import ops
     ops.reset_launch_counts()
-    mesh = compat.make_mesh(TP_MESH, ("data", "model"), device_type="cuda")
+    meshes = {shape: compat.make_mesh(shape, ("data", "model"),
+                                      device_type="cuda")
+              for shape in dict.fromkeys(map(tp_mesh_shape, TP_ARCHS))}
     out: dict = {"lines": []}
     for arch in TP_ARCHS:
-        out[arch] = tp_model(rank, arch, mesh, out["lines"])
+        out[arch] = tp_model(rank, arch, meshes[tp_mesh_shape(arch)],
+                             out["lines"])
+        gc.collect()  # placed trees hold reference cycles (DTensor)
         torch.cuda.empty_cache()
     out["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
     return out
@@ -4864,15 +4911,81 @@ def _staged(st) -> str:
                              if op not in parallel.GLOO_DEVICE_OPS))
 
 
-def tp_model(rank: int, arch: str, mesh, lines: list) -> dict:
-    """``arch`` at its published widths from seed 0 (``tp_cfg``): the
-    partitioned train steps in float32 (``tp_data``; the moments made
-    from the placed parameters, ``opt.init_state``), then a partitioned
-    prefill of the rank's rows of the prompts in bf16, then the
-    partitioned decode in bf16 and float32 (``tp_decode``). Appends a line
-    per program run to ``lines``; returns the losses and grad norms, rank
-    0's gathered qwen parameters, and the rank's logits and cache blocks
-    with its place in the mesh."""
+def tp_jamba_turns(rank: int, mesh, prompts, lines: list) -> tuple:
+    """jamba's placed trees, made one rank after another (a barrier
+    between turns; 4 ranks' whole bf16 copies do not fit the card): the
+    rank's whole copy from seed 0 placed under DEFAULT_RULES (the
+    prefill's) and under SERVE_RULES with the one-process prefill of
+    ``prompts`` into caches of ``TP_DECODE_LEN`` (the decode's), every
+    block copied to host memory before the whole copy is freed and its
+    memory released to the CUDA runtime (a block copied on the card would
+    pin a segment of it). -> (the prefill's trees, the decode's), held
+    on the host (``tp_on_card``); a line with the turn's seconds."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.models import transformer as T
+    from repro_torch.train import _tree
+
+    def to_host(x):
+        if isinstance(x, DTensor):
+            return (x.to_local().cpu(), x.device_mesh, x.placements,
+                    x.shape, x.stride())
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    def on_host(trees):
+        return [(_tree.tree_map(lambda _: None, t),
+                 [to_host(x) for x in _tree.leaves(t)]) for t in trees]
+    gc.collect()  # earlier programs' DTensors hold reference cycles
+    torch.cuda.empty_cache()
+    out = None
+    for r in range(TP_WORLD):
+        if r == rank:
+            t0 = time.perf_counter()
+            cfg = tp_cfg(JAMBA_ARCH, "bfloat16")
+            params = T.init_params(cfg, seed=0, device="cuda")
+            with dsh.axis_rules(dsh.DEFAULT_RULES):
+                pre = on_host([dsh.place(params, T.param_specs(cfg), mesh)])
+            with dsh.axis_rules(dsh.SERVE_RULES), torch.no_grad():
+                first, state = T.prefill(params, cfg, prompts.to("cuda"),
+                                         max_len=TP_DECODE_LEN)
+                dec = on_host([dsh.place(params, T.param_specs(cfg), mesh),
+                               dsh.place(state, T.cache_specs(cfg), mesh),
+                               first])
+            del params, first, state
+            gc.collect()
+            torch.cuda.empty_cache()
+            out = pre, dec
+            lines.append(dict(arch=JAMBA_ARCH, program="place_in_turns",
+                              turn=r, turn_s=round(
+                                  time.perf_counter() - t0, 3)))
+        dist.barrier()
+    return out
+
+
+def tp_on_card(made: list) -> tuple:
+    """``tp_jamba_turns``' trees from host memory, on the card."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.train import _tree
+
+    def to_card(x):
+        if isinstance(x, tuple):
+            return DTensor.from_local(x[0].to("cuda"), x[1], x[2],
+                                      run_check=False, shape=x[3],
+                                      stride=x[4])
+        return x.to("cuda") if isinstance(x, torch.Tensor) else x
+    return tuple(_tree.unflatten(sk, [to_card(x) for x in xs])
+                 for sk, xs in made)
+
+
+def tp_train(rank: int, arch: str, mesh, ocfg, batches, lines: list,
+             out: dict) -> None:
+    """The partitioned float32 train steps of ``tp_model`` on ``batches``:
+    losses and grad norms into ``out``, rank 0's gathered qwen and rwkv6
+    parameters too, a line per step into ``lines``."""
     import torch
     from torch.distributed.tensor import DTensor
     from repro_torch.dist import compat, parallel
@@ -4881,53 +4994,78 @@ def tp_model(rank: int, arch: str, mesh, lines: list) -> dict:
     from repro_torch.train import _tree
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_loop as tl
-    ocfg, batches, prompts = tp_data(arch)
-    out: dict = {"losses": [], "norms": []}
     cfg = tp_cfg(arch, "float32")
     specs = T.param_specs(cfg)
+    p = dsh.place(T.init_params(cfg, seed=0, device="cuda"), specs, mesh)
+    s = opt.init_state(ocfg, p)
+    step = tl.make_train_step(cfg, ocfg)
+    for i, b in enumerate(batches):
+        b = tl.to_device(b, p)
+        parallel.STATS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, s, m = step(p, s, b)
+        loss = m["loss"].item()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        st = parallel.STATS
+        out["losses"].append(loss)
+        out["norms"].append(float(m["grad_norm"]))
+        lines.append(dict(
+            arch=arch, program="train", dtype=cfg.dtype, step=i,
+            rows=f"{b['inputs'].shape[0]}x{TP_SEQ}", loss=loss,
+            collectives=st.calls, by_op=json.dumps(st.by_op),
+            bytes=st.bytes, host_staged_bytes=st.staged_bytes,
+            step_ms=round(dt * 1e3, 3), host_staged_ops=_staged(st),
+            peak_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30,
+                           3)))
+    if arch in (ARCH, RWKV_ARCH):
+        # gathered on a host mesh of the same group: gloo's all-gather
+        # takes no CUDA tensor (parallel.GLOO_DEVICE_OPS)
+        host = compat.make_mesh(TP_MESH, ("data", "model"),
+                                device_type="cpu")
+        paths, flat = _tree.flatten(p)
+        full = [DTensor.from_local(t.to_local().cpu(), host,
+                                   t.placements, run_check=False,
+                                   shape=t.shape, stride=t.stride()
+                                   ).full_tensor()
+                for t in flat]  # every rank takes part
+        if rank == 0:
+            out["params"] = dict(zip(paths, full))
+        del full, flat
+    del p, s
+    torch.cuda.empty_cache()
+
+
+def tp_model(rank: int, arch: str, mesh, lines: list) -> dict:
+    """``arch`` at its published widths from seed 0 (``tp_cfg``): the
+    partitioned train steps in float32 (``tp_data``; the moments made
+    from the placed parameters, ``opt.init_state``; none for jamba), then
+    a partitioned prefill of the rank's rows of the prompts in bf16, then
+    the partitioned decode in bf16 and float32 (``tp_decode``; jamba's in
+    bf16). Appends a line per program run to ``lines``; returns the
+    losses and grad norms, rank 0's gathered qwen and rwkv6 parameters,
+    and the rank's logits and cache blocks with its place in the mesh and
+    its blocks of the recurrent channels and heads."""
+    import gc
+    import torch
+    from repro_torch.dist import parallel
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.models import transformer as T
+    ocfg, batches, prompts = tp_data(arch)
+    out: dict = {"losses": [], "norms": []}
     with dsh.axis_rules(dsh.DEFAULT_RULES), dsh.use_mesh(mesh):
-        p = dsh.place(T.init_params(cfg, seed=0, device="cuda"), specs, mesh)
-        s = opt.init_state(ocfg, p)
-        step = tl.make_train_step(cfg, ocfg)
-        for i, b in enumerate(batches):
-            b = tl.to_device(b, p)
-            parallel.STATS.reset()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            p, s, m = step(p, s, b)
-            loss = m["loss"].item()
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            st = parallel.STATS
-            out["losses"].append(loss)
-            out["norms"].append(float(m["grad_norm"]))
-            lines.append(dict(
-                arch=arch, program="train", dtype=cfg.dtype, step=i,
-                rows=f"{b['inputs'].shape[0]}x{TP_SEQ}", loss=loss,
-                collectives=st.calls, by_op=json.dumps(st.by_op),
-                bytes=st.bytes, host_staged_bytes=st.staged_bytes,
-                step_ms=round(dt * 1e3, 3), host_staged_ops=_staged(st),
-                peak_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30,
-                               3)))
-        if arch == ARCH:
-            # gathered on a host mesh of the same group: gloo's all-gather
-            # takes no CUDA tensor (parallel.GLOO_DEVICE_OPS)
-            host = compat.make_mesh(TP_MESH, ("data", "model"),
-                                    device_type="cpu")
-            paths, flat = _tree.flatten(p)
-            full = [DTensor.from_local(t.to_local().cpu(), host,
-                                       t.placements, run_check=False,
-                                       shape=t.shape, stride=t.stride()
-                                       ).full_tensor()
-                    for t in flat]  # every rank takes part
-            if rank == 0:
-                out["params"] = dict(zip(paths, full))
-            del full, flat
-        del p, s
-        torch.cuda.empty_cache()
+        if batches:
+            tp_train(rank, arch, mesh, ocfg, batches, lines, out)
         cfg16 = tp_cfg(arch, "bfloat16")
-        placed = dsh.place(T.init_params(cfg16, seed=0, device="cuda"),
-                           T.param_specs(cfg16), mesh)
+        dec = None
+        if arch == JAMBA_ARCH:
+            pre, dec = tp_jamba_turns(rank, mesh, prompts, lines)
+            (placed,) = tp_on_card(pre)
+            del pre
+        else:
+            placed = dsh.place(T.init_params(cfg16, seed=0, device="cuda"),
+                               T.param_specs(cfg16), mesh)
         part = T.partition(placed, cfg16)
         rows = TP_PROMPTS // part.n_batch
         mine = prompts[part.batch_index * rows:
@@ -4947,39 +5085,54 @@ def tp_model(rank: int, arch: str, mesh, lines: list) -> dict:
             host_staged_bytes=st.staged_bytes, step_ms=round(dt * 1e3, 3),
             host_staged_ops=_staged(st), heads=json.dumps(part.heads),
             experts=json.dumps(part.experts),
+            inner=json.dumps(part.inner),
+            rwkv_heads=json.dumps(part.rwkv_heads),
             logits_shape=json.dumps(list(logits.shape)),
-            cache_shape=json.dumps(list(state["caches"][0]["k"].shape))))
+            cache_shapes=_cache_shapes(state["caches"][0])))
         out["prefill"] = dict(
             logits=logits.cpu(), batch_index=part.batch_index,
-            model_rank=part.model.rank, routes=routes,
+            model_rank=part.model.rank, routes=routes, inner=part.inner,
+            rwkv_heads=part.rwkv_heads,
             caches=[{k: v.cpu() for k, v in c.items()}
                     for c in state["caches"]])
         del placed, state, logits, part
+        gc.collect()  # DTensors hold reference cycles
         torch.cuda.empty_cache()
-        for dtype in ("bfloat16", "float32"):
-            out[f"decode_{dtype}"] = tp_decode(tp_cfg(arch, dtype), mesh,
-                                               prompts, lines)
+        for dtype in tp_decode_dtypes(arch):
+            out[f"decode_{dtype}"] = tp_decode(
+                tp_cfg(arch, dtype), mesh, prompts, lines,
+                None if dec is None else tp_on_card(dec))
             torch.cuda.empty_cache()
     return out
 
 
-def tp_decode(cfg, mesh, prompts, lines: list) -> dict:
+def _cache_shapes(cache: dict) -> str:
+    """A layer's cache leaves' local shapes, as JSON."""
+    return json.dumps({k: list(getattr(v, "to_local", lambda: v)().shape)
+                       for k, v in cache.items()})
+
+
+def tp_decode(cfg, mesh, prompts, lines: list, made=None) -> dict:
     """The partitioned decode on this rank under SERVE_RULES: the
     one-process prefill of ``prompts`` into caches of ``TP_DECODE_LEN``
-    placed by ``cache_specs``, the weights by ``param_specs``, then
-    ``TP_DECODE_STEPS`` greedy steps; a line per step. Returns the
-    tokens (whole) and each step's vocab block of the logits."""
+    placed by ``cache_specs``, the weights by ``param_specs`` (``made``:
+    jamba's, from ``tp_jamba_turns``), then ``TP_DECODE_STEPS`` greedy
+    steps; a line per step. Returns the tokens (whole) and each step's
+    vocab block of the logits."""
     import torch
     from repro_torch.dist import parallel
     from repro_torch.dist import sharding as dsh
     from repro_torch.models import transformer as T
     with dsh.axis_rules(dsh.SERVE_RULES), torch.no_grad():
-        params = T.init_params(cfg, seed=0, device="cuda")
-        first, state = T.prefill(params, cfg, prompts.to("cuda"),
-                                 max_len=TP_DECODE_LEN)
-        placed = dsh.place(params, T.param_specs(cfg), mesh)
-        state = dsh.place(state, T.cache_specs(cfg), mesh)
-        del params
+        if made is None:
+            params = T.init_params(cfg, seed=0, device="cuda")
+            first, state = T.prefill(params, cfg, prompts.to("cuda"),
+                                     max_len=TP_DECODE_LEN)
+            made = (dsh.place(params, T.param_specs(cfg), mesh),
+                    dsh.place(state, T.cache_specs(cfg), mesh), first)
+            del params
+        placed, state, first = made
+        del made
         torch.cuda.empty_cache()
         part = T.partition(placed, cfg, decode=True)
         tok = first.argmax(-1)
@@ -5004,8 +5157,7 @@ def tp_decode(cfg, mesh, prompts, lines: list) -> dict:
                     step_ms_host_staged=round(dt * 1e3, 3),
                     host_staged_ops=_staged(st),
                     logits_shape=json.dumps(list(lg.shape)),
-                    cache_shape=json.dumps(list(
-                        state["caches"][0]["k"].to_local().shape)),
+                    cache_shapes=_cache_shapes(state["caches"][0]),
                     **({"experts": json.dumps(part.experts(moe[0]))}
                        if moe else {})))
                 tokens.append(tok.cpu())
@@ -5155,8 +5307,8 @@ def tp_hold_prefill(arch: str, res: list) -> None:
         logits[b0:b0 + rows, :, v0:v0 + nv] = pf["logits"]
         for got, c in zip(caches, pf["caches"]):
             for k, blk in c.items():
-                s0 = pf["model_rank"] * blk.shape[1]
-                got[k][b0:b0 + rows, s0:s0 + blk.shape[1]] = blk
+                got[k][tp_block(pf, "k" in c, k, blk, got[k].shape,
+                                b0)] = blk
 
     def rel(a, b):
         a, b = a.double(), b.cpu().double()
@@ -5176,21 +5328,38 @@ def tp_hold_prefill(arch: str, res: list) -> None:
                              "from the one-process prefill")
 
 
+def tp_block(pf: dict, attn: bool, name: str, blk, shape, b0: int):
+    """Where a rank's prefill cache block lies in the whole cache: an
+    attention cache's rows by its sequence block; a carry's rows by its
+    d_inner block (mamba ``h`` dim 1, ``conv`` dim 2) or heads (rwkv
+    ``h`` dim 1) where ``cache_specs`` splits them, else whole."""
+    idx = [slice(b0, b0 + blk.shape[0])] + [slice(None)] * (blk.ndim - 1)
+    if attn:
+        s0 = pf["model_rank"] * blk.shape[1]
+        idx[1] = slice(s0, s0 + blk.shape[1])
+    elif name in ("h", "conv"):
+        d = 2 if name == "conv" else 1
+        if blk.shape[d] != shape[d]:
+            c0 = pf["inner" if blk.ndim == 3 else "rwkv_heads"][0]
+            idx[d] = slice(c0, c0 + blk.shape[d])
+    return tuple(idx)
+
+
 def tp_hold_decode(arch: str, res: list) -> None:
     """The partitioned decode against the one-process decode on the card,
     from the same prefill: every rank's tokens alike; per dtype, the
     ranks' logits assembled by vocab against the one-process decode fed
     the partitioned run's tokens and, of a MoE model, experts
     (``forced_routes``; relative global norm), and the greedy tokens
-    equal to the one-process greedy run's (phi's in float32 alone: a
-    bf16 near-tie among its top logits may break them, and the forced
-    logits hold its bf16 run)."""
+    equal to the one-process greedy run's (but qwen's, in float32 alone:
+    a bf16 near-tie among the top logits may break them, and the forced
+    logits hold the bf16 run; jamba decodes in bf16 alone)."""
     import torch
     from repro_torch.models import transformer as T
     _, _, prompts = tp_data(arch)
-    for dtype, tol in (("bfloat16", TP_DECODE_RTOL),
-                       ("float32", TP_DECODE32_RTOL)):
-        key = f"decode_{dtype}"
+    tols = {"bfloat16": TP_DECODE_RTOL, "float32": TP_DECODE32_RTOL}
+    for dtype in tp_decode_dtypes(arch):
+        key, tol = f"decode_{dtype}", tols[dtype]
         toks = res[0][key]["tokens"]
         for r in res[1:]:
             if not torch.equal(r[key]["tokens"], toks):
@@ -5295,10 +5464,11 @@ def dryrun_sweep():
 
 def phase_dryrun(ctx: dict) -> None:
     """qwen1.5-0.5b's decode_32k, prefill_32k and train_4k per-rank
-    programs (all three partitioned) and rwkv6-3b's decode_32k run for real
-    on the card; then the sweep, which ``main`` started with the script, is
-    waited for, and each program is held against its cell's report
-    (module docstring); K1-K4 are not launched."""
+    programs and rwkv6-3b's decode_32k run for real on the card, and the
+    decode_32k programs of ``DRYRUN_CUT`` beside in-process dry runs of
+    the same cut configs; then the sweep, which ``main`` started with the
+    script, is waited for, and each program is held against its cell's
+    report (module docstring); K1-K4 are not launched."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun
@@ -5312,11 +5482,10 @@ def phase_dryrun(ctx: dict) -> None:
     proc, outs, log_path = ctx.pop("sweep")
     running = proc.poll() is None
     measured = {p: dryrun_on_card(*p) for p in DRYRUN_PROGRAMS}
-    cut = (MOE_ARCH, "decode_32k")
-    cut_run = dryrun_on_card(*cut, layers=DRYRUN_MOE_LAYERS)
-    cut_report = dryrun.dryrun_cell(*cut, multi_pod=False, verbose=False,
-                                    device="cuda",
-                                    n_layers=DRYRUN_MOE_LAYERS)
+    cuts = [(arch, n, dryrun_on_card(arch, "decode_32k", layers=n),
+             dryrun.dryrun_cell(arch, "decode_32k", multi_pod=False,
+                                verbose=False, device="cuda", n_layers=n))
+            for arch, n in DRYRUN_CUT]
     waited = time.perf_counter()
     rc = proc.wait(timeout=DRYRUN_SWEEP_TIMEOUT)
     wait_s = round(time.perf_counter() - waited, 1)
@@ -5333,8 +5502,8 @@ def phase_dryrun(ctx: dict) -> None:
         (r,) = [r for r in reports if r["arch"] == arch
                 and r["shape"] == name and not r["multi_pod"]]
         dryrun_held(arch, name, r, measured[arch, name], smi, total)
-    dryrun_held(cut[0], f"{cut[1]}/{DRYRUN_MOE_LAYERS}-layers", cut_report,
-                cut_run, smi, total)
+    for arch, n, run, report in cuts:
+        dryrun_held(arch, f"decode_32k/{n}-layers", report, run, smi, total)
     launches = {k: v for k, v in ops.launch_counts().items() if v}
     if launches:
         raise AssertionError(f"kernels launched in dryrun: {launches}")
@@ -5351,13 +5520,9 @@ def dryrun_on_card(arch: str, shape_name: str,
     (weights from seed 0, zeroed inputs and caches), one warm-up under
     ``FlopCounterMode`` with the peak of allocated bytes above what the
     process held before, then ``DRYRUN_RUNS`` runs timed by CUDA events.
-    The partitioned programs (every program of a config that
-    ``transformer.partitioned`` covers) run as rank 0 of a fake 256-rank
+    Every program is partitioned and runs as rank 0 of a fake 256-rank
     group (its collectives move nothing; the group is destroyed
-    afterwards), the train step with grad enabled; the others run plain on
-    an ``AbstractMesh``."""
-    import contextlib
-    import dataclasses
+    afterwards), the train step with grad enabled."""
     import gc
     import torch
     import torch.distributed as dist
@@ -5365,29 +5530,21 @@ def dryrun_on_card(arch: str, shape_name: str,
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch import configs
     from repro_torch.dist import sharding as dsh
-    from repro_torch.dist.compat import AbstractMesh
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.models import transformer as T
     cfg = configs.get(arch)
     if layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
+        cfg = dryrun.cut_depth(cfg, layers)
     shape = {s.name: s for s in configs.ALL_SHAPES}[shape_name]
-    partitioned = T.partitioned(cfg)
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
-    if partitioned:
-        dist.init_process_group("fake", store=FakeStore(), rank=0,
-                                world_size=256)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=256)
     try:
-        if partitioned:
-            mesh = make_production_mesh(device_type="cuda")
-            within = dsh.use_mesh(mesh)
-        else:
-            mesh = AbstractMesh((16, 16), ("data", "model"))
-            within = contextlib.nullcontext()
+        mesh = make_production_mesh(device_type="cuda")
+        within = dsh.use_mesh(mesh)
         with dsh.axis_rules(dryrun.cell_rules(shape, multi_pod=False)):
             step, args = dryrun.rank_program(cfg, shape, mesh, "cuda")
             torch.cuda.synchronize()
@@ -5411,8 +5568,7 @@ def dryrun_on_card(arch: str, shape_name: str,
         rows = getattr(first, "_local_tensor", first).shape[0]
         del step, args, first
     finally:
-        if partitioned:
-            dist.destroy_process_group()
+        dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
     return {"flops": fc.get_total_flops(), "peak": peak, "ms": ms,

@@ -39,6 +39,8 @@ from repro_torch.configs.raella_bert_large import CONFIG as RAELLA_BERT_LARGE
 from repro_torch.configs.rwkv6_3b import CONFIG as RWKV6_3B
 from repro_torch.configs.yi_6b import CONFIG as YI_6B
 
+JAMBA_15_LARGE = JAMBA15_LARGE  # the reference's name
+
 __all__ = [
     "ALL_SHAPES", "DECODE_32K", "LONG_500K", "PREFILL_32K", "TRAIN_4K",
     "ArchConfig", "InputShape", "REGISTRY", "ASSIGNED", "get",

@@ -154,6 +154,17 @@ def encode(w_u8: torch.Tensor, slicing: Sequence[int],
         rows_per_xbar=rows_per_xbar)
 
 
+def decode(enc: EncodedWeights) -> torch.Tensor:
+    """Reconstruct the unsigned 8b weight matrix (exactness check), int64."""
+    n_slices, n_seg, R, cols = enc.planes.shape
+    r = torch.zeros((n_seg, R, cols), dtype=torch.int64,
+                    device=enc.planes.device)
+    for j, l in enumerate(enc.shifts):
+        r += enc.planes[j].to(torch.int64) << int(l)
+    w = r + enc.centers[:, None, :].to(torch.int64)
+    return w.reshape(n_seg * R, cols)[: enc.rows]
+
+
 def center_term(x_u8: torch.Tensor, enc: EncodedWeights) -> torch.Tensor:
     """The digital term phi * sum(I) of Eq. 1, per segment, summed.
 

@@ -40,11 +40,27 @@ routes the gathered sequence of its rows with the replicated router
 slots of its own experts, and the reduce-scatter onto its sequence block
 sums every rank's experts (``layers.moe_block``).
 
+The recurrent layers run over the gathered sequence (the scans and the
+token shifts run along it), on the rank's compute block, split as heads
+are (``head_range``): a mamba layer on its d_inner channels ``[c0, c1)``
+(``Partition.inner``; ``in_proj``'s columns of that block in both halves
+``[xin | z]``), its ``x_proj`` partial sums summed over "model"
+(``sum_partials``: every rank's channels take the whole dt | B | C), its
+``out_proj`` reduce-scattered; an rwkv6 layer on its whole heads
+(``Partition.rwkv_heads``, ``H = d_model / rwkv_head_dim``; ``ln_x``,
+``decay_base`` and ``decay_B``'s columns narrowed alike), its output
+norm's float64 sum of squares summed over "model", ``wo`` and the
+channel-mix's ``wv`` reduce-scattered, the gate's replicated ``wr`` on the
+rank's sequence block. A prefill returns the carries as ``cache_specs``
+places them: the rank's block where the model axis splits the channels
+or heads evenly, else gathered whole.
+
 Gradients. The collectives are ``torch.autograd.Function`` s over
 ``torch.distributed._functional_collectives``: an all-gather's backward is
 a reduce-scatter (sum) and the reverse; ``all_reduce`` (the loss's sums
 over the vocab shards) passes its gradient through unchanged, since every
-rank of the group holds the same loss. After the backward, a leaf's
+rank of the group holds the same loss, and ``sum_partials`` (a sum that
+feeds per-rank work) sums it over the group. After the backward, a leaf's
 gradient is summed over every mesh dim on which the leaf is replicated
 (``reduce_grad``): the batch ranks computed different rows, and the
 ``"model"`` ranks applied a replicated leaf (a norm, a replicated head)
@@ -71,8 +87,16 @@ the batch as one dispatch group, runs the experts of its expert leaves'
 local blocks and all-reduces their outputs over the group of the mesh
 dims that shard the expert dim (``ServePartition.experts``); the
 embedding is a masked lookup all-reduced over its vocab group, and the
-head returns the rank's vocab block of the logits. No weight is
-gathered. Under
+head returns the rank's vocab block of the logits. A mamba or rwkv layer
+(``ServeLayer``) steps the state's rows that the rank holds, every
+channel and head (``cache_specs`` leaves them whole under these rules):
+its column-parallel projections are gathered whole and the rank takes
+its rows, a row-parallel projection takes the whole batch's inputs
+(gathered over the state's rows) on its rows' block, and the leaves that
+the state meets channel by channel (``STATE_LEAVES``: mamba's ``conv_w``,
+``conv_b``, ``A_log`` and ``D``, rwkv's ``bonus``; 1.2 MB a mamba layer
+at jamba's widths) are gathered once, when the ``ServePartition`` is
+made. No decode step gathers a weight. Under
 MULTIPOD_SERVE_RULES the weights are replicated over ``"pod"`` and every
 pod runs the same program.
 
@@ -102,6 +126,11 @@ from repro_torch.train import _tree
 MODEL_AXES = ("seq", "tp", "heads", "kv_heads", "vocab", "experts")
 # per-head leaf dims: the compute split follows ``head_range``
 _HEAD_AXES = ("heads", "kv_heads")
+
+# the core leaves that each recurrent kind applies to its state channel by
+# channel or head by head (the partitioned decode holds them whole)
+STATE_LEAVES = {"mamba": ("conv_w", "conv_b", "A_log", "D"),
+                "rwkv": ("bonus",)}
 
 # ops a gloo group runs on CUDA tensors: tools/gloo_cuda_probe.py on the
 # H100 (torch 2.11.0+cu128) found reduce-scatter and all-reduce (sum, max)
@@ -226,6 +255,17 @@ class _AllReduce(torch.autograd.Function):
         return g, None
 
 
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.run("all_reduce", x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.run("all_reduce", g), None
+
+
 def all_gather(x: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
     """Concatenate the group's blocks along ``dim``; backward: a
     reduce-scatter (sum). Identity on a group of one."""
@@ -248,6 +288,26 @@ def all_reduce(x: torch.Tensor, group: Group, op: str = "sum"
     if op == "sum":
         return _AllReduce.apply(x, group)
     return group.run("all_reduce", x, reduce=op)
+
+
+def sum_partials(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The sum over the group of the ranks' partial values (a row-parallel
+    product's partial sums) where the sum then feeds work that differs
+    between the ranks (their own channels or heads): each rank's gradient
+    of the sum is then its part of the whole gradient, so the backward
+    sums it over the group too (Megatron's conjugate pair of
+    ``all_reduce``). Identity on a group of one."""
+    return x if group.size == 1 else _SumPartials.apply(x, group)
+
+
+def _core_leaf(cfg, path: str) -> tuple:
+    """(the layer's kind, the leaf's name) of a core leaf's path
+    (``layers/3/core/in_proj``), else (None, None)."""
+    bits = path.split("/")
+    if len(bits) != 4 or bits[0] != "layers" or bits[2] != "core":
+        return None, None
+    pat = cfg.block_pattern
+    return pat[int(bits[1]) % len(pat)], bits[3]
 
 
 def _one_axis(mesh, logical: str) -> str | None:
@@ -341,6 +401,13 @@ class Partition:
         self.even = {"heads": cfg.n_heads % m == 0,
                      "kv_heads": cfg.n_heads % m == 0
                      and cfg.n_kv_heads % m == 0}
+        # the recurrent layers' compute blocks, split as heads are: mamba's
+        # d_inner channels [c0, c1), rwkv's whole heads [h0, h1) of hd
+        from repro_torch.models import ssm
+        self.di = ssm.mamba_dims(cfg)[0]
+        self.inner = head_range(self.di, m, r)
+        self.rwkv_n, self.rwkv_hd = ssm.rwkv_dims(cfg)
+        self.rwkv_heads = head_range(self.rwkv_n, m, r)
 
     # ----------------------------------------------------------- leaves
     def _shard_dim(self, pl: tuple, mesh_dim: int | None) -> int | None:
@@ -372,8 +439,17 @@ class Partition:
         if fd is not None:
             t = all_gather(t, fd, self.groups[self.fsdp_dim])
         md = self._shard_dim(pl, self.model_dim)
+        rec = self._recurrent(path, axes)
         for d, ax in enumerate(axes):
-            if ax == "experts":
+            if d in rec:
+                spans, stored = rec[d]
+                if md == d and stored:  # the stored block is the split
+                    continue
+                if md == d:
+                    t = all_gather(t, d, self.model)
+                parts = [t.narrow(d, lo, hi - lo) for lo, hi in spans]
+                t = parts[0] if len(parts) == 1 else torch.cat(parts, d)
+            elif ax == "experts":
                 if md != d:  # stored evenly, the block is the split
                     e0, e1 = self.experts
                     t = t.narrow(d, e0, e1 - e0)
@@ -386,6 +462,48 @@ class Partition:
                     t = all_gather(t, d, self.model)
                 t = self._heads(t, d, ax)
         return t
+
+    def _recurrent(self, path: str, axes: tuple) -> dict:
+        """``{dim: (spans, stored)}`` for a mamba or rwkv core leaf: the
+        index spans of ``dim`` that this rank computes with, and whether
+        an even stored split of ``dim`` over the model axis is that
+        compute split. Mamba's ``"tp"`` dims take the rank's d_inner
+        block, ``in_proj``'s of both its halves ``[xin | z]``; rwkv's take
+        the rank's whole heads: the columns (or ``wo``'s rows) of ``hd``
+        each, ``bonus``'s rows, and the per-channel ``ln_x``,
+        ``decay_base`` and ``decay_B``'s columns, which are replicated.
+        Empty for any other leaf."""
+        kind, name = _core_leaf(self.cfg, path)
+        m = self.model.size
+        if kind == "mamba":
+            c0, c1 = self.inner
+            if name == "in_proj":
+                di = self.di
+                return {1: ([(c0, c1), (di + c0, di + c1)], m == 1)}
+            return {d: ([(c0, c1)], self.di % m == 0)
+                    for d, ax in enumerate(axes) if ax == "tp"}
+        if kind != "rwkv":
+            return {}
+        (h0, h1), hd = self.rwkv_heads, self.rwkv_hd
+        even = self.rwkv_n % m == 0
+        if name == "bonus":
+            return {0: ([(h0, h1)], even)}
+        cols = [(h0 * hd, h1 * hd)]
+        if name in ("ln_x", "decay_base"):
+            return {0: (cols, False)}
+        if name == "decay_B":
+            return {1: (cols, False)}
+        return {d: (cols, even) for d, ax in enumerate(axes) if ax == "tp"}
+
+    def gather_blocks(self, t: torch.Tensor, dim: int, n: int
+                      ) -> torch.Tensor:
+        """The ranks' ``head_range`` blocks of a dim of ``n`` (heads or
+        channels), this rank's ``t``, gathered whole over the model axis:
+        each padded to ``ceil(n / |model|)``, the padding cut after."""
+        per = -(-n // self.model.size)
+        pad = [0, 0] * (t.ndim - dim - 1) + [0, per - t.shape[dim]]
+        y = all_gather(torch.nn.functional.pad(t, pad), dim, self.model)
+        return y.narrow(dim, 0, n)
 
     def whole(self, local: torch.Tensor, path: str) -> torch.Tensor:
         """Leaf ``path`` whole, from its local block: gathered over the
@@ -436,6 +554,10 @@ class Partition:
 
     def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
         return all_gather(x, 1, self.model)
+
+    def sum_model(self, x: torch.Tensor) -> torch.Tensor:
+        """``sum_partials`` over the model axis."""
+        return sum_partials(x, self.model)
 
     def scatter_seq(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[1] % self.model.size:
@@ -593,6 +715,19 @@ class ServePartition:
                     f"{sp.dim}, which the partitioned decode does not split")
             self.leaf[path] = sp
         self.local = local(params)
+        # the leaves that a mamba or rwkv layer applies to its state
+        # channel by channel (``STATE_LEAVES``), whole: the state's rows
+        # step every channel on the rank that holds them (``cache_specs``
+        # leaves d_inner and the heads whole under these rules), so these
+        # are gathered once, here, and no decode step moves a weight
+        self.state_leaf = {}
+        for path, t in zip(paths, leaves):
+            kind, name = _core_leaf(cfg, path)
+            if name in STATE_LEAVES.get(kind, ()):
+                sp = self.leaf[path]
+                blk = t.to_local().detach()
+                self.state_leaf[path] = blk if sp.dim is None else \
+                    all_gather(blk, sp.dim, sp.group)
 
     # ------------------------------------------------------- activations
     def gather_cols(self, t: torch.Tensor, path: str) -> torch.Tensor:
@@ -624,6 +759,12 @@ class ServePartition:
         ``path``'s group."""
         return all_reduce(y, self.leaf[path].group)
 
+    def layer(self, prefix: str, rows: Split) -> "ServeLayer":
+        """The view of the leaves under ``prefix`` (``layers/3/``) that a
+        recurrent layer's decode takes, its state's rows split by
+        ``rows``."""
+        return ServeLayer(self, prefix, rows)
+
     def experts(self, path: str) -> tuple[int, int]:
         """The experts ``[e0, e1)`` that expert leaf ``path``'s local block
         holds (every expert where the leaf is replicated)."""
@@ -652,9 +793,11 @@ class ServePartition:
 
     # ------------------------------------------------------------- cache
     def cache_layout(self, caches: list) -> tuple[Split, Split]:
-        """The rows' and positions' ``Split`` of the attention caches
-        (every leaf placed alike, by ``cache_specs``): dims 0 and 1 of a
-        ``(rows, positions, K, hd)`` DTensor."""
+        """The rows' and positions' ``Split`` of the decode state (placed
+        by ``cache_specs``): dim 0 of every leaf holds its rows, split
+        alike in every layer; dim 1 of the attention caches' ``(rows,
+        positions, K, hd)`` leaves their positions (whole where no layer
+        attends). A recurrent carry splits its rows alone."""
         from torch.distributed.tensor import DTensor, Replicate, Shard
         leaves = [t for c in caches for t in c.values()]
         if not leaves or not all(isinstance(t, DTensor) and t.device_mesh
@@ -662,21 +805,71 @@ class ServePartition:
             raise ValueError(
                 "a partitioned decode takes its state placed on the mesh "
                 "by cache_specs (DTensor caches)")
-        pl = tuple(leaves[0].placements)
-        if any(tuple(t.placements) != pl for t in leaves):
-            raise ValueError("the attention caches are placed unalike")
-        shape = leaves[0].to_local().shape
-        out = []
-        for dim in (0, 1):
-            dims = [d for d, p in enumerate(pl)
-                    if isinstance(p, Shard) and p.dim == dim]
-            out.append(Split(dim if dims else None,
-                             mesh_group(self.mesh, dims), shape[dim]))
-        if any(isinstance(p, Shard) and p.dim > 1 or not isinstance(
-                p, (Shard, Replicate)) for p in pl):
-            raise ValueError(f"cache placements {pl}: the partitioned "
-                             "decode splits rows and positions only")
-        return out[0], out[1]
+
+        def split_dims(t, dim):
+            return tuple(d for d, p in enumerate(t.placements)
+                         if isinstance(p, Shard) and p.dim == dim)
+        for c in caches:
+            top = 1 if "k" in c else 0
+            for t in c.values():
+                if any(not isinstance(p, (Shard, Replicate)) or isinstance(
+                        p, Shard) and p.dim > top for p in t.placements):
+                    raise ValueError(
+                        f"cache placements {tuple(t.placements)}: the "
+                        "partitioned decode splits the attention caches' "
+                        "rows and positions and the carries' rows only")
+        rdims = {split_dims(t, 0) for t in leaves}
+        kv = [t for c in caches if "k" in c for t in c.values()]
+        if len(rdims) > 1 or len({tuple(t.placements) for t in kv}) > 1:
+            raise ValueError("the decode state's leaves are placed unalike")
+        (rdims,) = rdims
+        rows = Split(0 if rdims else None, mesh_group(self.mesh, rdims),
+                     leaves[0].to_local().shape[0])
+        if not kv:
+            return rows, Split(None, _Solo(), 0)
+        sdims = split_dims(kv[0], 1)
+        return rows, Split(1 if sdims else None, mesh_group(self.mesh, sdims),
+                           kv[0].to_local().shape[1])
+
+
+class ServeLayer:
+    """A mamba or rwkv layer's view of the partitioned decode: the
+    leaves under ``prefix`` (``layers/3/core/``) by name, the whole
+    activations ``(B, 1, ...)`` that every rank holds, and the rank's
+    rows of the state (``rows``, ``ServePartition.cache_layout``). A
+    column-parallel output is gathered whole (``cols``); a row-parallel
+    product takes the whole batch's inputs (``every``) narrowed to its
+    rows' block and sums its partial products (``reduce``); the state's
+    channel-wise leaves come whole (``whole``)."""
+
+    def __init__(self, part: ServePartition, prefix: str, rows: Split):
+        self.part, self.prefix, self.rows = part, prefix, rows
+
+    def at(self, sub: str) -> "ServeLayer":
+        return ServeLayer(self.part, f"{self.prefix}{sub}/", self.rows)
+
+    def cols(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        return self.part.gather_cols(t, self.prefix + name)
+
+    def block(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        return self.part.block(t, self.prefix + name)
+
+    def rows_for(self, t: torch.Tensor, src: str, dst: str) -> torch.Tensor:
+        return self.part.rows_for(t, self.prefix + src, self.prefix + dst)
+
+    def reduce(self, y: torch.Tensor, name: str) -> torch.Tensor:
+        return self.part.reduce(y, self.prefix + name)
+
+    def whole(self, name: str) -> torch.Tensor:
+        return self.part.state_leaf[self.prefix + name]
+
+    def mine(self, t: torch.Tensor) -> torch.Tensor:
+        """The rank's rows of a whole-batch tensor."""
+        return t.narrow(0, self.rows.start, self.rows.local)
+
+    def every(self, t: torch.Tensor) -> torch.Tensor:
+        """The rank's rows gathered into the whole batch."""
+        return all_gather(t, 0, self.rows.group)
 
 
 def serve_partition(mesh, cfg, params, specs) -> ServePartition:

@@ -11,42 +11,30 @@ mesh (``launch.mesh.make_production_mesh``). Every tensor is a fake tensor
 allocates nothing. ``launch.hlo_analysis.analyze`` counts the step's
 flops, bytes, collectives and peak live bytes at the rank's local shapes.
 
-The step is what the port runs on one rank:
+The step is what the port runs on one rank, the partitioned programs
+(``dist.parallel``) of every config, the counterpart of the reference's
+``jax.jit(..., in_shardings=...)``:
 
-  - train and prefill cells of the configs whose every layer is attention
-    plus a dense MLP or a MoE FFN (``transformer.partitioned``:
-    qwen1.5-0.5b, yi-6b, qwen2.5-32b, qwen1.5-110b, chameleon-34b,
-    hubert-xlarge, phi3.5-moe-42b, llama4-maverick-400b): the
-    partitioned programs (``dist.parallel``), the counterpart of the
-    reference's ``jax.jit(..., in_shardings=params_sh)``. Parameters are
-    placed as DTensors by ``param_specs`` under the cell's rules
-    (``dist.place``), the AdamW state by ``state_specs``; the train step
+  - train and prefill cells: parameters placed as DTensors by
+    ``param_specs`` under the cell's rules (``dist.place``), the AdamW
+    state by ``state_specs``; the train step
     (``train_loop.make_train_step`` under the mesh) is FSDP, tensor and
     sequence parallel on the rank's slice of the batch (MoE FFNs expert
-    parallel over "model"), and the prefill (``transformer.prefill``) is
-    tensor and sequence parallel on the rank's rows, returning the rank's
-    blocks of the logits and caches.
-  - decode cells of the same configs (qwen1.5-0.5b, yi-6b, qwen2.5-32b,
-    qwen1.5-110b, chameleon-34b, phi3.5-moe-42b,
-    llama4-maverick-400b): the partitioned decode under
-    SERVE_RULES / MULTIPOD_SERVE_RULES (``dist.parallel.ServePartition``),
-    the counterpart of the reference's ``jax.jit(decode_step,
-    in_shardings=(params_sh, cache_sh, batch_sh))``: the weights placed
-    by ``param_specs`` (stationary, split over the whole mesh), the state
-    by ``cache_specs`` (the rank's rows by its block of positions; only
-    the local blocks are made), the tokens whole; the step
-    (``transformer.decode_step``) returns the rank's vocab block of the
-    logits; a MoE FFN runs the experts of the rank's stored block.
-  - train cells of the other configs (mamba, rwkv): the data-parallel
-    step, each rank gathering the full weights and running the whole
-    model on its slice of the batch.
-  - their prefill and decode cells: one plain copy of the weights per
-    rank, as the engines hold them, and the rank's block of the inputs
-    and caches along the batch: ``batch_logical`` / ``cache_specs``
-    resolved under the cell's rules and fitted to the shape, so
-    ``long_500k``'s batch of 1 stays whole and a decode rank decodes the
-    sequences whose caches it holds. Sequence and head axes stay whole.
-    The step is ``transformer.prefill`` or ``transformer.decode_step``.
+    parallel over "model", mamba layers over their d_inner channels,
+    rwkv6 layers over whole heads), and the prefill
+    (``transformer.prefill``) is tensor and sequence parallel on the
+    rank's rows, returning the rank's blocks of the logits and caches.
+  - decode cells: the partitioned decode under SERVE_RULES /
+    MULTIPOD_SERVE_RULES (``dist.parallel.ServePartition``), the
+    counterpart of the reference's ``jax.jit(decode_step,
+    in_shardings=(params_sh, cache_sh, batch_sh))``: the weights placed by
+    ``param_specs`` (stationary, split over the whole mesh), the state by
+    ``cache_specs`` (the rank's rows by its block of positions; a
+    recurrent carry by its rows; only the local blocks are made), the
+    tokens whole; the step (``transformer.decode_step``) returns the
+    rank's vocab block of the logits; a MoE FFN runs the experts of the
+    rank's stored block; a recurrent layer steps the rank's rows.
+    ``long_500k``'s batch of 1 stays whole on every rank.
 
 Only the step is counted, not the placement.
 
@@ -80,6 +68,7 @@ import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.configs.base import ArchConfig, InputShape
+from repro_torch.dist import parallel
 from repro_torch.dist import sharding as dsh
 from repro_torch.launch import hlo_analysis as hlo
 from repro_torch.launch.mesh import make_production_mesh
@@ -200,44 +189,33 @@ def make_serve_step(cfg: ArchConfig):
 def rank_program(cfg: ArchConfig, shape: InputShape, mesh, dev):
     """The rank's step and its arguments for this cell (module docstring),
     under the bound rules, with random weights from seed 0 and zeroed
-    inputs and caches: fake tensors under ``FakeTensorMode``, real ones
-    otherwise. The partitioned programs' arguments are placed on ``mesh``
-    (a ``DeviceMesh``); an unpartitioned serve cell reads only its axis
-    sizes (an ``AbstractMesh`` does)."""
+    inputs and caches, placed on ``mesh`` (a ``DeviceMesh``): fake tensors
+    under ``FakeTensorMode``, real ones otherwise. A decode cell's
+    ``ServePartition`` is made here, before the step: its one gather of
+    the channel-wise leaves of the recurrent layers is placement."""
     batch = input_specs(cfg, shape)
     params = T.init_params(cfg, seed=0, device=dev)
+    pspecs = T.param_specs(cfg)
     if shape.kind == "train":
-        pspecs = T.param_specs(cfg)
         opt_cfg = opt.AdamWConfig(state_dtype=cfg.opt_state_dtype)
         state = dsh.place(opt.init_state(opt_cfg, params),
                           opt.state_specs(pspecs), mesh)
         params = dsh.place(params, pspecs, mesh)
-        if T.partitioned(cfg):  # each rank holds its rows, placed
-            batch = {k: _placed_rows(v, dev, mesh)
-                     for k, v in batch.items()}
-        else:
-            batch = {k: _fake(v, dev) for k, v in batch.items()}
+        # each rank holds its rows, placed
+        batch = {k: _placed_rows(v, dev, mesh) for k, v in batch.items()}
         return make_train_step(cfg, opt_cfg), (params, state, batch)
+    params = dsh.place(params, pspecs, mesh)
     if shape.kind == "prefill":
         n = _batch_ranks(batch_logical(cfg, shape)["inputs"][0],
                          shape.global_batch, mesh)
         batch = {"inputs": _fake(batch["inputs"], dev,
                                  shape.global_batch // n)}
-        if T.partitioned(cfg):
-            params = dsh.place(params, T.param_specs(cfg), mesh)
         return make_prefill_step(cfg), (params, batch)
-    if T.partitioned(cfg):  # the tokens whole, weights and state placed
-        params = dsh.place(params, T.param_specs(cfg), mesh)
-        return make_serve_step(cfg), (
-            params, _placed_state(cfg, shape, mesh, dev),
-            {"tokens": _fake(batch["tokens"], dev)})
-    # every cache leaf leads with the one logical axis of its sequences
-    (lead,) = {axes[0] for c in T.cache_specs(cfg)["caches"]
-               for axes in c.values()}
-    rows = shape.global_batch // _batch_ranks(lead, shape.global_batch, mesh)
-    state = T.init_decode_state(cfg, rows, shape.seq_len, device=dev)
-    batch = {"tokens": _fake(batch["tokens"], dev, rows)}
-    return make_serve_step(cfg), (params, state, batch)
+    # the tokens whole, weights and state placed
+    parallel.serve_partition(mesh, cfg, params, pspecs)
+    return make_serve_step(cfg), (
+        params, _placed_state(cfg, shape, mesh, dev),
+        {"tokens": _fake(batch["tokens"], dev)})
 
 
 def cell_rules(shape: InputShape, multi_pod: bool):
@@ -247,15 +225,27 @@ def cell_rules(shape: InputShape, multi_pod: bool):
     return dsh.MULTIPOD_RULES if multi_pod else dsh.DEFAULT_RULES
 
 
+def cut_depth(cfg: ArchConfig, n_layers: int) -> ArchConfig:
+    """``cfg``'s first ``n_layers`` layers: below one repeat of its block
+    pattern, the pattern cut to its first ``n_layers`` positions, so each
+    layer keeps its kind and its FFN (jamba's first 4: mamba + MoE, mamba,
+    mamba + MoE, attention)."""
+    pat = cfg.block_pattern
+    return dataclasses.replace(cfg, n_layers=n_layers,
+                               block_pattern=pat[:n_layers]
+                               if n_layers < len(pat) else pat)
+
+
 # ------------------------------------------------------------- cell dry-run
 def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool,
                 verbose: bool = True, device=None,
                 n_layers: int | None = None) -> dict:
     """One cell's report (module docstring); ``n_layers`` cuts the
-    config's depth (a rank program that one card can also hold whole)."""
+    config's depth (``cut_depth``: a rank program that one card can also
+    hold whole)."""
     cfg = configs.get(arch)
     if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        cfg = cut_depth(cfg, n_layers)
     shape = {s.name: s for s in configs.runnable_shapes(cfg)}.get(shape_name)
     if shape is None:
         return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,

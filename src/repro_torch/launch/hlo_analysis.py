@@ -41,9 +41,12 @@ global product). Per op:
     caching allocator rounds).
 
 Two loops are not run trip by trip. ``models.ssm``'s per-position scans
-run millions of ops at 32k positions, so while ``analyze`` runs it sets
-``ssm.SCAN_LOOP``: a longer scan runs ``SCAN_TRIPS`` trips (the first
-two, one in the middle, the last two) and counts the middle one once more
+run millions of ops at 32k positions (and its projections' row tiles,
+which run through the same loop, thousands), so while ``analyze`` runs
+it sets ``ssm.SCAN_LOOP``: a longer scan runs ``SCAN_TRIPS`` trips (the
+first two, one in the middle, the last two; only their positions are
+viewed, ``ssm.positions``, whose backward stacks every position's
+gradient as a run of every trip does) and counts the middle one once more
 for every trip it skips, as the reference scales a while body. The
 middle trip's backward nodes count as many times (matched by autograd
 sequence number), and the live bytes it added stay counted as many
@@ -367,12 +370,20 @@ class _Counter(TorchDispatchMode):
                 self.track(t)
 
     # ------------------------------------------------------------ scans
-    def scan(self, trip, h, n: int):
+    def scan(self, step, h, xs: tuple):
         """``models.ssm.SCAN_LOOP`` while counting (module docstring): the
         first two trips, one middle trip that stands for ``n - 5`` more,
         and the last two, whose backward differs from a middle trip's (the
         last takes no gradient from a later trip, so the one before it
-        starts every gradient sum that the middle trips add to)."""
+        starts every gradient sum that the middle trips add to). Only the
+        positions run are viewed (``ssm.positions``)."""
+        from repro_torch.models import ssm
+        n = xs[0].shape[1]
+        run = range(n) if n <= SCAN_TRIPS else (0, 1, 2, n - 2, n - 1)
+        at = ssm.positions(xs, run)
+
+        def trip(h, t):
+            return step(h, *at[t])
         ys = []
         if n <= SCAN_TRIPS:
             for t in range(n):

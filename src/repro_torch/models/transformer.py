@@ -78,10 +78,12 @@ def ffn_block(bp: dict, cfg: ArchConfig, layer: int, x: torch.Tensor,
                        part=part)
 
 
-def _init_carry(cfg: ArchConfig, kind: str, batch: int, device) -> dict:
-    """A mamba or rwkv layer's zero carry for ``batch`` slots."""
+def _init_carry(cfg: ArchConfig, kind: str, batch: int, device,
+                part=None) -> dict:
+    """A mamba or rwkv layer's zero carry for ``batch`` slots (under a
+    partition, of the rank's d_inner block or heads)."""
     init = S.init_mamba_state if kind == "mamba" else S.init_rwkv_state
-    return init(cfg, batch, device)
+    return init(cfg, batch, device, part)
 
 
 # ------------------------------------------------------------------ init
@@ -233,15 +235,17 @@ def cache_specs(cfg: ArchConfig, *, paged: bool = False) -> dict:
             c = {"k": kv, "v": kv}
             if cfg.kv_cache_dtype == "int8":
                 c["k_scale"] = c["v_scale"] = kv[:-1]
-        elif kind == "mamba":
-            c = {"h": ("cache_batch", "tp", None),
-                 "conv": ("cache_batch", None, "tp")}
         else:
-            c = {"h": ("cache_batch", "heads", None, None),
-                 "x_prev": ("cache_batch", None),
-                 "cm_prev": ("cache_batch", None)}
+            c = dict(_CARRY_SPECS[kind])
         caches.append(c)
     return {"caches": caches, "pos": ()}
+
+
+_CARRY_SPECS = {"mamba": {"h": ("cache_batch", "tp", None),
+                          "conv": ("cache_batch", None, "tp")},
+                "rwkv": {"h": ("cache_batch", "heads", None, None),
+                         "x_prev": ("cache_batch", None),
+                         "cm_prev": ("cache_batch", None)}}
 
 
 def init_layer(cfg: ArchConfig, layer: int, *, seed: int = 0,
@@ -272,7 +276,7 @@ def apply_block(bp: dict, cfg: ArchConfig, layer: int, x: torch.Tensor,
     sequence's."""
     kind = block_kind(cfg, layer)
     cache = {} if kind == "attn" else _init_carry(cfg, kind, x.shape[0],
-                                                  x.device)
+                                                  x.device, part)
 
     def attend(bp, cache, h, core_plan):
         return L.attention_block(bp["core"], cfg, h, positions,
@@ -281,27 +285,33 @@ def apply_block(bp: dict, cfg: ArchConfig, layer: int, x: torch.Tensor,
 
 
 def run_layer(bp: dict, cfg: ArchConfig, layer: int, x: torch.Tensor,
-              cache: dict, plan, attend, part=None,
-              ffn=None) -> torch.Tensor:
+              cache: dict, plan, attend, part=None, ffn=None,
+              serve=None) -> torch.Tensor:
     """One layer of a prefill chunk or a decode step, continuing from the
     layer's cache and updating it in place. ``attend(bp, cache, h, plan)``
     runs an attention layer's core on the normed input ``h``; the recurrent
     kinds continue their carries, as the reference's ``_decode_block`` and
     ``_prefill_repeat_body`` do, rwkv's channel-mix from ``cm_prev``. Under
-    a partition the norms and residuals act on the rank's sequence block
-    and the FFN is tensor-parallel. ``ffn(bp, h)``, where given, runs an
-    attention or mamba layer's FFN in place of ``ffn_block`` (the
-    partitioned decode)."""
+    a partition the norms and residuals act on the rank's sequence block,
+    the FFN is tensor-parallel and the recurrent cores run on the rank's
+    d_inner block or heads (``models.ssm``). ``ffn(bp, h)``, where given,
+    runs an attention or mamba layer's FFN in place of ``ffn_block``, and
+    ``serve`` (``dist.parallel.ServeLayer`` of the layer) runs the
+    recurrent kinds on the rank's rows of the state: the partitioned
+    decode."""
     kind = block_kind(cfg, layer)
     core_plan = L.plan_leaf(plan, "core")
     h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
+    core = None if serve is None else serve.at("core")
     if kind == "attn":
         h = attend(bp, cache, h, core_plan)
     elif kind == "mamba":
-        carry, h = S.mamba_scan(bp["core"], cfg, h, cache, plans=core_plan)
+        carry, h = S.mamba_scan(bp["core"], cfg, h, cache, plans=core_plan,
+                                part=part, serve=core)
         cache.update(carry)
     else:
-        carry, h = S.rwkv_time_mix_scan(bp["core"], cfg, h, cache)
+        carry, h = S.rwkv_time_mix_scan(bp["core"], cfg, h, cache, part=part,
+                                        serve=core)
         cache.update(carry)
     x = x + h
     h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
@@ -309,10 +319,10 @@ def run_layer(bp: dict, cfg: ArchConfig, layer: int, x: torch.Tensor,
         return x + ffn(bp, h)
     if kind != "rwkv":
         return x + ffn_block(bp, cfg, layer, h, plan, part)
-    x_prev = torch.cat([cache["cm_prev"][:, None].to(h.dtype), h[:, :-1]],
-                       dim=1)
-    cache["cm_prev"] = h[:, -1]
-    return x + S.rwkv_channel_mix(bp["ffn"], cfg, h, x_prev)
+    cache["cm_prev"], h = S.rwkv_channel_mix_scan(
+        bp["ffn"], cfg, h, cache["cm_prev"], part=part,
+        serve=None if serve is None else serve.at("ffn"))
+    return x + h
 
 
 def embed_inputs(params: dict, cfg: ArchConfig, inputs: torch.Tensor,
@@ -733,11 +743,10 @@ def _store_span(cache: dict, k: torch.Tensor, v: torch.Tensor,
 
 def partitioned(cfg: ArchConfig) -> bool:
     """Whether the partitioned train, prefill and decode programs cover
-    ``cfg``: every layer attention plus a dense MLP or a MoE FFN (expert
-    parallel). The recurrent blocks over ``tp``/``heads`` are not
-    partitioned yet."""
-    return all(block_kind(cfg, layer) == "attn"
-               for layer in range(cfg.n_layers))
+    ``cfg``: every layer one of the kinds they partition, attention (a
+    dense MLP or an expert-parallel MoE FFN), mamba over its d_inner
+    channels and rwkv6 over whole heads. All eleven configs are."""
+    return set(cfg.block_pattern) <= {"attn", "mamba", "rwkv"}
 
 
 def partition(params: dict, cfg: ArchConfig, *, decode: bool = False):
@@ -751,9 +760,8 @@ def partition(params: dict, cfg: ArchConfig, *, decode: bool = False):
         return None
     if not partitioned(cfg):
         raise ValueError(
-            f"{cfg.name}: the partitioned programs cover layers of "
-            "attention and a dense MLP or a MoE FFN; mamba and rwkv layers "
-            "are not partitioned yet")
+            f"{cfg.name}: the partitioned programs cover attention, mamba "
+            f"and rwkv layers, not {cfg.block_pattern}")
     if cfg.pim_mode != "off":
         raise ValueError(
             f"pim_mode={cfg.pim_mode!r} under a partition: the partitioned "
@@ -824,6 +832,7 @@ def _decode_partitioned(part, params: dict, cfg: ArchConfig, state: dict,
                                             state["caches"])):
         path = f"layers/{layer}/"
         blocks = {k: t.to_local() for k, t in cache.items()}
+        kind = block_kind(cfg, layer)
 
         def attend(bp, _, h, core_plan, path=path, blocks=blocks):
             return _attn_decode_partitioned(part, path, bp, cfg, blocks, h,
@@ -839,7 +848,11 @@ def _decode_partitioned(part, params: dict, cfg: ArchConfig, state: dict,
                 rows=lambda t: part.rows_for(t, path + "ffn/w1",
                                              path + "ffn/w2"),
                 reduce=lambda y: part.reduce(y, path + "ffn/w2"))
-        x = run_layer(bp, cfg, layer, x, blocks, None, attend, ffn=ffn)
+        x = run_layer(bp, cfg, layer, x, blocks, None, attend, ffn=ffn,
+                      serve=part.layer(path, rows))
+        if kind != "attn":  # the new carries, into the state's blocks
+            for k, t in cache.items():
+                t.to_local().copy_(blocks[k])
     x = L.rmsnorm(local["final_norm"], x, cfg.norm_eps)
     logits = L.lm_head(local["embed"], cfg, x)
     return logits, {"caches": state["caches"], "pos": pos + 1}
@@ -849,11 +862,13 @@ def _prefill_partitioned(part, params: dict, cfg: ArchConfig,
                          inputs: torch.Tensor, max_len, plans):
     """``prefill`` under a partition: ``inputs`` are this rank's rows of
     the prompts; returns this rank's block of the last-position logits
-    (its vocab shard) and of the state, caches ``(rows, S / |model|, K,
-    hd)``: the layout that ``cache_specs`` resolves to under the bound
-    rules (``cache_batch`` over the batch axes, ``seq`` over the model
-    axis), the reference's ``out_shardings``. Each rank writes every K/V
-    head of its own positions, projected with the whole ``wk``/``wv``."""
+    (its vocab shard) and of the state in the layout that ``cache_specs``
+    resolves to under the bound rules (``cache_batch`` over the batch
+    axes, ``seq``, ``tp`` and ``heads`` over the model axis), the
+    reference's ``out_shardings``: attention caches ``(rows, S / |model|,
+    K, hd)``, each rank writing every K/V head of its own positions,
+    projected with the whole ``wk``/``wv``; recurrent carries of the
+    rank's rows (``_carry_blocks``)."""
     S = inputs.shape[1]
     if max_len not in (None, S) or plans is not None:
         raise ValueError("a partitioned prefill fills caches of the prompt's "
@@ -867,9 +882,12 @@ def _prefill_partitioned(part, params: dict, cfg: ArchConfig,
     with L.suspend_pim_stats():
         for layer, bp in enumerate(local["layers"]):
             path = f"layers/{layer}"
+            kind = block_kind(cfg, layer)
             kv_w = {k: part.whole(t, f"{path}/core/{k}")
-                    for k, t in bp["core"].items() if k in _KV_LEAVES}
-            cache: dict = {}
+                    for k, t in bp["core"].items()
+                    if kind == "attn" and k in _KV_LEAVES}
+            cache = {} if kind == "attn" else _init_carry(
+                cfg, kind, B, x.device, part)
 
             def attend(bp, cache, h, core_plan, kv_w=kv_w):
                 k, v = L.kv_project(kv_w, cfg, h, block)
@@ -878,7 +896,8 @@ def _prefill_partitioned(part, params: dict, cfg: ArchConfig,
                                          part=part)
             x = run_layer(part.weights(bp, path), cfg, layer, x, cache, None,
                           attend, part)
-            caches.append(cache)
+            caches.append(cache if kind == "attn"
+                          else _carry_blocks(part, kind, cache))
     x = L.rmsnorm(part.weights(local["final_norm"], "final_norm"), x,
                   cfg.norm_eps)
     last = parallel.all_gather(x[:, -1:].contiguous(), 1, part.model)[:, -1:]
@@ -888,6 +907,26 @@ def _prefill_partitioned(part, params: dict, cfg: ArchConfig,
 
 
 _KV_LEAVES = ("wk", "wv", "bk", "bv", "k_norm")
+
+
+def _carry_blocks(part, kind: str, carry: dict) -> dict:
+    """A partitioned prefill's carry (the rank's d_inner block or heads)
+    in the layout of ``cache_specs`` under the bound rules: a ``tp`` or
+    ``heads`` dim that the model axis splits evenly keeps the rank's
+    block; one that ``fit_spec_to_shape`` leaves replicated (its size
+    not a multiple of the axis) is gathered whole."""
+    out = {}
+    for name, axes in _CARRY_SPECS[kind].items():
+        t = carry[name]
+        for d, ax in enumerate(axes):
+            if ax in ("tp", "heads"):
+                n = part.di if ax == "tp" else part.rwkv_n
+                spec = dsh.fit_spec_to_shape(dsh.spec_for((ax,), part.mesh),
+                                             (n,), part.mesh)
+                if not spec or spec[0] is None:
+                    t = part.gather_blocks(t, d, n)
+        out[name] = t
+    return out
 
 
 def _cache_entries(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor) -> dict:

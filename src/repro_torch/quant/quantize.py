@@ -18,6 +18,14 @@ import torch
 
 
 @dataclasses.dataclass(frozen=True)
+class QuantizedTensor:
+    values: torch.Tensor           # int8 / uint8-domain int32
+    scale: torch.Tensor            # per-channel or scalar fp32
+    zero_point: torch.Tensor       # same shape as scale, int32
+    signed: bool
+
+
+@dataclasses.dataclass(frozen=True)
 class LayerQuant:
     """All quantization parameters of one linear layer y = x @ w + b."""
     w_scale: torch.Tensor          # (cols,) fp32 — per-output-channel
@@ -54,6 +62,30 @@ def quantize_weights_centered(
     centers = torch.round(mid / scale).to(torch.int32)
     w_off = (torch.round(w / scale) - centers).clamp(-127, 127).to(torch.int8)
     return w_off, centers, scale.to(torch.float32)
+
+
+def _input_scale(x: torch.Tensor, top, levels: float) -> tuple:
+    """``x`` promoted as jax promotes it against a float32 array, and the
+    scale ``max(top, 1e-12) / levels`` in float32."""
+    scale = torch.as_tensor(top, dtype=torch.float32,
+                            device=x.device).clamp_min(1e-12) / levels
+    return x.to(torch.promote_types(x.dtype, torch.float32)), scale
+
+
+def quantize_inputs_unsigned(
+        x: torch.Tensor,
+        x_max: torch.Tensor | float) -> tuple[torch.Tensor, torch.Tensor]:
+    """ReLU-family activations: x in [0, x_max] -> uint8 [0, 255]."""
+    x, scale = _input_scale(x, x_max, 255.0)
+    return torch.round(x / scale).clamp(0, 255).to(torch.int32), scale
+
+
+def quantize_inputs_signed(
+        x: torch.Tensor,
+        x_absmax: torch.Tensor | float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Signed activations -> int8 [-127, 127] symmetric."""
+    x, scale = _input_scale(x, x_absmax, 127.0)
+    return torch.round(x / scale).clamp(-127, 127).to(torch.int32), scale
 
 
 def dequantize(y_int: torch.Tensor, lq: LayerQuant,

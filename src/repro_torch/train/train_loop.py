@@ -34,14 +34,16 @@ ranks, and ``DTensor.from_local`` wraps it. The loss is averaged over the
 batch ranks, and AdamW runs on the DTensor leaves. A MoE FFN runs expert
 parallel: each rank computes its experts' blocks, gathered over FSDP
 alone, and the replicated router's gradient is summed over the mesh like
-any replicated leaf's.
+any replicated leaf's. Mamba and rwkv layers run their recurrences on the
+rank's d_inner block or whole heads over the gathered sequence
+(``models.ssm``).
 
-Configs that the partitioned program does not cover yet
-(``transformer.partitioned``: mamba and rwkv layers) keep the
-data-parallel step (``_data_parallel``): each rank gathers full plain
-leaves, runs the whole model on its slice of the batch, and reduces each
-gradient to its parameter's placements (a ``Partial("avg")`` over the
-batch axes redistributed).
+Plain (unplaced) parameters under a mesh, and a custom ``loss_fn`` (the
+partitioned step computes ``lm_loss``), take the data-parallel step
+(``_data_parallel``): each rank gathers full plain leaves, runs the whole
+model on its slice of the batch, and reduces each gradient to its
+parameter's placements (a ``Partial("avg")`` over the batch axes
+redistributed).
 """
 
 from __future__ import annotations
@@ -120,10 +122,7 @@ def make_grad_fn(cfg: ArchConfig, loss_fn: Callable | None = None
         mesh = dsh.active_mesh()
         if mesh is None:
             return local_grad_fn(params, batch)
-        if T.partitioned(cfg) and parallel.placed(params):
-            if custom:
-                raise ValueError("the partitioned step computes lm_loss; "
-                                 "a custom loss_fn is not partitioned")
+        if not custom and parallel.placed(params):
             return _partitioned(local_grad_fn, cfg, params, batch)
         return _data_parallel(local_grad_fn, mesh, params, batch)
 

@@ -5,7 +5,8 @@
 ``spawn`` method, each one rank of a ``gloo`` process group over a
 ``file://`` store under ``tmp`` (no port is opened, so test workers cannot
 collide), runs ``TASKS[task](rank, payload, tmp)`` on one intra-op thread,
-and returns each rank's result. The workers import torch, numpy and
+and returns each rank's result (a rank killed by a signal reports the
+Python stack that ``faulthandler`` wrote). The workers import torch, numpy and
 ``repro_torch`` only, never jax: the parent process computes the
 reference's values. A rank that raises writes its traceback, and
 ``spawn`` raises it.
@@ -51,7 +52,10 @@ def spawn(task: str, world: int, tmp: Path, payload, timeout: float = 240
     for rank, p in enumerate(procs):
         path = Path(tmp) / f"rank{rank}.pkl"
         if not path.exists():
-            errors.append(f"rank {rank}: exit code {p.exitcode}, no result")
+            crash = Path(tmp) / f"rank{rank}.crash"
+            stack = crash.read_text()[-3000:] if crash.exists() else ""
+            errors.append(f"rank {rank}: exit code {p.exitcode}, no result"
+                          f"\n{stack}")
             continue
         with open(path, "rb") as f:  # written by this test's own workers
             res = pickle.load(f)
@@ -65,7 +69,11 @@ def spawn(task: str, world: int, tmp: Path, payload, timeout: float = 240
 
 def _main(task: str, rank: int, world: int, init: str, tmp: str,
           payload) -> None:
+    import faulthandler
     import torch.distributed as dist
+    # a fatal signal's Python stack, for the parent's error
+    crash = open(os.path.join(tmp, f"rank{rank}.crash"), "w")
+    faulthandler.enable(file=crash)
     torch.set_num_threads(1)
     try:
         dist.init_process_group("gloo", init_method=init, rank=rank,
@@ -580,6 +588,7 @@ def task_tp(rank: int, payload: dict, tmp: Path) -> dict:
                         for c in state["caches"]],
                 batch_index=part.batch_index, model_rank=part.model.rank,
                 heads=part.heads, kv=part.kv, experts=part.experts,
+                inner=part.inner, rwkv_heads=part.rwkv_heads,
                 routes=routes)
             try:
                 T.prefill(p, dataclasses.replace(cfg, pim_mode="exact"),

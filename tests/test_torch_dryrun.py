@@ -310,6 +310,36 @@ def test_sampled_scan_counts_every_trip(arch, monkeypatch):
     assert fc.get_total_flops() == sampled[0][1].flops
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])
+def test_sampled_partitioned_scan_counts_every_trip(arch, fake_group,
+                                                    monkeypatch):
+    """The partitioned prefill and rematerialized train step as the dry
+    run builds them (rank 0 of a fake 4-rank group, mesh (2, 2), 4 rows of
+    192 positions): the sampled scans over the rank's d_inner block or
+    heads and the sampled row tiles of its projections (384 gathered rows,
+    6 tiles) count the flops, bytes and collectives of a run of every trip
+    and tile."""
+    from torch.distributed.device_mesh import init_device_mesh
+    cfg = configs.get(arch).reduced(remat=True)
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+
+    def runs():
+        out = []
+        for kind in ("prefill", "train"):
+            shape = configs.InputShape("t", 192, 4, kind)
+            with FakeTensorMode(), dsh.axis_rules(dsh.DEFAULT_RULES):
+                step, args = dryrun.rank_program(cfg, shape, mesh,
+                                                 torch.device("cpu"))
+                with dsh.use_mesh(mesh), \
+                        torch.set_grad_enabled(kind == "train"):
+                    out.append(hlo.analyze(step, *args)[1])
+        return out
+    sampled = runs()
+    monkeypatch.setattr(hlo, "SCAN_TRIPS", 10 ** 6)
+    for s, f in zip(sampled, runs(), strict=True):
+        assert s == f
+
+
 def _clone(tree):
     return torch.utils._pytree.tree_map(
         lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
@@ -582,6 +612,27 @@ def test_no_group_is_left_open(monkeypatch):
 
 
 # ------------------------------------------------------------ (f), (g)
+# collectives of one decode step of a layer, by kind: (all-gathers,
+# all-reduces) where the batch is whole on every rank, and the all-gathers
+# that a batch split over "data" adds (the rows gathered for a row-parallel
+# product or a token shift). attention: q, k, v (+ its output) / the
+# combine's max and sums, wo, the FFN's; mamba: in_proj's and dt_proj's
+# columns (+ the conv's and the scan's outputs) / x_proj, out_proj, the
+# FFN's; rwkv: r/k/v/g's columns (+ x_prev, the scan's output, cm_prev) /
+# wo, the channel-mix's wv
+DECODE_COLLECTIVES = {"attn": (3, 1, 4), "mamba": (2, 2, 3),
+                      "rwkv": (4, 3, 2)}
+
+
+def _decode_counts(cfg, rows_split: bool) -> dict:
+    """The partitioned decode's collectives per step: one all-reduce for
+    the embedding and ``DECODE_COLLECTIVES`` per layer."""
+    kinds = [T.block_kind(cfg, i) for i in range(cfg.n_layers)]
+    return {"all-gather": sum(DECODE_COLLECTIVES[k][0] + rows_split
+                              * DECODE_COLLECTIVES[k][1] for k in kinds),
+            "all-reduce": 1 + sum(DECODE_COLLECTIVES[k][2] for k in kinds)}
+
+
 @pytest.mark.parametrize("arch,shape", [
     ("phi3.5-moe-42b", "decode_32k"),
     ("jamba-1.5-large-398b", "long_500k"),
@@ -589,27 +640,67 @@ def test_no_group_is_left_open(monkeypatch):
     ("hubert-xlarge", "prefill_32k"),
 ])
 def test_one_cell_per_family_at_published_width(arch, shape):
+    """Every family's cells run the partitioned programs: the rank holds
+    its placed shards (a prefill gathers them a layer at a time), not the
+    whole weights; a decode moves activations only (``long_500k``'s one
+    row whole on every rank, decode_32k's 128 split over "data"); a
+    prefill reduce-scatters each layer's two row-parallel outputs."""
     r = dryrun.dryrun_cell(arch, shape, multi_pod=False, device="cpu",
                            verbose=False)
     assert r["status"] == "ok"
     assert r["hlo_flops_per_device"] > 0 and r["per_device_bytes"] > 0
     cfg = configs.get(arch)
-    if T.partitioned(cfg):
-        # hubert's prefill and phi's decode are partitioned: their placed
-        # shards (a prefill gathers them a layer at a time), not the whole
-        # weights
-        assert r["per_device_bytes"] < 2 * cfg.param_count()
-        if shape == "decode_32k":  # only activations move
-            assert r["collective_counts"] == {
-                "all-gather": 4 * cfg.n_layers,
-                "all-reduce": 4 * cfg.n_layers + 1}
-        else:
-            assert r["collective_counts"]["reduce-scatter"] == \
-                2 * cfg.n_layers
-        return
-    # serving holds the whole plain weights on every rank
-    assert r["per_device_bytes"] > 2 * cfg.param_count() * 0.99
-    assert r["collective_bytes_per_device"] == 0
+    assert T.partitioned(cfg)
+    assert r["per_device_bytes"] < 2 * cfg.param_count()
+    if shape in ("decode_32k", "long_500k"):
+        assert r["collective_counts"] == _decode_counts(
+            cfg, rows_split=shape == "decode_32k")
+    else:
+        assert r["collective_counts"]["reduce-scatter"] == \
+            2 * cfg.n_layers
+
+
+# ------------------------------------------------------------ recurrent
+RECURRENT = ("jamba-1.5-large-398b", "rwkv6-3b")
+
+
+@pytest.fixture(scope="module")
+def recurrent_sweep(tmp_path_factory):
+    """Every cell of jamba-1.5-large-398b and rwkv6-3b on 16x16 and
+    2x16x16 from the port's CLI in a subprocess (2 cells at once), started
+    at the first test that asks. -> the reports."""
+    out = tmp_path_factory.mktemp("recurrent_sweep")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         ",".join(RECURRENT), "--device", "cpu", "--jobs", "2", "--out",
+         str(out)], env=env, cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    return json.loads((out / "summary.json").read_text())
+
+
+def test_recurrent_cells_fit_a_card(recurrent_sweep):
+    """jamba's and rwkv6-3b's 16 cells run the partitioned programs on
+    fake tensors and each fits the card's 80 GB (the data-parallel step
+    and the replicated serve weights took 191.6 GiB for rwkv6-3b's
+    train_4k and 748-2,200 GiB for jamba's cells); each report records
+    its flops and collective bytes, and a decode moves activations only
+    (``_decode_counts``)."""
+    want = {(a, s.name, mp) for a in RECURRENT
+            for s in configs.runnable_shapes(configs.get(a))
+            for mp in (False, True)}
+    assert {(r["arch"], r["shape"], r["multi_pod"])
+            for r in recurrent_sweep} == want and len(want) == 16
+    for r in recurrent_sweep:
+        cell = (r["arch"], r["shape"], r["multi_pod"])
+        assert r["status"] == "ok" and r["fits_hbm"], cell
+        assert r["per_device_bytes"] <= dryrun.HBM_PER_CHIP, cell
+        assert r["hlo_flops_per_device"] > 0, cell
+        assert r["collective_bytes_per_device"] > 0, cell
+        if r["kind"] == "decode":
+            assert r["collective_counts"] == _decode_counts(
+                configs.get(r["arch"]), rows_split=r["shape"] != "long_500k")
 
 
 # ------------------------------------------------------------ MoE cells

@@ -476,34 +476,6 @@ def _one_rank_equals_plain(cfg, tmp_path) -> None:
     assert all(torch.equal(a, b) for a, b in zip(cm, cp, strict=True))
 
 
-def test_recurrent_configs_refuse_a_partition(tmp_path):
-    """The attention configs, MoE ones included, are partitioned; reduced
-    jamba (mamba layers) and rwkv6 placed on a one-rank mesh are refused
-    by the train, prefill and decode programs alike."""
-    import torch.distributed as dist
-    from repro_torch.dist import compat
-    from repro_torch.dist import sharding as dsh
-    assert all(T.partitioned(configs.get(a)) for a in (
-        "phi3.5-moe-42b", "llama4-maverick-400b", "qwen1.5-0.5b"))
-    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
-                            rank=0, world_size=1)
-    try:
-        mesh = compat.make_mesh((1, 1), ("data", "model"), device_type="cpu")
-        for arch in ("jamba-1.5-large-398b", "rwkv6-3b"):
-            cfg = configs.get(arch).reduced()
-            assert not T.partitioned(cfg)
-            params = T.init_params(cfg, seed=0, device="cpu")
-            for rules, decode in ((dsh.DEFAULT_RULES, False),
-                                  (dsh.SERVE_RULES, True)):
-                with dsh.axis_rules(rules), dsh.use_mesh(mesh):
-                    p = dsh.place(params, T.param_specs(cfg), mesh)
-                    with pytest.raises(ValueError,
-                                       match="mamba and rwkv layers"):
-                        T.partition(p, cfg, decode=decode)
-    finally:
-        dist.destroy_process_group()
-
-
 # ------------------------------------------------------------------ moe
 @pytest.mark.parametrize("key", MOE_KEYS)
 def test_moe_routes_without_near_ties(key):
