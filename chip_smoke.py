@@ -1036,7 +1036,7 @@ def phase_serve(ctx: dict) -> None:
                                     max_len=max_len,
                                     prefill_chunk=64, plans=compiled.plans)
         t0 = time.perf_counter()
-        with L.collect_pim_stats() as sink:
+        with L.collect_pim_stats() as sink, step_timer(eng):
             outs = eng.run(reqs)
             torch.cuda.synchronize()
             serve_s = time.perf_counter() - t0
@@ -2311,21 +2311,54 @@ def prefix_requests(vocab: int):
         max_new_tokens=8) for u, n in enumerate((4, 8, 6, 5))]
 
 
+@contextlib.contextmanager
+def step_timer(eng):
+    """Time each ``eng.step()`` from outside the engine, with no recorder
+    installed: ``eng.step_s["prefill"]`` holds the seconds of the steps
+    that ran a prefill chunk (a chunk that no prompt finishes is not
+    synced, so its device time may fall into the next step),
+    ``eng.step_s["decode"]`` those of the steps that only decoded, and
+    ``eng.decode_only_tokens`` the tokens those decoded."""
+    step = eng.step
+    eng.step_s = {"prefill": [], "decode": []}
+    eng.decode_only_tokens = 0
+
+    def timed():
+        st = eng.stats
+        c0, d0, k0 = st.prefill_chunks, st.decode_steps, st.decode_slot_tokens
+        t = time.perf_counter()
+        out = step()
+        dt = time.perf_counter() - t
+        if st.prefill_chunks > c0:
+            eng.step_s["prefill"].append(dt)
+        elif st.decode_steps > d0:
+            eng.step_s["decode"].append(dt)
+            eng.decode_only_tokens += st.decode_slot_tokens - k0
+        return out
+    eng.step = timed
+    try:
+        yield
+    finally:
+        del eng.step
+
+
 def drive(eng, reqs, first=None):
     """Serve ``reqs`` with every launch count zeroed just before and read
-    just after. With ``first``, that request runs alone until its prompt
-    blocks are registered for sharing, then ``reqs`` join."""
+    just after, each step timed (``step_timer``). With ``first``, that
+    request runs alone until its prompt blocks are registered for
+    sharing, then ``reqs`` join."""
     import torch
     from repro_torch.kernels import ops
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     outs = []
-    if first is not None:
-        eng.submit(first)
-        while not eng.alloc.prefix_index:
-            outs += eng.step()
-    outs += eng.run(reqs)
-    torch.cuda.synchronize()
+    with step_timer(eng):
+        if first is not None:
+            eng.submit(first)
+            while not eng.alloc.prefix_index:
+                outs += eng.step()
+        outs += eng.run(reqs)
+        torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     assert len(outs) == len(reqs) + (first is not None)
     return (sorted(outs, key=lambda o: o.uid), serve_s,
@@ -2346,6 +2379,13 @@ PER_CALL = {"exact": {"fused_spec_crossbar": 2}, "int8": {},
             "continuous-int8kv": {"centered_int8_matmul": 1}}
 
 
+def decode_step_ms(eng) -> float:
+    """Mean milliseconds of the engine's steps that only decoded
+    (``step_timer``)."""
+    d = eng.step_s["decode"]
+    return 1e3 * sum(d) / max(len(d), 1)
+
+
 def engine_row(run: str, eng, outs, serve_s: float, launches: dict,
                per_call: dict, vocab: int, served: dict | None = None,
                n_new: int = 8) -> dict:
@@ -2363,16 +2403,17 @@ def engine_row(run: str, eng, outs, serve_s: float, launches: dict,
     if served != want:
         raise AssertionError(f"{run}: launches {served}, want {want}")
     n_tok = sum(len(o.tokens) for o in outs)
+    decode_s = sum(eng.step_s["decode"])
     row = dict(mode=run, engine=type(eng).__name__,
                serve_s=round(serve_s, 3),
-               prefill_s=round(st.prefill_seconds, 3),
-               decode_s=round(st.decode_seconds, 3), tokens=n_tok,
+               prefill_s=round(sum(eng.step_s["prefill"]), 3),
+               decode_s=round(decode_s, 3), tokens=n_tok,
                decode_steps=st.decode_steps,
                prefill_chunks=st.prefill_chunks,
-               step_ms=round(1e3 * st.decode_seconds / st.decode_steps, 2),
+               step_ms=round(decode_step_ms(eng), 2),
                tok_per_s=round(n_tok / serve_s, 2),
-               decode_tok_per_s=round(
-                   (n_tok - len(outs)) / st.decode_seconds, 2),
+               decode_tok_per_s=round(eng.decode_only_tokens
+                                      / max(decode_s, 1e-9), 2),
                launches=json.dumps(launches),
                launches_per_step=json.dumps(
                    {k: v / calls for k, v in served.items()}))
@@ -2583,8 +2624,7 @@ def phase_telemetry(ctx: dict) -> None:
             outs, serve_s, launches = drive(eng, reqs)
             engine_row(f"telemetry-cost-{mode}", eng, outs, serve_s,
                        launches, per_call, vocab)
-            steps[which].append(1e3 * eng.stats.decode_seconds
-                                / eng.stats.decode_steps)
+            steps[which].append(decode_step_ms(eng))
         off, on = (sum(v) / len(v) for v in (steps["off"], steps["on"]))
         say("telemetry", host_cost=mode, order="off,on,on,off",
             step_ms_off=json.dumps([round(v, 3) for v in steps["off"]]),
@@ -5827,8 +5867,9 @@ def disagg_serve(rank: int) -> dict:
         ops.reset_launch_counts()
         t1 = time.perf_counter()
         try:
-            outs = eng.run(reqs)
-            torch.cuda.synchronize()
+            with step_timer(eng):
+                outs = eng.run(reqs)
+                torch.cuda.synchronize()
         finally:
             undo()
         serve_s = time.perf_counter() - t1
@@ -5874,8 +5915,8 @@ def disagg_serve(rank: int) -> dict:
             / HBM_BYTES_PER_S,
             decode_step_ms_median=1e3 * statistics.median(steps),
             decode_step_ms_min=1e3 * min(steps),
-            prefill_s=round(st.prefill_seconds, 3),
-            decode_s=round(st.decode_seconds, 3),
+            prefill_s=round(sum(eng.step_s["prefill"]), 3),
+            decode_s=round(sum(eng.step_s["decode"]), 3),
             checked_calls=len(mine), max_abs_err=max(
                 r["max_abs_err"] for r in mine),
             pool_on_rank=eng.state is not None))

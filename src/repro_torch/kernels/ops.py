@@ -7,6 +7,11 @@ the recovery multipliers ``rmults``. There is no backend registry: a
 kernel runs where its tensors are — the plain PyTorch version for CPU
 tensors, the CUDA kernel for CUDA tensors, and an error for anything else.
 No path falls back from a CUDA tensor to the plain version.
+
+With a span recorder installed (``repro_torch.obs.tracing``) the forward
+wrappers record ``pim.tables`` around building a kernel's tables and
+``pim.launch`` around the kernel op, its operands' casts included, up to
+its enqueue (a plain version's whole run on CPU tensors).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from repro_torch.kernels import fused_crossbar as _fx
 from repro_torch.kernels import fused_spec_crossbar as _fs
 from repro_torch.kernels import int8_matmul as _im
 from repro_torch.kernels import sliced_crossbar as _sx
+from repro_torch.obs import tracing
 
 KERNELS = {"fused_crossbar": _fx, "fused_spec_crossbar": _fs,
            "centered_int8_matmul": _im, "sliced_crossbar": _sx}
@@ -37,8 +43,9 @@ def reset_launch_counts() -> None:
 def centered_int8_matmul(x_q: torch.Tensor, w_off: torch.Tensor,
                          centers: torch.Tensor) -> torch.Tensor:
     """y_int32 = x_q @ w_off + rowsum(x_q) * centers (Eq. 1 fast path)."""
-    return _im.forward(x_q.contiguous(), w_off.contiguous(),
-                       centers.to(torch.int32).contiguous())
+    with tracing.span("pim.launch"):
+        return _im.forward(x_q.contiguous(), w_off.contiguous(),
+                           centers.to(torch.int32).contiguous())
 
 
 def input_bounds(input_slicing: tuple[int, ...],
@@ -121,12 +128,15 @@ def fused_crossbar_forward(x_u8: torch.Tensor, planes: torch.Tensor,
     Returns (psum (B, C) int32 including the center term, ADC saturations
     () int64).
     """
-    w_flat, in_li, in_mask, mults = crossbar_tables(
-        planes, shifts, input_slicing, valid, rows_per_xbar)
-    return _fx.forward(x_u8.to(torch.int32).contiguous(), w_flat, in_li,
-                       in_mask, mults, centers.to(torch.int32).contiguous(),
-                       rows_per_xbar=rows_per_xbar, adc_lo=adc_lo,
-                       adc_hi=adc_hi)
+    with tracing.span("pim.tables"):
+        w_flat, in_li, in_mask, mults = crossbar_tables(
+            planes, shifts, input_slicing, valid, rows_per_xbar)
+    with tracing.span("pim.launch"):
+        return _fx.forward(x_u8.to(torch.int32).contiguous(), w_flat,
+                           in_li, in_mask, mults,
+                           centers.to(torch.int32).contiguous(),
+                           rows_per_xbar=rows_per_xbar, adc_lo=adc_lo,
+                           adc_hi=adc_hi)
 
 
 def sliced_crossbar_matmul(x_slices: torch.Tensor, w_planes: torch.Tensor,
@@ -136,10 +146,11 @@ def sliced_crossbar_matmul(x_slices: torch.Tensor, w_planes: torch.Tensor,
     """Crossbar contraction of pre-sliced inputs with a per-segment ADC
     clamp (no center term): x_slices (n_i, B, R) int8, w_planes
     (n_j, R, C) int8, mults (n_i, n_j) -> (B, C) int32."""
-    return _sx.forward(x_slices.contiguous(), w_planes.contiguous(),
-                       mults.to(torch.int32).contiguous(),
-                       rows_per_xbar=rows_per_xbar, adc_lo=adc_lo,
-                       adc_hi=adc_hi)
+    with tracing.span("pim.launch"):
+        return _sx.forward(x_slices.contiguous(), w_planes.contiguous(),
+                           mults.to(torch.int32).contiguous(),
+                           rows_per_xbar=rows_per_xbar, adc_lo=adc_lo,
+                           adc_hi=adc_hi)
 
 
 def fused_spec_crossbar_forward(x_u8: torch.Tensor, planes: torch.Tensor,
@@ -163,10 +174,12 @@ def fused_spec_crossbar_forward(x_u8: torch.Tensor, planes: torch.Tensor,
     Returns (psum (B, C) int32 including the center term, spec failures
     (n_i,) int64, recovery saturations () int64).
     """
-    w_flat, spec_li, spec_mask, mults, rmults = spec_tables(
-        planes, shifts, spec_slicing, valid, rows_per_xbar)
-    return _fs.forward(x_u8.to(torch.int32).contiguous(), w_flat, spec_li,
-                       spec_mask, mults, rmults,
-                       centers.to(torch.int32).contiguous(),
-                       rows_per_xbar=rows_per_xbar, adc_lo=adc_lo,
-                       adc_hi=adc_hi)
+    with tracing.span("pim.tables"):
+        w_flat, spec_li, spec_mask, mults, rmults = spec_tables(
+            planes, shifts, spec_slicing, valid, rows_per_xbar)
+    with tracing.span("pim.launch"):
+        return _fs.forward(x_u8.to(torch.int32).contiguous(), w_flat,
+                           spec_li, spec_mask, mults, rmults,
+                           centers.to(torch.int32).contiguous(),
+                           rows_per_xbar=rows_per_xbar, adc_lo=adc_lo,
+                           adc_hi=adc_hi)

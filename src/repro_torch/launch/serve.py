@@ -21,8 +21,11 @@ have no decode step: the launcher refuses them before building anything,
 with the engines' error. The continuous and paged engines carry a
 ``repro_torch.obs.ServeTelemetry``: ``--metrics-out`` writes its metrics
 (with the final ``ServeStats`` and, in exact mode, the decode steps' PIM
-counters and pJ/token), ``--trace-out`` its Chrome trace of spans and
-``--profile-dir`` a ``torch.profiler`` trace of the run.
+counters and pJ/token), ``--trace-out`` its Chrome trace of spans (the
+reference's, and on a lane of their own the program spans of every engine
+step: the engine's, the model's and the PIM layer's,
+``repro_torch.obs.tracing``) and ``--profile-dir`` a ``torch.profiler``
+trace of the run.
 ``--device-corner nominal|1sigma|3sigma`` (with ``--pim exact``) serves on
 a nonideal ReRAM die of seed ``--device-seed``
 (``repro_torch.core.backends.NonidealSim``): static input slicing, the
@@ -101,7 +104,8 @@ def main(argv=None) -> None:
                          "repro_torch.obs.export.write_metrics)")
     ap.add_argument("--trace-out", default=None,
                     help="write a Chrome-trace (Perfetto-loadable) span "
-                         "log of the run here")
+                         "log of the run here, the engine's, model's and "
+                         "PIM layer's program spans included")
     ap.add_argument("--profile-dir", default=None,
                     help="wrap the run in torch.profiler (CPU activity, "
                          "and CUDA activity on the card), writing its "

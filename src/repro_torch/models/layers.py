@@ -24,6 +24,7 @@ from repro_torch.core import adc as adc_lib
 from repro_torch.core import backends as device_backends
 from repro_torch.core import center_offset as co
 from repro_torch.core import pim_linear
+from repro_torch.obs import tracing
 from repro_torch.quant import quantize as quantlib
 
 ATTN_CHUNK = 512
@@ -228,15 +229,32 @@ def pim_matmul(x: torch.Tensor, w: torch.Tensor, plan,
               backend the die's loop, no kernel);
       int8  — the ideal 8b-quantized reference ``exact`` equals at a
               non-saturating ADC.
+
+    With a span recorder installed (``repro_torch.obs.tracing``), each
+    call through a plan is a ``pim.call`` span (args: rows, R, C, mode);
+    the plan's rebuild inside it is a ``pim.plan`` span, the kernels'
+    tables and launches ``pim.tables`` and ``pim.launch`` (``kernels.ops``).
     """
     if isinstance(plan, PimTap):
         plan.record(x.reshape(-1, x.shape[-1]))
         plan = None
     if plan is None or cfg.pim_mode == "off":
         return x @ w
+    rec = tracing.ACTIVE
+    if rec is None:
+        return _pim_project(x, w, plan, cfg)
+    with rec.region("pim.call", (x.numel() // x.shape[-1], w.shape[0],
+                                 w.shape[-1], cfg.pim_mode)):
+        return _pim_project(x, w, plan, cfg)
+
+
+def _pim_project(x: torch.Tensor, w: torch.Tensor, plan,
+                 cfg: ArchConfig) -> torch.Tensor:
+    """``pim_matmul``'s projection through a plan."""
     lead = x.shape[:-1]
     xb = x.reshape(-1, x.shape[-1]).to(torch.float32)
-    pp = _plan_to_pim_plan(plan, cfg, rows=w.shape[0])
+    with tracing.span("pim.plan"):
+        pp = _plan_to_pim_plan(plan, cfg, rows=w.shape[0])
     if cfg.pim_mode == "fast":
         y = pim_linear.forward_fast(xb, pp)
     elif cfg.pim_mode == "exact":

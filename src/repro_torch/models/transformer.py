@@ -59,6 +59,7 @@ from repro_torch.dist import parallel
 from repro_torch.dist import sharding as dsh
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.obs import tracing
 
 
 def block_kind(cfg: ArchConfig, layer: int) -> str:
@@ -385,9 +386,10 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor,
             plans=None) -> torch.Tensor:
     """Full-sequence forward to logits. inputs: tokens (B, S) or
     embeddings (B, S, D)."""
-    return L.lm_head(params["embed"], cfg,
-                     forward_hidden(params, cfg, inputs, plans),
-                     plan=_head_plan(plans))
+    with tracing.span("model.forward"):
+        return L.lm_head(params["embed"], cfg,
+                         forward_hidden(params, cfg, inputs, plans),
+                         plan=_head_plan(plans))
 
 
 # ------------------------------------------------------------------ losses
@@ -684,31 +686,32 @@ def decode_step(params: dict, cfg: ArchConfig, state: dict,
     SERVE_RULES or MULTIPOD_SERVE_RULES the step is partitioned
     (``_decode_partitioned``): ``tokens`` whole, the state placed by
     ``cache_specs``, the logits the rank's vocab block."""
-    if (block_tables is None) != (paged is None):
-        raise ValueError("block_tables and paged must be passed together")
-    part = partition(params, cfg, decode=True)
-    if part is not None:
-        if block_tables is not None or plans is not None:
-            raise ValueError(
-                "a partitioned decode takes a contiguous state and no "
-                "plans: the reference's paged pools run only in its "
-                "unmeshed engines")
-        return _decode_partitioned(part, params, cfg, state, tokens)
-    pos = state["pos"]
-    if block_tables is not None and isinstance(pos, int):
-        raise ValueError("paged decode needs per-slot positions "
-                         "(init_decode_state(..., per_slot_pos=True))")
-    x = embed_inputs(params, cfg, tokens)
+    with tracing.span("model.decode_step"):
+        if (block_tables is None) != (paged is None):
+            raise ValueError("block_tables and paged must be passed together")
+        part = partition(params, cfg, decode=True)
+        if part is not None:
+            if block_tables is not None or plans is not None:
+                raise ValueError(
+                    "a partitioned decode takes a contiguous state and no "
+                    "plans: the reference's paged pools run only in its "
+                    "unmeshed engines")
+            return _decode_partitioned(part, params, cfg, state, tokens)
+        pos = state["pos"]
+        if block_tables is not None and isinstance(pos, int):
+            raise ValueError("paged decode needs per-slot positions "
+                             "(init_decode_state(..., per_slot_pos=True))")
+        x = embed_inputs(params, cfg, tokens)
 
-    def attend(bp, cache, h, core_plan):
-        return _attn_decode(bp, cfg, cache, h, pos, plans=core_plan,
-                            tables=block_tables, paged=paged)
-    for layer, (bp, cache, plan) in enumerate(zip(
-            params["layers"], state["caches"], _layer_plans(cfg, plans))):
-        x = run_layer(bp, cfg, layer, x, cache, plan, attend)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = L.lm_head(params["embed"], cfg, x, plan=_head_plan(plans))
-    return logits, {"caches": state["caches"], "pos": pos + 1}
+        def attend(bp, cache, h, core_plan):
+            return _attn_decode(bp, cfg, cache, h, pos, plans=core_plan,
+                                tables=block_tables, paged=paged)
+        for layer, (bp, cache, plan) in enumerate(zip(
+                params["layers"], state["caches"], _layer_plans(cfg, plans))):
+            x = run_layer(bp, cfg, layer, x, cache, plan, attend)
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = L.lm_head(params["embed"], cfg, x, plan=_head_plan(plans))
+        return logits, {"caches": state["caches"], "pos": pos + 1}
 
 
 # ------------------------------------------------------------------ prefill
@@ -978,19 +981,20 @@ def prefill_chunk(params: dict, cfg: ArchConfig, state: dict,
     ``prefill`` for float KV caches; an int8 cache adds one
     quantize/dequantize round trip per chunk boundary.
     """
-    x = embed_inputs(params, cfg, tokens)
-    B, C = x.shape[0], x.shape[1]
-    pos0 = state["pos"]
-    positions = (pos0 + torch.arange(C, device=x.device)).expand(B, C)
+    with tracing.span("model.prefill_chunk"):
+        x = embed_inputs(params, cfg, tokens)
+        B, C = x.shape[0], x.shape[1]
+        pos0 = state["pos"]
+        positions = (pos0 + torch.arange(C, device=x.device)).expand(B, C)
 
-    def attend(cache, q, k, v):
-        _store_span(cache, k, v, pos0)
-        k_all, v_all = _kv_read(cache, x.dtype)
-        return L.chunked_attention(q, k_all, v_all, q_positions=positions,
-                                   kv_len=pos0 + C, causal=True)
-    logits = _prefill_layers(params, cfg, x, state["caches"], positions,
-                             plans, attend)
-    return logits, {"caches": state["caches"], "pos": pos0 + C}
+        def attend(cache, q, k, v):
+            _store_span(cache, k, v, pos0)
+            k_all, v_all = _kv_read(cache, x.dtype)
+            return L.chunked_attention(q, k_all, v_all, q_positions=positions,
+                                       kv_len=pos0 + C, causal=True)
+        logits = _prefill_layers(params, cfg, x, state["caches"], positions,
+                                 plans, attend)
+        return logits, {"caches": state["caches"], "pos": pos0 + C}
 
 
 def insert_request(state: dict, one: dict, slot: int) -> dict:

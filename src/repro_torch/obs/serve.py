@@ -33,9 +33,14 @@ is one *scheduling attempt*), while ``requests_completed`` counts the
 request once.
 
 ``record_stats`` mirrors ``ServeStats.snapshot()``, whose keys are the
-reference's plus the port's ``prefill_seconds`` and ``decode_seconds``,
-so it also exports ``repro_serve_stats_prefill_seconds`` and
-``repro_serve_stats_decode_seconds``.
+reference's.
+
+Program spans (``repro_torch.obs.tracing``): the reference's three engine
+spans (``span``) are also program spans whenever a recorder is installed,
+and a tracing telemetry installs its tracer as that recorder for each
+engine step (``recording``) unless one is installed already, so its
+Chrome trace also carries the engine's, the model's and the PIM layer's
+spans on their own lane.
 
 ``torch.profiler`` hooks: with ``profile_dir`` set, ``profile()`` wraps
 a run in ``torch.profiler.profile`` (CPU activity, and CUDA activity
@@ -54,6 +59,7 @@ import os
 import torch
 
 from repro_torch.core import energy as en
+from repro_torch.obs import tracing
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.tracing import ENGINE_TID, Tracer
 
@@ -204,8 +210,20 @@ class ServeTelemetry:
     def _req_tid(self, uid: int) -> int:
         return uid + 1
 
+    @contextlib.contextmanager
     def span(self, name: str, **args):
-        return self.tracer.span(name, **args)
+        """The trace span ``name``, also a program span ``name`` on the
+        active recorder, if any."""
+        with self.tracer.span(name, **args), tracing.span(name):
+            yield
+
+    def recording(self):
+        """Around one engine step: the tracer installed as the active
+        recorder when it traces and no recorder is installed already (an
+        outer one keeps every span)."""
+        if not self.tracer.enabled or tracing.ACTIVE is not None:
+            return tracing.NULL_SPAN
+        return tracing.recording(self.tracer)
 
     # --------------------------------------------------------- lifecycle
     def on_submit(self, uid: int) -> None:

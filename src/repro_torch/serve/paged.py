@@ -508,9 +508,7 @@ class PagedServeEngine(ContinuousServeEngine):
             if n_tot:
                 self.tel.on_pim_totals(
                     dict(zip(L.PIM_STAT_KEYS, ints[-n_tot:])), len(live))
-            dt = time.perf_counter() - t0
-            self.stats.decode_seconds += dt
-            self.tel.observe_decode_step_seconds(dt)
+            self.tel.observe_decode_step_seconds(time.perf_counter() - t0)
             self.stats.decode_steps += 1
             self.stats.decode_slot_tokens += len(live)
             self.tel.on_decode_step(len(live))
@@ -656,9 +654,8 @@ class PagedServeEngine(ContinuousServeEngine):
                                 self.alloc.prefix_key(prompt, j))
 
     # ------------------------------------------------------------- engine
-    @torch.no_grad()
-    def step(self) -> list[RequestOutput]:
-        """One iteration: admit (FIFO, queue until blocks free) -> one
+    def _iterate(self) -> list[RequestOutput]:
+        """``step``'s body: admit (FIFO, queue until blocks free) -> one
         prefill chunk per admitted slot that is not live (in the pool, or
         staged at B=1 and inserted when its prompt is done) -> one batched
         paged decode of the live slots (lazy block growth, eviction under
@@ -677,7 +674,6 @@ class PagedServeEngine(ContinuousServeEngine):
                     break                   # head waits; FIFO holds
                 free_idx.pop(0)
         done = []
-        t0 = time.perf_counter()
         for i, slot in enumerate(self.slots):
             if slot is None or slot.live:
                 continue
@@ -716,7 +712,6 @@ class PagedServeEngine(ContinuousServeEngine):
                 for i, slot, (row, tok) in done:
                     self._commit(i, slot, self._sample(slot, row, tok),
                                  finished)
-            self.stats.prefill_seconds += time.perf_counter() - t0
         live = [i for i, s in enumerate(self.slots)
                 if s is not None and s.live]
         for i in sorted(live, key=lambda j: self.slots[j].seq):

@@ -31,6 +31,14 @@ billed to the telemetry; the totals are re-recorded into any enclosing
 ``collect_pim_stats()`` sink, which therefore sees the same work with
 telemetry on or off. Greedy outputs are bit-identical with telemetry on
 or off.
+
+Program spans (``repro_torch.obs.tracing``, recorded only while a
+recorder is installed): ``step`` around each iteration, with the
+reference's ``admission``, ``prefill_chunk`` and ``decode_step`` inside
+it; ``h2d_tokens`` around each copy of a chunk's or a decode step's tokens
+to the device, ``fetch`` around each host fetch of logits (and of the PIM
+totals) and ``commit`` around sampling and committing tokens. A tracing
+telemetry installs its tracer as the recorder for each step.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.obs import tracing
 from repro_torch.obs.serve import NULL_TELEMETRY, ServeTelemetry
 from repro_torch.serve.engine import check_plans, sample
 
@@ -76,10 +85,6 @@ class ServeStats:
     decode_slot_tokens: int = 0            # useful tokens over those calls
     prefill_chunks: int = 0
     completed: int = 0
-    # host wall-clock of each phase, up to the iteration's one host sync
-    # (the logits fetch), so device time is included
-    prefill_seconds: float = 0.0
-    decode_seconds: float = 0.0
     # block-pool accounting (paged engine, ``serve.paged``; zero on the
     # contiguous engine, whose per-slot regions are never shared)
     blocks_in_use: int = 0                 # current pool occupancy
@@ -96,8 +101,7 @@ class ServeStats:
 
     def snapshot(self) -> dict:
         """Every counter plus the derived utilization, as plain scalars:
-        the reference's keys plus ``prefill_seconds`` and
-        ``decode_seconds``. Both engines share this dataclass, so
+        the reference's keys. Both engines share this dataclass, so
         exporters and the launcher read one schema."""
         d = {f.name: getattr(self, f.name)
              for f in dataclasses.fields(self)}
@@ -163,10 +167,12 @@ class ContinuousServeEngine:
         them (their few summing launches were queued behind the step)."""
         if not self._collect_pim:
             logits, state = out
-            return logits[:, -1].cpu(), state
+            with tracing.span("fetch"):
+                return logits[:, -1].cpu(), state
         logits, state, tot = out
-        rows = logits[:, -1].cpu()
-        counts = None if tot.counts is None else tot.counts.cpu()
+        with tracing.span("fetch"):
+            rows = logits[:, -1].cpu()
+            counts = None if tot.counts is None else tot.counts.cpu()
         self.tel.on_pim_totals(tot.host(counts), n_live)
         return rows, state
 
@@ -262,43 +268,50 @@ class ContinuousServeEngine:
     def _commit_prefilled(self, done: list, finished: list) -> None:
         """Commit the first token of each prompt that finished prefill this
         iteration, after one host fetch of their logits rows."""
-        rows = torch.stack([lg for _, _, lg in done]).cpu()
-        for (i, slot, _), row in zip(done, rows):
-            self._commit(i, slot,
-                         self._sample(slot, row, int(torch.argmax(row))),
-                         finished)
+        with tracing.span("fetch"):
+            rows = torch.stack([lg for _, _, lg in done]).cpu()
+        with tracing.span("commit"):
+            for (i, slot, _), row in zip(done, rows):
+                self._commit(i, slot,
+                             self._sample(slot, row, int(torch.argmax(row))),
+                             finished)
 
     def _decode_live(self, live: list[int], finished: list, t0: float,
                      **decode_kw) -> None:
         """One batched decode step of the ``live`` slots (the others feed
         token 0 and their rows are ignored), then commit each live slot's
-        token. ``t0`` starts the step's host seconds."""
+        token. ``t0`` starts the step's host seconds (the telemetry's)."""
         toks = torch.zeros((self.n_slots, 1), dtype=torch.int64)
         for i in live:
             toks[i, 0] = self.slots[i].next_tok
         with self.tel.span("decode_step", n_live=len(live)):
+            with tracing.span("h2d_tokens"):
+                toks = toks.to(self.device)
             with self.tel.annotate_step("decode_step",
                                         self.stats.decode_steps):
-                out = self._decode(self.params, self.cfg, self.state,
-                                   toks.to(self.device), plans=self.plans,
-                                   **decode_kw)
+                out = self._decode(self.params, self.cfg, self.state, toks,
+                                   plans=self.plans, **decode_kw)
             rows, self.state = self._decode_fetch(out, len(live))
-            dt = time.perf_counter() - t0
-            self.stats.decode_seconds += dt
-            self.tel.observe_decode_step_seconds(dt)
+            self.tel.observe_decode_step_seconds(time.perf_counter() - t0)
             self.stats.decode_steps += 1
             self.stats.decode_slot_tokens += len(live)
             self.tel.on_decode_step(len(live))
-            greedy = torch.argmax(rows, dim=-1)
-            for i in live:
-                self._commit(i, self.slots[i],
-                             self._sample(self.slots[i], rows[i],
-                                          int(greedy[i])), finished)
+            with tracing.span("commit"):
+                greedy = torch.argmax(rows, dim=-1)
+                for i in live:
+                    self._commit(i, self.slots[i],
+                                 self._sample(self.slots[i], rows[i],
+                                              int(greedy[i])), finished)
 
     @torch.no_grad()
     def step(self) -> list[RequestOutput]:
         """One scheduler iteration: admit -> prefill one chunk -> decode.
         Returns the requests that finished during this iteration."""
+        with self.tel.recording(), tracing.span("step"):
+            return self._iterate()
+
+    def _iterate(self) -> list[RequestOutput]:
+        """``step``'s body (the paged engine has its own)."""
         finished: list[RequestOutput] = []
         with self.tel.span("admission"):
             for i in range(self.n_slots):
@@ -309,16 +322,17 @@ class ContinuousServeEngine:
                     self.tel.on_admit(req.uid,
                                       int(np.asarray(req.prompt).shape[0]))
         done = []
-        t0 = time.perf_counter()
         for i, slot in enumerate(self.slots):
             if slot is None or slot.state1 is None:
                 continue
             prompt = np.asarray(slot.req.prompt)
             lo = slot.n_prefilled
             hi = min(lo + self.prefill_chunk, prompt.shape[0])
-            toks = torch.as_tensor(prompt[None, lo:hi], dtype=torch.int64,
-                                   device=self.device)
             with self._prefill_span(slot, lo, hi):
+                with tracing.span("h2d_tokens"):
+                    toks = torch.as_tensor(prompt[None, lo:hi],
+                                           dtype=torch.int64,
+                                           device=self.device)
                 logits = self._prefill_staged(i, slot, toks,
                                               last=hi == prompt.shape[0])
             slot.n_prefilled = hi
@@ -328,7 +342,6 @@ class ContinuousServeEngine:
                 done.append((i, slot, logits[0, -1]))
         if done:
             self._commit_prefilled(done, finished)
-            self.stats.prefill_seconds += time.perf_counter() - t0
         live = [i for i, s in enumerate(self.slots)
                 if s is not None and s.state1 is None]
         if live:

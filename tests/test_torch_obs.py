@@ -248,8 +248,8 @@ def ref_model():
 @pytest.mark.parametrize("name", ["continuous", "paged"])
 def test_snapshot_parity_with_reference(name):
     """After the same trace in ``off`` mode: the port's snapshot keys are
-    the reference's plus ``prefill_seconds`` and ``decode_seconds``, every
-    shared key's value equal; ``record_stats`` mirrors every key."""
+    the reference's, every value equal; ``record_stats`` mirrors every
+    key."""
     cls, ref_cls = ENGINES[name]
     _, cfg, _, _, params, _, _ = setup(ARCH)
     rcfg, rparams = ref_model()
@@ -259,9 +259,8 @@ def test_snapshot_parity_with_reference(name):
     ref.run(requests(RefRequest, cfg.vocab_size))
     mine, theirs = eng.stats.snapshot(), ref.stats.snapshot()
     assert type(eng.stats) is ServeStats
-    assert set(mine) == set(theirs) | {"prefill_seconds", "decode_seconds"}
-    assert {k: mine[k] for k in theirs} == theirs
-    assert mine["decode_seconds"] > 0 and mine["prefill_seconds"] > 0
+    assert set(mine) == set(theirs)
+    assert mine == theirs
     tel = ServeTelemetry(engine=name)
     tel.record_stats(eng.stats)
     snap = obs.snapshot(tel.registry)
